@@ -9,10 +9,12 @@ Phases (any failure exits non-zero before the result line):
      TF32 off for f32 matmuls and convolutions.
   2. builds both paged-attention kernels from ``src/repro_torch/kernels/
      csrc`` (nvcc, in parallel) and prints the build time and ptxas report.
-  3. holds each kernel against its plain PyTorch version on the card at
-     the serving path's shapes (page 16, head_dim 64, group 1 and 4, ragged
-     lengths up to 576 over a shuffled page table with stale entries, a
-     64-token chunk with scalar and per-sequence start; f32, bf16 and int8
+  3. holds each kernel entry against its plain PyTorch version on the card
+     at the serving path's shapes (page 16, head_dim 64, group 1 and 4,
+     ragged lengths up to 576 over a shuffled page table with stale
+     entries; a 64-token chunk with scalar and per-sequence start; the
+     speculative verify window at C = 1, 2, 4, 5, 8 with ragged fed
+     lengths and an inactive row on the null page; f32, bf16 and int8
      pools) and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention`` on the gathered dense KV; prints
      each kernel's bound (bytes over 3.35 TB/s or operations over the
@@ -20,13 +22,22 @@ Phases (any failure exits non-zero before the result line):
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
-     once with native and once with int8 KV. Both kernels' launch counters
-     must rise, the trace must reconcile and every page must be freed.
+     once with native and once with int8 KV; then, on the same traffic
+     and counting the launches of this path on their own, with n-gram
+     speculation (k=4), with the target drafting for itself (acceptance
+     must reach 0.9 at temperature 0) and twice with sampling
+     (temperature 0.8, top-k 50, top-p 0.9, n-gram spec, one
+     sample_seed: the two runs must agree). Every run must launch its
+     path's kernels, reconcile its trace, free every page and emit
+     in-vocabulary tokens. The sampler's counter-based draws on the card
+     must equal the CPU's, and its tokens follow the filtered softmax.
      Then torch.profiler splits one fused decode block's time by kernel
      and gives the device's busy share of its wall time.
   5. in f32 at full width: the kernel path's logits agree with the CPU
-     plain path on one prompt, and decode_lookahead 8 is token-identical
-     to decode_lookahead 1.
+     plain path on one prompt; decode_lookahead 8 is token-identical to
+     decode_lookahead 1, and n-gram speculation (k=4) to no speculation
+     (a divergence is allowed only where the spec-off top-2 logit gap is
+     below 1e-4).
 Then prints the per-kernel JSON line and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -47,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM device memory
 # the tensor cores; f32 on the CUDA cores (TF32 is off)
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PS, DH, H, MAX_LEN, C = 16, 64, 32, 576, 64
+VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
 
 
 def log(msg: str) -> None:
@@ -178,6 +190,44 @@ def kernel_cases(torch, kern):
                        + 8 * Bc + keys * kv_row,
                        4 * H * DH * row_keys, tol)
 
+            # speculative verify: the windows of spec_k 4 and 7; ragged
+            # landed lengths with room for the window, 1..C fed tokens, and
+            # row 0 inactive as the model draft's catch-up feeds it
+            # (seq_len 0, one fed token, a table of null pages)
+            for Cv in VERIFY_C:
+                sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
+                                   device=dev).to(torch.int32)
+                nf = torch.randint(1, Cv + 1, (B,), generator=g,
+                                   device=dev).to(torch.int32)
+                sl[0], nf[0], sl[1], nf[1] = 0, 1, MAX_LEN - Cv, Cv
+                ptv = pt.clone()
+                ptv[0] = 0
+                qv = torch.randn((B, Cv, H, DH), generator=g,
+                                 device=dev).to(qdt)
+                kdv = kern._dequant(kp, ptv, sc.get("k_scale")).to(qdt)
+                vdv = kern._dequant(vp, ptv, sc.get("v_scale")).to(qdt)
+                qpos = torch.minimum(                             # (B, Cv)
+                    sl[:, None] + torch.arange(Cv, device=dev),
+                    (sl + nf - 1)[:, None])
+                vmask = (pos[None, None] <= qpos[..., None])[:, None]
+                yield ("spec_verify_attention",
+                       f"group={grp} pool={pool} C={Cv}",
+                       pool if pool != "int8" else "bfloat16",
+                       lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                       sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
+                                                         nf, **sc),
+                       lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                       sc=sc: kern.spec_verify_attention_plain(
+                           q, kp, vp, pt, sl, nf, **sc),
+                       lambda q=qv, k=kdv.permute(0, 2, 1, 3)
+                       .repeat_interleave(grp, 1),
+                       v=vdv.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
+                       m=vmask: F.scaled_dot_product_attention(
+                           q.transpose(1, 2), k, v, attn_mask=m),
+                       2 * qv.numel() * qv.element_size() + ptv.numel() * 4
+                       + 8 * B + int((sl + nf).sum()) * kv_row,
+                       4 * H * DH * int((qpos + 1).sum()), tol)
+
 
 def check_kernels(torch, kern):
     rows = []
@@ -224,53 +274,143 @@ def requests(vocab: int):
     return reqs
 
 
+KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
+           "spec_verify_attention")
+
+
+def zero_counts(kern) -> None:
+    for name in KERNELS:
+        getattr(kern, name).launches = 0
+
+
+def read_counts(kern) -> dict:
+    return {name: getattr(kern, name).launches for name in KERNELS}
+
+
+def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
+              label, need, **kw):
+    """One full-width bf16 serve of ``reqs`` (64 new tokens each). The
+    kernels in ``need`` must launch during it; the trace must reconcile,
+    every page must be freed and every token lie in the vocabulary.
+    Returns (engine, outputs, result row)."""
+    before = read_counts(kern)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
+                      device="cuda", seed=0, scheduler="continuous",
+                      page_size=PS, max_batch=8, prefill_chunk=C,
+                      decode_lookahead=8, max_len=MAX_LEN, **kw)
+    outs = eng.serve([r[:] for r in reqs], 64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats
+    n = {k: v - before[k] for k, v in read_counts(kern).items()}
+    check(all(n[k] > 0 for k in need), f"{label}: kernels not launched {n}")
+    check(eng.trace_report["ok"], f"{label}: trace did not reconcile")
+    check(eng.kv_manager.n_used == 0, f"{label}: pages leaked")
+    check(all(len(o) == 64 and all(0 <= t < cfg.vocab for t in o)
+              for o in outs), f"{label}: malformed outputs")
+    row = dict(
+        tokens_per_s=s.tps, ttft_p50_ms=s.ttft_p50 * 1e3,
+        ttft_p95_ms=s.ttft_p95 * 1e3, itl_p50_ms=s.itl_p50 * 1e3,
+        itl_p95_ms=s.itl_p95 * 1e3, host_syncs=s.host_syncs,
+        prefill_tokens_computed=s.prefill_tokens_computed,
+        prefill_tokens_saved=s.cached_prefix_tokens,
+        peak_pages=s.peak_pages_used, cow_copies=s.cow_copies,
+        decode_steps=s.decode_steps, prefill_s=s.prefill_s,
+        decode_s=s.decode_s, serve_s=s.serve_s, wall_s=wall,
+        spec_blocks=s.spec_blocks, draft_proposed=s.draft_proposed,
+        draft_accepted=s.draft_accepted, acceptance=s.acceptance_rate,
+        launches=n)
+    log(f"engine {label:14s} tokens/s={s.tps:.1f} "
+        f"ttft p50/p95={s.ttft_p50*1e3:.1f}/{s.ttft_p95*1e3:.1f}ms "
+        f"itl p50/p95={s.itl_p50*1e3:.2f}/{s.itl_p95*1e3:.2f}ms "
+        f"host_syncs={s.host_syncs} accept={s.acceptance_rate:.3f} "
+        f"({s.draft_accepted}/{s.draft_proposed}, {s.spec_blocks} passes) "
+        f"prefill_saved={s.cached_prefix_tokens} "
+        f"peak_pages={s.peak_pages_used} launches "
+        + " ".join(f"{k.split('_')[0]}={v}" for k, v in n.items())
+        + f" wall={wall:.1f}s")
+    return eng, outs, row
+
+
 def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
+    """The spec-off path: greedy, native and int8 KV."""
     reqs = requests(cfg.vocab)
     results = {}
     params = None
-    kern.paged_decode_attention.launches = 0
-    kern.chunk_prefill_attention.launches = 0
+    zero_counts(kern)
     for policy in ("native", "int8"):
-        before = (kern.paged_decode_attention.launches,
-                  kern.chunk_prefill_attention.launches)
-        t0 = time.perf_counter()
-        eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
-                          device="cuda", seed=0, kv_policy=policy,
-                          scheduler="continuous", page_size=PS, max_batch=8,
-                          prefill_chunk=C, decode_lookahead=8,
-                          max_len=MAX_LEN)
-        params = eng.params                 # one seeded init for both runs
-        outs = eng.serve([r[:] for r in reqs], 64)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        s = eng.stats
-        n_dec = kern.paged_decode_attention.launches - before[0]
-        n_chk = kern.chunk_prefill_attention.launches - before[1]
-        check(n_dec > 0 and n_chk > 0, f"{policy}: kernels not launched")
-        check(eng.trace_report["ok"], f"{policy}: trace did not reconcile")
-        check(eng.kv_manager.n_used == 0, f"{policy}: pages leaked")
-        check(all(len(o) == 64 and all(0 <= t < cfg.vocab for t in o)
-                  for o in outs), f"{policy}: malformed outputs")
-        saved = s.cached_prefix_tokens
-        results[policy] = dict(
-            tokens_per_s=s.tps, ttft_p50_ms=s.ttft_p50 * 1e3,
-            ttft_p95_ms=s.ttft_p95 * 1e3, itl_p50_ms=s.itl_p50 * 1e3,
-            itl_p95_ms=s.itl_p95 * 1e3, host_syncs=s.host_syncs,
-            prefill_tokens_computed=s.prefill_tokens_computed,
-            prefill_tokens_saved=saved, peak_pages=s.peak_pages_used,
-            cow_copies=s.cow_copies, decode_steps=s.decode_steps,
-            prefill_s=s.prefill_s, decode_s=s.decode_s, serve_s=s.serve_s,
-            wall_s=wall, decode_launches=n_dec, chunk_launches=n_chk)
-        log(f"engine {policy:6s} tokens/s={s.tps:.1f} "
-            f"ttft p50/p95={s.ttft_p50*1e3:.1f}/{s.ttft_p95*1e3:.1f}ms "
-            f"itl p50/p95={s.itl_p50*1e3:.2f}/{s.itl_p95*1e3:.2f}ms "
-            f"host_syncs={s.host_syncs} prefill_saved={saved} "
-            f"peak_pages={s.peak_pages_used} launches decode={n_dec} "
-            f"chunk={n_chk} wall={wall:.1f}s")
-    launches = {"paged_decode_attention": kern.paged_decode_attention.launches,
-                "chunk_prefill_attention":
-                    kern.chunk_prefill_attention.launches}
-    return results, launches, params
+        eng, _, results[policy] = serve_run(
+            torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
+            policy, ("paged_decode_attention", "chunk_prefill_attention"),
+            kv_policy=policy)
+        params = eng.params                 # one seeded init for every run
+    return results, read_counts(kern), params
+
+
+def sampling_on_card(torch):
+    """The counter-based draws on the card equal the CPU's (the integer
+    hash exactly, the Gumbel noise to the last f32 place), and tokens
+    sampled on the card follow softmax(filtered logits)."""
+    from repro_torch.models import sampling as ts
+    rids, idx = torch.arange(64) * 7919, torch.arange(64) * 3
+    draw = torch.arange(4096)
+    kc = ts.request_keys(5, rids.cuda(), idx.cuda())
+    kh = ts.request_keys(5, rids, idx)
+    check(torch.equal(ts.uniforms(kc, draw.cuda()).cpu(),
+                      ts.uniforms(kh, draw)), "uniforms differ card vs CPU")
+    gerr = float((ts.gumbel(kc, 4096).cpu() - ts.gumbel(kh, 4096)).abs()
+                 .max())
+    check(gerr <= 1e-5, f"Gumbel noise differs card vs CPU by {gerr:.2e}")
+    V, N = 8, 20000
+    row = torch.tensor([1.2, 0.3, -0.4, 2.0, 0.0, -1.0, 0.9, 0.1],
+                       device="cuda")
+    keys = ts.request_keys(1, torch.arange(N, device="cuda") % 97,
+                           torch.arange(N, device="cuda") // 97)
+    kw = dict(temperature=0.8, top_k=6, top_p=0.9)
+    tok = ts.sample(row.expand(N, V), ts.gumbel(keys, V), **kw)
+    emp = torch.bincount(tok.long(), minlength=V).float().cpu() / N
+    want = torch.softmax(ts.filtered_logits(row[None], **kw), -1)[0].cpu()
+    tv = 0.5 * float((emp - want).abs().sum())
+    check(tv < 0.03, f"sampled frequencies off by TV {tv:.3f}")
+    log(f"sampling draws on the card == CPU (Gumbel max diff {gerr:.1e}); "
+        f"{N} sampled tokens within TV {tv:.4f} of softmax(filtered)")
+    return dict(gumbel_max_diff=gerr, sample_tv=tv)
+
+
+def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
+    """The speculative and sampling path on the same traffic: n-gram spec,
+    the target drafting for itself, and two sampled runs."""
+    reqs = requests(cfg.vocab)
+    spec = dict(spec_mode="ngram", spec_k=4)
+    sampled = dict(spec, temperature=0.8, top_k=50, top_p=0.9,
+                   sample_seed=7, overlap=False)
+    runs = {}
+    zero_counts(kern)
+    _, greedy, runs["ngram"] = serve_run(
+        torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs, "ngram",
+        ("spec_verify_attention", "chunk_prefill_attention"), **spec)
+    _, _, runs["self-draft"] = serve_run(
+        torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
+        "self-draft", KERNELS, spec_mode="model", spec_k=4, draft_cfg=cfg,
+        draft_params=params)
+    acc = runs["self-draft"]["acceptance"]
+    check(acc >= 0.9, f"self-draft accepted {acc:.3f} < 0.9 of its "
+          f"proposals: the draft's decode path and the target's verify "
+          f"path disagree")
+    outs = []
+    for i in range(2):
+        _, o, runs[f"sampled-{i}"] = serve_run(
+            torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
+            f"sampled-{i}", ("spec_verify_attention",), **sampled)
+        outs.append(o)
+    check(outs[0] == outs[1], "sampled runs with one sample_seed differ")
+    same = sum(a == b for a, b in zip(outs[0], greedy))
+    log(f"sampled runs identical; {same}/{len(greedy)} requests equal to "
+        f"the greedy n-gram run")
+    counts = read_counts(kern)
+    runs["sampling_draws"] = sampling_on_card(torch)
+    return runs, counts
 
 
 def profile_decode_block(torch, tm, cfg, params):
@@ -371,7 +511,53 @@ def f32_checks(torch, tm, ServeEngine, cfg):
     check(outs[1] == outs[8], "decode_lookahead 8 diverged from 1")
     log(f"f32 decode_lookahead 8 == 1 on {len(reqs)} requests "
         f"({sum(map(len, outs[8]))} tokens)")
+
+    # n-gram speculation (k=4) == no speculation, up to a near-tie
+    eng = ServeEngine(cfg, params, opts, device="cuda",
+                      scheduler="continuous", page_size=PS, max_batch=8,
+                      prefill_chunk=C, max_len=MAX_LEN, spec_mode="ngram",
+                      spec_k=4)
+    spec = eng.serve([r[:] for r in reqs], 16)
+    check(eng.trace_report["ok"] and eng.kv_manager.n_used == 0,
+          "spec: trace did not reconcile or pages leaked")
+    check(eng.stats.spec_blocks > 0, "spec: no verify pass ran")
+    n_tie = 0
+    for prompt, got, want in zip(reqs, spec, outs[8]):
+        if got != want:
+            n = tie_free_prefix(torch, tm, cfg, params, opts, prompt, want)
+            check(n < len(want) and got[:n] == want[:n],
+                  f"f32 n-gram spec diverged from spec-off before any "
+                  f"near-tie: {got} vs {want}")
+            n_tie += 1
+    log(f"f32 n-gram spec k=4 == spec-off on {len(reqs)} requests "
+        f"({eng.stats.spec_blocks} verify passes, accepted "
+        f"{eng.stats.draft_accepted}/{eng.stats.draft_proposed}; "
+        f"{n_tie} requests differ after a top-2 gap < 1e-4)")
     return err
+
+
+def tie_free_prefix(torch, tm, cfg, params, opts, prompt, out, gap=1e-4):
+    """Length of ``out`` before the first position whose spec-off logits
+    (one chunked prefill of prompt + out) have a top-2 gap below ``gap``:
+    there argmax may flip between two correct runs."""
+    seq = prompt + out
+    n_pp = -(-MAX_LEN // PS)
+    cache = tm.init_paged_cache(cfg, n_pp + 1, PS, opts, "cuda")
+    pt = torch.arange(1, n_pp + 1, dtype=torch.int32, device="cuda")[None]
+    rows = []
+    for start in range(0, len(seq), C):
+        toks = torch.zeros((1, C), dtype=torch.int32, device="cuda")
+        chunk = seq[start:start + C]
+        toks[0, :len(chunk)] = torch.tensor(chunk, device="cuda")
+        lg, cache = tm.prefill_paged_chunk(
+            cfg, params, toks, cache, pt, start,
+            torch.tensor([start + len(chunk)], dtype=torch.int32,
+                         device="cuda"), opts)
+        rows.append(lg[0, :len(chunk)].float().cpu())
+    lg = torch.cat(rows)[len(prompt) - 1:len(prompt) - 1 + len(out)]
+    top2 = lg.topk(2, dim=-1).values
+    near = torch.nonzero(top2[:, 0] - top2[:, 1] < gap)
+    return int(near[0, 0]) if len(near) else len(out)
 
 
 def _to(tree, device):
@@ -438,6 +624,9 @@ def main() -> None:
     cfg = get_config("llama3.2-1b")
     engine, launches, params = serve_full_width(torch, kern, ServeEngine,
                                                 tm.RuntimeOptions, cfg)
+    spec_runs, spec_launches = serve_spec(torch, kern, ServeEngine,
+                                          tm.RuntimeOptions, cfg, params)
+    engine.update(spec_runs)
     breakdown = profile_decode_block(torch, tm, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -446,20 +635,29 @@ def main() -> None:
     f32_err = f32_checks(torch, tm, ServeEngine, cfg)
 
     # the main path's configuration: bf16 pool, group 1 (llama3.2-1b as
-    # the paper sizes it: 32 KV heads), and the engine's scalar-start chunk
+    # the paper sizes it: 32 KV heads), the engine's scalar-start chunk and
+    # the full verify window of spec_k 4. Launches: the spec-off path's
+    # for the first two, the speculative path's for the verify entry.
     head = {"paged_decode_attention": "group=1 pool=bfloat16",
             "chunk_prefill_attention":
-                "group=1 pool=bfloat16 start=scalar"}
+                "group=1 pool=bfloat16 start=scalar",
+            "spec_verify_attention": "group=1 pool=bfloat16 C=5"}
     replaces = {"paged_decode_attention":
                     "src/repro/kernels/decode_attention.py:180",
                 "chunk_prefill_attention":
-                    "src/repro/kernels/decode_attention.py:284"}
+                    "src/repro/kernels/decode_attention.py:284",
+                "spec_verify_attention":
+                    "src/repro/kernels/decode_attention.py:360"}
+    launches["spec_verify_attention"] = spec_launches["spec_verify_attention"]
+    source = dict(kern._SOURCES,
+                  spec_verify_attention=kern._SOURCES[
+                      "chunk_prefill_attention"])
     kernels = []
     for name, case in head.items():
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
             name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{kern._SOURCES[name]}",
+            source=f"src/repro_torch/kernels/csrc/{source[name]}",
             replaces=replaces[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -469,6 +667,7 @@ def main() -> None:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             gpu=smi, kernel_cases=rows, engine=engine,
+            spec_path_launches=spec_launches,
             decode_block=breakdown, f32_logit_err=f32_err,
             build_s=built, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,9 +16,13 @@
 // row tile stop at its own causal frontier (earlier row tiles read fewer
 // pages). mma/wgmma on the tiles is the planned redesign.
 //
-// start is a (B,) tensor from the start (the wrapper broadcasts a scalar),
-// so the speculative-verify window (per-sequence start) needs only a
-// wrapper over this kernel.
+// start is a (B,) tensor (the prefill wrapper broadcasts a scalar). The
+// speculative-verify window is this kernel too (spec_verify_attention in
+// decode_attention.py, replacing repro/kernels/decode_attention.py::
+// spec_verify_attention): start = seq_lens, n_valid = seq_lens + n_fed,
+// C = spec_k + 1 or less, so a block may hold as few as one row; rows past
+// a sequence's fed window (n_fed <= r / group) see exactly the last fed
+// row's frontier through the min() with n_valid.
 #include "dispatch.cuh"
 
 namespace repro_paged {

@@ -11,8 +11,9 @@
 //   out = acc / max(l, 1e-30), written in the query's dtype.
 // int8 K/V are multiplied by their per-kv-head f32 scale as they are staged.
 //
-// Design (memory bound: every KV byte is read once per row tile and reused
-// across the tile's rows from shared memory):
+// Design (every KV byte is read once per row tile and reused across the
+// tile's rows from shared memory; measured latency bound on the H100, by
+// the serial tile walk, not by bandwidth):
 //   * one thread block of NT threads per (sequence, kv head, row tile);
 //   * the keys are walked in tiles of TK = 4096 / DH positions, which may
 //     span several pages: each staged vector reads its own page id from the

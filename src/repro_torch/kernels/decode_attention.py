@@ -1,21 +1,27 @@
 """Paged attention kernels for the H100, with their plain PyTorch versions.
 
 Two hand-written CUDA kernels (``csrc/``) carry the continuous-batching
-path's attention:
+path's attention, reached through three entries:
 
 * ``paged_decode_attention`` — one query token per sequence against the
   page-table-indirected KV pool (replaces the TPU kernel
   ``repro/kernels/decode_attention.py::paged_decode_attention``);
 * ``chunk_prefill_attention`` — a fixed-size prefill chunk against the pool,
-  causal by absolute position (replaces ``chunk_prefill_attention`` there).
+  causal by absolute position (replaces ``chunk_prefill_attention`` there);
+* ``spec_verify_attention`` — the speculative verify window, a per-sequence
+  start and per-row frontier (replaces ``spec_verify_attention`` there,
+  which is the chunk kernel's ``pallas_call`` with ``start=seq_lens``; here
+  too it launches the chunk kernel).
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
 counts its launches in a plain integer attribute (``.launches``).
 
-Both kernels are memory bound on the H100 (KV bytes); the source notes in
-``csrc/*.cu`` say what the design does about it.
+Measured on the H100 (PERF.md), both kernels are latency bound, not
+memory bound: about 10x (decode) and 70x (chunk) their byte bound, set by
+their serial walk over key tiles and the chunk kernel's f32 FMA dot
+products. The source notes in ``csrc/*.cu`` say what the design does.
 
 Build: ``nvcc`` compiles each ``.cu`` into its own shared library under
 ``build/repro_torch/`` at first use, keyed by a hash of the sources, and
@@ -282,27 +288,17 @@ paged_decode_attention.launches = 0
 
 # ---------------------------- chunk prefill ----------------------------- #
 
-def chunk_prefill_attention_plain(q, k_pages, v_pages, page_table, start,
-                                  n_valid, *, scale: float = None,
-                                  k_scale=None, v_scale=None):
-    """Plain PyTorch version: gather the pages densely; query (b, c) sits at
-    absolute position start[b] + c and attends key positions
-    < min(start[b] + c + 1, n_valid[b]). q: (B, C, H, dh) -> (B, C, H, dh)."""
+def _attend_chunk_plain(q, k_pages, v_pages, page_table, hi, *, scale,
+                        k_scale, v_scale):
+    """Gather the pages densely; query (b, c) attends key positions
+    < hi[b, c], softmax in f32. q: (B, C, H, dh); hi: (B, C)."""
     B, C, H, dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     kd = _dequant(k_pages, page_table, k_scale)
     vd = _dequant(v_pages, page_table, v_scale)
     L, Hkv = kd.shape[1], kd.shape[2]
     g = H // Hkv
-    if isinstance(start, torch.Tensor):
-        start = start.to(q.device, torch.int32).reshape(-1).expand(B)
-    else:
-        start = torch.full((B,), int(start), dtype=torch.int32,
-                           device=q.device)
-    n_valid = n_valid.to(q.device)
-    limit = torch.minimum(start[:, None] + torch.arange(C, device=q.device)
-                          + 1, n_valid[:, None])            # (B, C)
-    mask = torch.arange(L, device=q.device)[None, None, :] < limit[:, :, None]
+    mask = torch.arange(L, device=q.device)[None, None, :] < hi[:, :, None]
     qg = q.reshape(B, C, Hkv, g, dh).float()
     s = torch.einsum("bchgd,blhd->bhgcl", qg, kd) * scale
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
@@ -310,6 +306,55 @@ def chunk_prefill_attention_plain(q, k_pages, v_pages, page_table, start,
     o = (torch.einsum("bhgcl,blhd->bchgd", p, vd)
          / l.permute(0, 3, 1, 2)[..., None])
     return o.reshape(B, C, H, dh).to(q.dtype)
+
+
+def _start_vector(start, B: int, device) -> torch.Tensor:
+    """A scalar or (B,) start as a contiguous (B,) int32 tensor on
+    ``device`` (a host int is filled on the device: no host-to-device
+    copy)."""
+    if isinstance(start, torch.Tensor):
+        return start.to(device, torch.int32).reshape(-1).expand(B).contiguous()
+    return torch.full((B,), int(start), dtype=torch.int32, device=device)
+
+
+def _launch_chunk(name, q, k_pages, v_pages, page_table, start, n_valid, *,
+                  scale, k_scale, v_scale):
+    """Check and launch the chunk kernel (csrc/chunk_prefill_attention.cu)
+    for the entry ``name``; start and n_valid are (B,) int32 on the card."""
+    B, C, H, dh = q.shape
+    _check(q, k_pages, v_pages, k_scale, v_scale, (page_table, start, n_valid),
+           q_ndim=4)
+    n_pages, ps, Hkv = k_pages.shape[:3]
+    if (page_table.dim() != 2 or page_table.shape[0] != B
+            or start.shape != (B,) or n_valid.shape != (B,)):
+        raise ValueError("page_table must be (B, n_pp), start and n_valid "
+                         "(B,)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    fn = _lib("chunk_prefill_attention").chunk_prefill_attention
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B, C, H, Hkv, dh,
+            ps, page_table.shape[1], n_pages, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pages.dtype], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed (rc={rc})")
+    return out
+
+
+def chunk_prefill_attention_plain(q, k_pages, v_pages, page_table, start,
+                                  n_valid, *, scale: float = None,
+                                  k_scale=None, v_scale=None):
+    """Plain PyTorch version: gather the pages densely; query (b, c) sits at
+    absolute position start[b] + c and attends key positions
+    < min(start[b] + c + 1, n_valid[b]). q: (B, C, H, dh) -> (B, C, H, dh)."""
+    B, C = q.shape[:2]
+    start = _start_vector(start, B, q.device)
+    hi = torch.minimum(start[:, None] + torch.arange(C, device=q.device) + 1,
+                       n_valid.to(q.device)[:, None])          # (B, C)
+    return _attend_chunk_plain(q, k_pages, v_pages, page_table, hi,
+                               scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
 def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
@@ -327,31 +372,61 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
         return chunk_prefill_attention_plain(
             q, k_pages, v_pages, page_table, start, n_valid, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
-    B, C, H, dh = q.shape
-    if isinstance(start, torch.Tensor):
-        start = start.to(q.device, torch.int32).reshape(-1).expand(B)
-        start = start.contiguous()
-    else:      # a host int: fill on the device (no host-to-device copy)
-        start = torch.full((B,), int(start), dtype=torch.int32,
-                           device=q.device)
-    _check(q, k_pages, v_pages, k_scale, v_scale, (page_table, start, n_valid),
-           q_ndim=4)
-    n_pages, ps, Hkv = k_pages.shape[:3]
-    if page_table.dim() != 2 or page_table.shape[0] != B or n_valid.shape != (B,):
-        raise ValueError("page_table must be (B, n_pp) and n_valid (B,)")
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    out = torch.empty_like(q)
-    fn = _lib("chunk_prefill_attention").chunk_prefill_attention
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
-            _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B, C, H, Hkv, dh,
-            ps, page_table.shape[1], n_pages, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"chunk_prefill_attention launch failed (rc={rc})")
+    out = _launch_chunk("chunk_prefill_attention", q, k_pages, v_pages,
+                        page_table, _start_vector(start, q.shape[0],
+                                                  q.device),
+                        n_valid, scale=scale, k_scale=k_scale,
+                        v_scale=v_scale)
     chunk_prefill_attention.launches += 1
     return out
 
 
 chunk_prefill_attention.launches = 0
+
+
+# --------------------------- speculative verify ------------------------- #
+
+def spec_verify_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                n_fed, *, scale: float = None, k_scale=None,
+                                v_scale=None):
+    """Plain PyTorch version, the reference's XLA route for a per-sequence
+    start: gather the pages densely; row j of sequence b sits at position
+    ``min(seq_lens[b] + j, seq_lens[b] + n_fed[b] - 1)`` (pad rows clipped
+    to the last fed row) and attends key positions <= it.
+    q: (B, C, H, dh) -> (B, C, H, dh)."""
+    C = q.shape[1]
+    seq_lens = seq_lens.to(q.device, torch.int64)
+    last = seq_lens + n_fed.to(q.device, torch.int64) - 1
+    qpos = torch.minimum(seq_lens[:, None] + torch.arange(C, device=q.device),
+                         last[:, None])                       # (B, C)
+    return _attend_chunk_plain(q, k_pages, v_pages, page_table, qpos + 1,
+                               scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
+                          *, scale: float = None, k_scale=None,
+                          v_scale=None):
+    """Speculative-verify attention: a window of C queries per sequence
+    against the paged pool, per-sequence start, per-row causal frontier.
+
+    q: (B, C, H, dh) — the window ``[t_last, d_1 .. d_{C-1}]`` at absolute
+    positions ``seq_lens[b] + j``; the pool ALREADY holds the window's KV.
+    seq_lens: (B,) int32 tokens landed before the window; n_fed: (B,) int32
+    real window tokens (1 <= n_fed <= C; shorter drafts right-pad). Row j
+    attends key positions ``<= seq_lens[b] + min(j, n_fed[b] - 1)``.
+
+    On the card this is the chunk kernel (``csrc/chunk_prefill_attention
+    .cu``) with ``start = seq_lens`` and ``n_valid = seq_lens + n_fed``,
+    set on the device. Returns (B, C, H, dh) in q's dtype."""
+    if not _on_cuda(q):
+        return spec_verify_attention_plain(
+            q, k_pages, v_pages, page_table, seq_lens, n_fed, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
+    out = _launch_chunk("spec_verify_attention", q, k_pages, v_pages,
+                        page_table, seq_lens, seq_lens + n_fed, scale=scale,
+                        k_scale=k_scale, v_scale=v_scale)
+    spec_verify_attention.launches += 1
+    return out
+
+
+spec_verify_attention.launches = 0

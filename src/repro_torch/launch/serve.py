@@ -1,5 +1,6 @@
 """Serving CLI of the PyTorch port: continuous batching over the paged KV
-pool, greedy decoding, on the GPU by default.
+pool, greedy or sampled decoding, optionally speculative, on the GPU by
+default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --scheduler continuous --concurrency 16 --prompt-len 256 \\
@@ -8,11 +9,15 @@ pool, greedy decoding, on the GPU by default.
     # a small CPU run (the plain attention path instead of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --reduced --concurrency 5 --device cpu
+    # speculative decoding (n-gram draft), then sampling
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --reduced --device cpu --spec-mode ngram --spec-k 4 --shared-doc 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --reduced --device cpu --temperature 0.8 --top-p 0.9
 
 The flags and their destinations are the reference CLI's
-(``repro/launch/serve.py``). Options this slice does not run yet
-(``--scheduler static``, ``--spec-mode``, ``--temperature``/``--top-k``/
-``--top-p``, ``--shards`` > 1) are rejected by the engine with
+(``repro/launch/serve.py``). Options the port does not run yet
+(``--scheduler static``, ``--shards`` > 1) are rejected by the engine with
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -67,16 +72,28 @@ def main(argv=None) -> None:
                          "and any K is token-identical (default: 8)")
     ap.add_argument("--spec-mode", default="off",
                     choices=["off", "ngram", "model"],
-                    help="speculative decoding (not ported yet)")
-    ap.add_argument("--spec-k", type=int, default=4)
+                    help="speculative decoding: 'ngram' drafts by prompt "
+                         "lookup (model-free), 'model' drafts with a small "
+                         "paged-KV model (--draft-config)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens verified per pass (the verify "
+                         "window is K+1 wide; acceptance-adaptive per "
+                         "request)")
     ap.add_argument("--draft-config",
-                    help="arch of the --spec-mode model draft (not ported)")
+                    help="arch name for the --spec-mode model draft "
+                         "(reduced with --d-model/2 when --reduced)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (only 0, greedy, is ported)")
-    ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--top-p", type=float, default=1.0)
+                    help="sampling temperature (0: greedy). Draws are made "
+                         "on the device from per-request counters; with "
+                         "spec decoding, leftover/rejection sampling keeps "
+                         "the output distribution exact")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k logit filter (0: off; needs --temperature)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus filter (1.0: off; needs --temperature)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the weights and of the request stream")
+                    help="seed of the weights, the request stream and the "
+                         "per-request sampling draws")
     ap.add_argument("--shared-doc", type=int, default=0,
                     help="prepend a shared document of this many tokens to "
                          "every request (exercises prefix dedup)")
@@ -119,7 +136,11 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, d_model=args.d_model)
-    draft_cfg = get_config(args.draft_config) if args.draft_config else None
+    draft_cfg = None
+    if args.draft_config:
+        draft_cfg = get_config(args.draft_config)
+        if args.reduced:
+            draft_cfg = reduced(draft_cfg, d_model=max(args.d_model // 2, 16))
     max_len = args.prompt_len + args.new_tokens + args.shared_doc
     hier = None
     if args.chiplet_mb is not None and args.kv_fast_mb is None:
@@ -201,6 +222,11 @@ def main(argv=None) -> None:
                   f"hit_rate={s.chiplet_hit_rate:.0%} "
                   f"promoted={s.chiplet_promotions}p "
                   f"demoted={s.chiplet_demotions}p channels[{chan}]")
+    if args.spec_mode != "off":
+        print(f"[serve] spec: mode={args.spec_mode} k={args.spec_k} "
+              f"blocks={s.spec_blocks} proposed={s.draft_proposed} "
+              f"accepted={s.draft_accepted} "
+              f"accept_rate={s.acceptance_rate:.0%}")
     # ---- structured trace exports ---- #
     agg = eng.trace.aggregate_breakdown_ms()
     print("[serve] time breakdown: " + " ".join(

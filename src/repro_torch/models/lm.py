@@ -1,5 +1,6 @@
 """Decoder-only LM over the paged KV pool, in PyTorch: the continuous
-engine's chunked prefill, fused K-step greedy decode and copy-on-write.
+engine's chunked prefill, fused K-step decode (greedy or sampled),
+speculative verify and copy-on-write.
 
 The reference is ``repro/models/lm.py`` (its paged subset). Parameters keep
 its layout: ``params["stack"]`` carries a leading ``n_layers`` axis and the
@@ -17,7 +18,13 @@ Public surface:
                         n_valid, opts, calibrate=)      -> (logits, cache)
     decode_step_paged(cfg, params, token, seq_lens, page_table, cache, opts)
     decode_steps_paged(cfg, params, tokens, seq_lens, page_table, cache,
-                       n_steps, opts, eos_id=, pad_id=, done=, quota=)
+                       n_steps, opts, eos_id=, pad_id=, temperature=,
+                       top_k=, top_p=, keys=, done=, quota=)
+    decode_verify_paged(cfg, params, tokens, seq_lens, n_fed, page_table,
+                        cache, opts)                    -> (logits, cache)
+    spec_decode_verify(cfg, params, tokens, draft_len, seq_lens, page_table,
+                       cache, keys, opts, temperature=, top_k=, top_p=,
+                       pad_id=)                         -> (out, n_acc, cache)
     copy_pages(cache, pairs)
 """
 from __future__ import annotations
@@ -236,12 +243,16 @@ def _project_qkv(p, x, cfg: ArchConfig, rope):
 
 
 def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
-                      page_table, start, n_valid, *, calibrate: bool):
-    """Chunk-prefill attention against pooled KV pages. x: (B, C, d).
+                      page_table, start, n_valid, *, calibrate: bool,
+                      n_fed=None):
+    """Chunk attention against pooled KV pages. x: (B, C, d).
 
     Scatters the chunk's KV into the pages covering ``positions`` first,
     then attends causally (by absolute position) across every page the
-    sequence owns — previously cached prefix pages included."""
+    sequence owns — previously cached prefix pages included. ``n_fed``
+    (B,) marks a speculative verify window (``start`` = seq_lens) and
+    routes it to ``spec_verify_attention``; a prefill chunk, whose start
+    is a (B,) tensor too, goes to ``chunk_prefill_attention``."""
     B, C, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
@@ -276,9 +287,14 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
     _write_kv(kp, flat, k_store.reshape(B * C, *k_store.shape[2:]))
     _write_kv(vp, flat, v_store.reshape(B * C, *v_store.shape[2:]))
 
-    out = kern.chunk_prefill_attention(q, kp, vp, page_table, start, n_valid,
-                                       scale=hd ** -0.5, k_scale=ksc,
-                                       v_scale=vsc)
+    if n_fed is not None:
+        out = kern.spec_verify_attention(q, kp, vp, page_table, start, n_fed,
+                                         scale=hd ** -0.5, k_scale=ksc,
+                                         v_scale=vsc)
+    else:
+        out = kern.chunk_prefill_attention(q, kp, vp, page_table, start,
+                                           n_valid, scale=hd ** -0.5,
+                                           k_scale=ksc, v_scale=vsc)
     return cm.dense(p["wo"], out.reshape(B, C, H * hd))
 
 
@@ -383,14 +399,23 @@ def decode_steps_paged(cfg: ArchConfig, params, tokens, seq_lens, page_table,
                        cache, n_steps: int,
                        opts: RuntimeOptions = RuntimeOptions(), *,
                        eos_id: Optional[int] = None, pad_id: int = 0,
-                       done=None, quota=None):
-    """Fused K-step greedy decode over the paged pool.
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, keys=None, done=None, quota=None):
+    """Fused K-step decode over the paged pool.
 
     ``n_steps`` micro-steps run as a Python loop of device work with no
     host sync inside: each step writes the carried token's KV at its slot's
-    current length, attends, takes the argmax on device and advances
+    current length, attends, chooses the next token on device and advances
     per-slot lengths. Every KV position the loop writes must be page-backed
     up front (``PagedKVManager.reserve_ahead``).
+
+    Sampling: greedy argmax at ``temperature <= 0``; otherwise
+    temperature/top-k/top-p with per-slot keys ``keys`` — (B, 2) int64 from
+    ``sampling.request_keys``, whose token index is that of the block's
+    first token; micro-step j draws the noise of token index + j, so a
+    request's draws depend only on its own identity and progress. (The
+    reference returns advanced keys; here the caller re-derives them from
+    the tokens emitted, so the return is always a pair.)
 
     tokens: (B,) last sampled token per slot; seq_lens: (B,) tokens whose
     KV already landed; done: (B,) bool slots that start inactive; quota:
@@ -400,6 +425,10 @@ def decode_steps_paged(cfg: ArchConfig, params, tokens, seq_lens, page_table,
     masked to the null page. Returns ((B, n_steps) int32 tokens, cache)."""
     B = tokens.shape[0]
     dev = tokens.device
+    stochastic = temperature > 0.0
+    if stochastic and keys is None:
+        raise ValueError("stochastic fused decode needs per-slot keys "
+                         "(keys=(B, 2) int64 from sampling.request_keys)")
     dn = (torch.zeros((B,), dtype=torch.bool, device=dev) if done is None
           else done.to(dev, torch.bool))
     quota = (torch.full((B,), n_steps, dtype=torch.int32, device=dev)
@@ -409,12 +438,20 @@ def decode_steps_paged(cfg: ArchConfig, params, tokens, seq_lens, page_table,
     n_emit = torch.zeros((B,), dtype=torch.int32, device=dev)
     pad = torch.full((B,), pad_id, dtype=torch.int32, device=dev)
     cols = []
-    for _ in range(n_steps):
+    for j in range(n_steps):
         # latched slots write into (and read from) the null page only
         pt = torch.where(dn[:, None], 0, page_table)
         logits, cache = decode_step_paged(cfg, params, tok, lens, pt, cache,
                                           opts)
-        nxt = torch.where(dn, pad, sampling_mod.sample_greedy(logits))
+        if stochastic:
+            noise = sampling_mod.gumbel(sampling_mod.advance(keys, j),
+                                        logits.shape[-1])
+            chosen = sampling_mod.sample(logits, noise,
+                                         temperature=temperature,
+                                         top_k=top_k, top_p=top_p)
+        else:
+            chosen = sampling_mod.sample_greedy(logits)
+        nxt = torch.where(dn, pad, chosen)
         n_emit = n_emit + (~dn).to(torch.int32)
         new_dn = dn | (n_emit >= quota)
         if eos_id is not None:
@@ -423,3 +460,77 @@ def decode_steps_paged(cfg: ArchConfig, params, tokens, seq_lens, page_table,
         cols.append(nxt)
         tok, dn = nxt, new_dn
     return torch.stack(cols, dim=1), cache
+
+
+# ------------------------- speculative decoding ------------------------ #
+# A draft (n-gram lookup or a small model) proposes up to K tokens; ONE
+# paged multi-query verify pass scores the whole window against the target
+# model; leftover/rejection sampling keeps the output distribution exactly
+# the target's.
+
+
+def decode_verify_paged(cfg: ArchConfig, params, tokens, seq_lens, n_fed,
+                        page_table, cache,
+                        opts: RuntimeOptions = RuntimeOptions()):
+    """One paged multi-query pass over a (B, C) token window.
+
+    tokens: (B, C) window ``[t_last, d_1 .. d_{C-1}]`` per slot — t_last
+    is the last committed token (its KV has NOT landed; the pass writes
+    it) followed by draft proposals; seq_lens: (B,) int32 tokens whose KV
+    already landed (the window starts there); n_fed: (B,) int32 real
+    window tokens per slot (1 <= n_fed <= C; shorter drafts right-pad).
+    All C KV positions a slot may write must be page-backed
+    (``reserve_ahead(draft_len + 1)``) or fall past the table (null page).
+
+    Logits row j of slot b is the target distribution for the token AFTER
+    window token j. Pad rows write KV beyond the fed window: never
+    committed, overwritten before any read. Returns (logits (B, C, vocab),
+    cache) with the pool updated in place."""
+    B, C = tokens.shape
+    x = _embed_tokens(cfg, params, tokens)
+    seq_lens = seq_lens.to(torch.int32)
+    n_fed = n_fed.to(torch.int32)
+    n_valid = seq_lens + n_fed
+    positions = seq_lens[:, None] + torch.arange(C, dtype=torch.int32,
+                                                 device=x.device)
+    rope = cm.rope_cos_sin(positions, cfg.head_dim)
+    st = cache["stack"]
+    for i in range(cfg.n_layers):
+        lp, cl = _layer(params["stack"], i), _layer(st, i)
+        x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
+                                  cl, positions, rope, page_table, seq_lens,
+                                  n_valid, calibrate=False, n_fed=n_fed)
+        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+    return _logits(cfg, params, x), cache
+
+
+def spec_decode_verify(cfg: ArchConfig, params, tokens, draft_len, seq_lens,
+                       page_table, cache, keys=None,
+                       opts: RuntimeOptions = RuntimeOptions(), *,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, pad_id: int = 0):
+    """Verify a draft window and accept/reject in one device round.
+
+    tokens: (B, C) fed window ``[t_last, d_1 .. d_{C-1}]``; draft_len:
+    (B,) real proposals per slot (<= C-1; the pass feeds draft_len + 1
+    tokens); keys: (B, 2) per-slot keys at the window's first token index
+    (``sampling.request_keys``; unused at temperature 0). Emits ``n_acc +
+    1`` tokens per active slot: the accepted draft prefix plus one
+    corrected/bonus token. At temperature 0 the emitted stream is
+    token-identical to non-speculative greedy decode.
+
+    Returns (out (B, C) int32 [accepted drafts, correction, pads], n_acc
+    (B,) int32, cache)."""
+    draft_len = draft_len.to(torch.int32)
+    logits, cache = decode_verify_paged(cfg, params, tokens, seq_lens,
+                                        draft_len + 1, page_table, cache,
+                                        opts)
+    K = tokens.shape[1] - 1
+    u = noise = None
+    if temperature > 0.0:
+        u = sampling_mod.accept_uniforms(keys, K)
+        noise = sampling_mod.gumbel(keys, logits.shape[-1])
+    out, n_acc = sampling_mod.spec_accept(
+        logits, tokens[:, 1:].to(torch.int32), draft_len, u, noise,
+        temperature=temperature, top_k=top_k, top_p=top_p, pad_id=pad_id)
+    return out, n_acc, cache

@@ -1,23 +1,30 @@
 """Continuous-batching serve engine over the paged, tiered KV pool, in
 PyTorch (the reference is ``repro/serving/engine.py``).
 
-``ServeEngine(scheduler="continuous")`` is the only engine this slice
-ports: iteration-level batching over a pool of fixed-size KV pages (native
-or int8), shared-prefix page reuse with copy-on-write, chunked prefill, and
-a fused K-step greedy decode block with one host sync per block. Page
+``ServeEngine(scheduler="continuous")`` is the only engine ported so far:
+iteration-level batching over a pool of fixed-size KV pages (native or
+int8), shared-prefix page reuse with copy-on-write, chunked prefill, a
+fused K-step decode block with one host sync per block, greedy or sampled
+(temperature/top-k/top-p) on the device, and speculative decoding
+(``spec_mode="ngram"`` or ``"model"``: propose, one verify pass,
+leftover/rejection sampling, rollback of the rejected suffix). Page
 residency across a ``MemoryHierarchy`` (HBS offload, chiplet promotion)
 is charged on a virtual clock exactly as in the reference. On the card
-every prefill chunk and decode step attends through the hand-written
-kernels of ``kernels.decode_attention``.
+every prefill chunk, decode step and verify pass attends through the
+hand-written kernels of ``kernels.decode_attention``.
+
+Sampling draws come from ``models.sampling``'s counter-based generator
+keyed by ``(sample_seed, rid, token index)``, not JAX's threefry keys: at
+temperature 0 outputs are token-identical to the reference, above it they
+agree in distribution.
 
 CUDA work is asynchronous, so each timed bracket closes after the host
 pull (or a ``torch.cuda.synchronize()``) that ends it: ``prefill_s``,
 ``decode_s`` and the virtual clock measure kernel time, not launch time.
 
 Not ported yet, and rejected with ``NotImplementedError``: the static
-engine (ROADMAP.md A6), speculative decoding and stochastic sampling (A5),
-head-sharded serving (A9), and families other than dense GQA/MHA (A7,
-A10).
+engine (ROADMAP.md A6), head-sharded serving (A9), and families other than
+dense GQA/MHA (A7, A10).
 """
 from __future__ import annotations
 
@@ -33,15 +40,18 @@ from repro_torch.models import (RuntimeOptions, copy_pages,
                                 decode_steps_paged, init_paged_cache,
                                 init_params, layer_dma_slices,
                                 paged_supported, prefill_paged_chunk,
-                                resolve_device, torch_dtype)
+                                resolve_device, spec_decode_verify,
+                                torch_dtype)
+from repro_torch.models import sampling
 from repro_torch.serving import metrics
 from repro_torch.serving.kv_manager import (PagedKVManager,
                                             SimulatedTierDevice, TierBudget,
                                             page_bytes)
 from repro_torch.serving.scheduler import (PREFILLING, RUNNING,
-                                           ContinuousScheduler, Request)
+                                           AdaptiveSpecK, ContinuousScheduler,
+                                           Request)
 from repro_torch.serving.streams import VirtualStream
-from repro_torch.serving.trace import DECODE, STALL, TraceRecorder
+from repro_torch.serving.trace import DECODE, DRAFT, STALL, TraceRecorder
 
 
 def _next_pow2(n: int) -> int:
@@ -111,10 +121,10 @@ class ServeStats:
     # runtime -> analytic bridge: the landed-page tier split observed at
     # peak occupancy
     kv_split_at_peak: tuple = ()
-    # speculative decoding (not ported yet: always 0 here)
-    draft_proposed: int = 0
-    draft_accepted: int = 0
-    spec_blocks: int = 0
+    # speculative decoding
+    draft_proposed: int = 0             # draft tokens fed to verify passes
+    draft_accepted: int = 0             # draft tokens the target kept
+    spec_blocks: int = 0                # verify passes run
     # per-request attribution of residency stall
     stall_by_rid: Dict[int, float] = field(default_factory=dict)
     # per-request latency samples (seconds)
@@ -203,14 +213,27 @@ class ServeEngine:
                 "queue A, item 6); use scheduler='continuous'")
         if scheduler != "continuous":
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if spec_mode != "off" or draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue A, "
-                "item 5)")
-        if temperature != 0.0 or top_k or top_p != 1.0:
-            raise NotImplementedError(
-                "stochastic sampling is not ported yet (ROADMAP.md queue A, "
-                "item 5); the port decodes greedily (temperature 0)")
+        # ---- speculative decoding / sampling configuration ---- #
+        if spec_mode not in ("off", "ngram", "model"):
+            raise ValueError(f"spec_mode must be one of off|ngram|model, "
+                             f"got {spec_mode!r}")
+        if spec_mode != "off" and spec_k < 1:
+            raise ValueError(f"spec_k ({spec_k}) must be >= 1")
+        if spec_mode == "model" and draft_cfg is None:
+            raise ValueError("spec_mode='model' needs a draft_cfg "
+                             "(a small paged-KV-capable ArchConfig)")
+        if draft_cfg is not None and spec_mode != "model":
+            raise ValueError(f"draft_cfg is only meaningful with "
+                             f"spec_mode='model' (got {spec_mode!r})")
+        if temperature < 0.0:
+            raise ValueError(f"temperature ({temperature}) must be >= 0")
+        if top_k < 0:
+            raise ValueError(f"top_k ({top_k}) must be >= 0")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p ({top_p}) must be in (0, 1]")
+        if temperature == 0.0 and (top_k or top_p < 1.0):
+            raise ValueError("top_k/top_p filter a stochastic sample; they "
+                             "need temperature > 0 (temperature 0 is greedy)")
         if shards != 1:
             raise NotImplementedError(
                 "head-sharded serving is not ported yet (ROADMAP.md queue A, "
@@ -219,6 +242,14 @@ class ServeEngine:
         if reason:
             raise NotImplementedError(
                 f"continuous scheduler needs the paged KV path: {reason}")
+        self.spec_mode = spec_mode
+        self.spec_k = spec_k
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.sample_seed = sample_seed
         self.shards = shards
         self.overlap = overlap
         self.cfg = cfg
@@ -299,6 +330,19 @@ class ServeEngine:
         """Host numpy array -> tensor on the engine's device."""
         return torch.as_tensor(a, device=self.device)
 
+    def _slot_keys(self, parts, n_slots: int) -> torch.Tensor:
+        """(n_slots, 2) sampling keys of the (slot, request) ``parts`` at
+        each request's next token index (idle slots get rid 0): a
+        request's draws depend on (sample_seed, rid, tokens emitted) only,
+        never on batch composition, and survive recompute preemption."""
+        rids = np.zeros((n_slots,), np.int64)
+        emitted = np.zeros((n_slots,), np.int64)
+        for slot, req in parts:
+            rids[slot] = req.rid
+            emitted[slot] = len(req.out)
+        return sampling.request_keys(self.sample_seed, self._dev(rids),
+                                     self._dev(emitted))
+
     # ------------------------------------------------------------------ #
     def serve(self, requests: List[List[int]],
               max_new_tokens: int) -> List[List[int]]:
@@ -314,8 +358,10 @@ class ServeEngine:
         Each step spends at most ``prefill_budget`` tokens advancing
         PREFILLING slots by fixed-size chunks, then runs one fused
         ``decode_lookahead``-step decode block over the RUNNING slots
-        (on-device greedy sampling + EOS latch, KV pages reserved ahead
-        all-or-nothing, one host sync per block). Prompts sharing an
+        (on-device greedy or sampled choice + EOS latch, KV pages
+        reserved ahead all-or-nothing, one host sync per block) — or,
+        with ``spec_mode`` on, one draft proposal and one verify pass
+        that lands the accepted prefix plus one token. Prompts sharing an
         already-seen prefix skip both the recompute and the pages
         (refcounted reuse; COW on mid-page divergence)."""
         ps, n_pp = self.page_size, self.n_pages_per_seq
@@ -376,6 +422,25 @@ class ServeEngine:
         sched = ContinuousScheduler(kv, B, prefill_chunk=C,
                                     prefill_budget=self.prefill_budget,
                                     tracer=trace, clock=now)
+        # draft proposer + acceptance-adaptive window sizing; fresh per
+        # serve() so lookup indices / draft KV never leak across runs
+        draft = adaptive = None
+        if self.spec_mode == "ngram":
+            from repro_torch.serving.draft import NGramDraft
+            draft = NGramDraft()
+            adaptive = AdaptiveSpecK(self.spec_k)
+        elif self.spec_mode == "model":
+            from repro_torch.serving.draft import ModelDraft
+            # the draft runs in the target's working dtype with a native
+            # cache (the reference's draft always runs in f32)
+            draft = ModelDraft(self.draft_cfg, self.draft_params,
+                               RuntimeOptions(dtype=self.opts.dtype),
+                               page_size=ps, max_batch=B,
+                               max_len=self.max_len, device=self.device)
+            self.draft_params = draft.params    # reuse across serve() calls
+            adaptive = AdaptiveSpecK(self.spec_k)
+        if draft is not None:
+            draft.tracer, draft.clock = trace, now
         cache = init_paged_cache(self.cfg, kv.n_pages, ps, self.opts,
                                  self.device)
         calibrated = self.opts.cache_dtype != "int8"  # only int8 calibrates
@@ -509,8 +574,19 @@ class ServeEngine:
                     if req.n_prefilled >= F:
                         sched.finish_prefill(slot)
                         decode_ready[req.rid] = t1   # decodable from t1
-                        tok = int(np.argmax(
-                            logits[0, F - 1 - start].float().cpu().numpy()))
+                        if self.temperature > 0:
+                            # the token after a (re-)prefill: drawn at the
+                            # request's own next token index (0 unless a
+                            # preemption is being recomputed)
+                            keys = self._slot_keys([(0, req)], 1)
+                            lg = logits[:, F - 1 - start]
+                            tok = int(sampling.sample(
+                                lg, sampling.gumbel(keys, lg.shape[-1]),
+                                temperature=self.temperature,
+                                top_k=self.top_k, top_p=self.top_p)[0])
+                        else:
+                            tok = int(np.argmax(logits[0, F - 1 - start]
+                                                .float().cpu().numpy()))
                         # the first-token pull is its own device->host
                         # round trip, after the chunk's barrier sync
                         self.stats.host_syncs += 1
@@ -518,6 +594,8 @@ class ServeEngine:
                         if finished(req, tok):
                             sched.retire(slot)
                             trace.retire(req.rid, t_e)
+                            if draft is not None:
+                                draft.drop(req.rid)
 
             running = sched.running()
             note_peak()
@@ -534,86 +612,204 @@ class ServeEngine:
             parts = [(s, r) for s, r in running
                      if decode_ready.get(r.rid, 0.0) <= t0]
 
-            # ---- reserve the block's KV writes up front (may preempt): K
-            # lookahead writes per slot, all-or-nothing; LIFO preemption
-            # may evict ANY slot — diff the full slot table
-            K = self.decode_lookahead
-            before = dict(sched.slots)
-            sched_t[0] = t0       # evictions stamp at the block start
-            for slot, req in parts:
-                if slot in sched.slots:     # may have been preempted
-                    sched.reserve_lookahead(slot, min(K, req.remaining))
-            sched_t[0] = 0.0
-            evicted = [r for s, r in before.items() if s not in sched.slots]
-            for r in evicted:
-                svc_floor[r.rid] = t0
-            self.stats.preemptions += len(evicted)
-            parts = [(s, r) for s, r in parts
-                     if s in sched.slots and r.state == RUNNING]
-            apply_copies()   # COW from reservations lands before the block
-            note_peak()
-            if not parts:
-                continue
+            if self.spec_mode != "off":
+                # ==== speculative decode block ==== #
+                # the draft proposes up to k tokens per request; ONE verify
+                # pass streams weights+KV once and lands n_acc+1 tokens
+                items = [(req, min(adaptive.k_for(req), req.remaining - 1))
+                         for _, req in parts]
+                w0 = time.perf_counter()
+                # a model draft ends with its proposed block's host pull;
+                # the n-gram draft is host-only and reports zero syncs
+                props = draft.propose_all(items)
+                self.stats.host_syncs += draft.take_host_syncs()
+                td = dstream.commit(t0, time.perf_counter() - w0)
+                trace.engine_span("spec_propose", t0, td,
+                                  {"n_seqs": len(items)}, track="decode")
+                for _, r in parts:
+                    # the whole batch waits out the proposal pass
+                    trace.span(r.rid, DRAFT, t0, td)
+                # reserve draft_len+1 KV writes per slot, all-or-nothing;
+                # LIFO preemption may evict ANY slot — diff the full table
+                before = dict(sched.slots)
+                sched_t[0] = td       # evictions stamp at reservation time
+                for slot, req in parts:
+                    if slot in sched.slots:
+                        sched.reserve_lookahead(
+                            slot, len(props.get(req.rid, ())) + 1)
+                sched_t[0] = 0.0
+                evicted = [r for s, r in before.items()
+                           if s not in sched.slots]
+                for r in evicted:
+                    svc_floor[r.rid] = td
+                self.stats.preemptions += len(evicted)
+                parts = [(s, r) for s, r in parts
+                         if s in sched.slots and r.state == RUNNING]
+                apply_copies()
+                note_peak()
+                if not parts:
+                    continue
+                # clamp the verify window to the largest live draft,
+                # rounded up to a power of two
+                max_dl = max(len(props.get(r.rid, ())) for _, r in parts)
+                n_tok = min(self.spec_k + 1, _next_pow2(max_dl + 1))
+                tokens = np.zeros((B, n_tok), np.int32)
+                draft_len = np.zeros((B,), np.int32)
+                seq_lens = np.zeros((B,), np.int32)
+                tables = np.zeros((B, n_pp), np.int32)
+                for slot, req in parts:
+                    pr = list(props.get(req.rid, ()))[:n_tok - 1]
+                    tokens[slot, 0] = req.out[-1]
+                    if pr:
+                        tokens[slot, 1:1 + len(pr)] = pr
+                    draft_len[slot] = len(pr)
+                    seq_lens[slot] = kv.seq_len(req.rid)  # landed extent
+                    tables[slot] = kv.table_row(req.rid, n_pp)
+                self._decode_shapes.add(("spec", B, n_tok))
+                tb = dstream.start()
+                plan = stall_plan([r for _, r in parts], tb)
+                w0 = time.perf_counter()
+                keys = (self._slot_keys(parts, B) if self.temperature > 0
+                        else None)
+                out, n_acc, cache = spec_decode_verify(
+                    self.cfg, self.params, self._dev(tokens),
+                    self._dev(draft_len), self._dev(seq_lens),
+                    self._dev(tables), cache, keys, self.opts,
+                    temperature=self.temperature, top_k=self.top_k,
+                    top_p=self.top_p)
+                # the pass's one host pull: tokens and n_acc together
+                res = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
+                out_np, nacc_np = res[:, :-1], res[:, -1]
+                dw = time.perf_counter() - w0
+                s = stall_charge(plan, [r for _, r in parts], tb, dw,
+                                 "decode")
+                tv = dstream.commit(tb, s + dw)
+                dt = tv - t0
+                trace.engine_span("spec_verify", tb, tv,
+                                  {"n_tok": n_tok, "n_seqs": len(parts)},
+                                  track="decode")
+                self.stats.host_syncs += 1
+                self.stats.decode_s += dt
+                self.stats.decode_steps += 1    # one streaming pass
+                self.stats.spec_blocks += 1
 
-            # ---- one fused K-step decode block over the ready slots:
-            # sampling, EOS latching and length advance run on the device;
-            # one host sync per (B, K) block
-            tokens = np.zeros((B,), np.int32)
-            seq_lens = np.zeros((B,), np.int32)
-            tables = np.zeros((B, n_pp), np.int32)
-            quota = np.zeros((B,), np.int32)
-            inactive = np.ones((B,), bool)
-            for slot, req in parts:
-                tokens[slot] = req.out[-1]
-                seq_lens[slot] = kv.seq_len(req.rid)  # write position
-                tables[slot] = kv.table_row(req.rid, n_pp)
-                quota[slot] = min(K, req.remaining)
-                inactive[slot] = False
-            # clamp the block to the largest live quota, rounded up to a
-            # power of two: a tail block runs short instead of decoding
-            # wasted pad steps
-            n_steps = min(K, _next_pow2(int(quota.max())))
-            self._decode_shapes.add(("paged", B, n_steps))
-            # fetch-wait barrier: every page this block attends over must
-            # be fast-resident (or its layer slice landed) before the layer
-            # consumes it; the residual is recorded as stall
-            plan = stall_plan([r for _, r in parts], t0)
-            w0 = time.perf_counter()
-            blk, cache = decode_steps_paged(
-                self.cfg, self.params, self._dev(tokens),
-                self._dev(seq_lens), self._dev(tables), cache, n_steps,
-                self.opts, eos_id=self.eos_id, done=self._dev(inactive),
-                quota=self._dev(quota))
-            blk_np = blk.cpu().numpy()     # the block's one host pull
-            dw = time.perf_counter() - w0
-            s = stall_charge(plan, [r for _, r in parts], t0, dw, "decode")
-            tv = dstream.commit(t0, s + dw)
-            dt = tv - t0
-            trace.engine_span("decode_block", t0, tv,
-                              {"n_steps": n_steps, "n_seqs": len(parts)},
-                              track="decode")
-            self.stats.host_syncs += 1
-            self.stats.decode_s += dt
-            self.stats.decode_steps += n_steps
+                # distribute: accepted prefix + correction/bonus token; the
+                # pass wall time is attributed evenly over emitted tokens;
+                # rejected suffix pages roll back via commit_speculative
+                for slot, req in parts:
+                    dl = int(draft_len[slot])
+                    acc = int(nacc_np[slot])
+                    self.stats.draft_proposed += dl
+                    self.stats.draft_accepted += acc
+                    req.draft_proposed += dl
+                    req.draft_accepted += acc
+                    adaptive.update(req, dl, acc)
+                    m = acc + 1
+                    fin = False
+                    n_written = 0
+                    for j in range(m):
+                        tok = int(out_np[slot, j])
+                        n_written += 1
+                        emit(req, tok, at=t0 + dt * (j + 1) / m)
+                        if finished(req, tok):
+                            fin = True
+                            break
+                    t_end = t0 + dt * (n_written / m)
+                    trace.span(req.rid, DECODE, t0, t_end)
+                    trace.instant("spec_commit", t_end, rid=req.rid,
+                                  args={"proposed": dl, "accepted": acc})
+                    kv.commit_speculative(req.rid, n_written)
+                    if fin:
+                        sched.retire(slot)
+                        trace.retire(req.rid, t_end)
+                        draft.drop(req.rid)
+            else:
+                # ---- reserve the block's KV writes up front (may
+                # preempt): K lookahead writes per slot, all-or-nothing;
+                # LIFO preemption may evict ANY slot — diff the full table
+                K = self.decode_lookahead
+                before = dict(sched.slots)
+                sched_t[0] = t0       # evictions stamp at the block start
+                for slot, req in parts:
+                    if slot in sched.slots:     # may have been preempted
+                        sched.reserve_lookahead(slot, min(K, req.remaining))
+                sched_t[0] = 0.0
+                evicted = [r for s, r in before.items()
+                           if s not in sched.slots]
+                for r in evicted:
+                    svc_floor[r.rid] = t0
+                self.stats.preemptions += len(evicted)
+                parts = [(s, r) for s, r in parts
+                         if s in sched.slots and r.state == RUNNING]
+                apply_copies()   # COW from reservations lands pre-block
+                note_peak()
+                if not parts:
+                    continue
 
-            # distribute the block: per-token ITL is attributed evenly from
-            # the block wall time; retire/commit at boundaries
-            for slot, req in parts:
-                fin = False
-                n_written = 0            # device-side KV writes taken
-                for j in range(int(quota[slot])):
-                    tok = int(blk_np[slot, j])
-                    n_written += 1
-                    emit(req, tok, at=t0 + dt * (j + 1) / n_steps)
-                    if finished(req, tok):
-                        fin = True
-                        break
-                t_end = t0 + dt * (n_written / n_steps)
-                trace.span(req.rid, DECODE, t0, t_end)
-                kv.commit_tokens(req.rid, n_written)
-                if fin:
-                    sched.retire(slot)   # frees surplus reserved pages
-                    trace.retire(req.rid, t_end)
+                # ---- one fused K-step decode block over the ready slots:
+                # sampling, EOS latching and length advance run on the
+                # device; one host sync per (B, K) block
+                tokens = np.zeros((B,), np.int32)
+                seq_lens = np.zeros((B,), np.int32)
+                tables = np.zeros((B, n_pp), np.int32)
+                quota = np.zeros((B,), np.int32)
+                inactive = np.ones((B,), bool)
+                for slot, req in parts:
+                    tokens[slot] = req.out[-1]
+                    seq_lens[slot] = kv.seq_len(req.rid)  # write position
+                    tables[slot] = kv.table_row(req.rid, n_pp)
+                    quota[slot] = min(K, req.remaining)
+                    inactive[slot] = False
+                # clamp the block to the largest live quota, rounded up to
+                # a power of two: a tail block runs short instead of
+                # decoding wasted pad steps
+                n_steps = min(K, _next_pow2(int(quota.max())))
+                self._decode_shapes.add(("paged", B, n_steps))
+                # fetch-wait barrier: every page this block attends over
+                # must be fast-resident (or its layer slice landed) before
+                # the layer consumes it; the residual is recorded as stall
+                plan = stall_plan([r for _, r in parts], t0)
+                w0 = time.perf_counter()
+                keys = (self._slot_keys(parts, B) if self.temperature > 0
+                        else None)
+                blk, cache = decode_steps_paged(
+                    self.cfg, self.params, self._dev(tokens),
+                    self._dev(seq_lens), self._dev(tables), cache, n_steps,
+                    self.opts, eos_id=self.eos_id,
+                    temperature=self.temperature, top_k=self.top_k,
+                    top_p=self.top_p, keys=keys,
+                    done=self._dev(inactive), quota=self._dev(quota))
+                blk_np = blk.cpu().numpy()     # the block's one host pull
+                dw = time.perf_counter() - w0
+                s = stall_charge(plan, [r for _, r in parts], t0, dw,
+                                 "decode")
+                tv = dstream.commit(t0, s + dw)
+                dt = tv - t0
+                trace.engine_span("decode_block", t0, tv,
+                                  {"n_steps": n_steps,
+                                   "n_seqs": len(parts)}, track="decode")
+                self.stats.host_syncs += 1
+                self.stats.decode_s += dt
+                self.stats.decode_steps += n_steps
+
+                # distribute the block: per-token ITL is attributed evenly
+                # from the block wall time; retire/commit at boundaries
+                for slot, req in parts:
+                    fin = False
+                    n_written = 0            # device-side KV writes taken
+                    for j in range(int(quota[slot])):
+                        tok = int(blk_np[slot, j])
+                        n_written += 1
+                        emit(req, tok, at=t0 + dt * (j + 1) / n_steps)
+                        if finished(req, tok):
+                            fin = True
+                            break
+                    t_end = t0 + dt * (n_written / n_steps)
+                    trace.span(req.rid, DECODE, t0, t_end)
+                    kv.commit_tokens(req.rid, n_written)
+                    if fin:
+                        sched.retire(slot)   # frees surplus reserved pages
+                        trace.retire(req.rid, t_end)
 
             # prefetch AHEAD of the next block, backdated to this block's
             # launch; when the fetch channel would otherwise sit idle, the

@@ -169,8 +169,6 @@ def test_default_device_needs_cuda(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="static"), "item 6"),
-    (dict(spec_mode="ngram"), "item 5"),
-    (dict(temperature=0.8), "item 5"),
     (dict(shards=2), "item 9"),
 ])
 def test_off_path_options_raise(models, kw, item):

@@ -98,8 +98,8 @@ def test_serve_cli_offload_flags(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--scheduler", "static"],
-                                   ["--spec-mode", "ngram"],
-                                   ["--temperature", "0.5"],
+                                   ["--arch", "deepseek-v2-236b"],
+                                   ["--arch", "arctic-480b"],
                                    ["--shards", "2"]])
 def test_serve_cli_rejects_off_path_flags(flags):
     with pytest.raises(NotImplementedError):

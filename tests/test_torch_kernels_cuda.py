@@ -14,6 +14,7 @@ from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import t as _t
 from torch_kernel_inputs import tables as _tables
+from torch_kernel_inputs import verify_window as _verify_window
 
 torch.set_num_threads(2)
 
@@ -56,6 +57,44 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, quant):
     nv = torch.full((B,), 40, dtype=torch.int32, **dev)
     got = tk.chunk_prefill_attention(qc, kpt, vpt, pt, 8, nv, **kw)
     want = tk.chunk_prefill_attention_plain(qc, kpt, vpt, pt, 8, nv, **kw)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 5, 8])
+@pytest.mark.parametrize("Hkv", [8, 2])
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.bfloat16, True)])
+def test_cuda_spec_verify_matches_plain(cuda_device, dtype, quant, Hkv, C):
+    """The verify windows of spec_k 4 and 7 (C = 1, 2, 5, 8), ragged fed
+    lengths, an inactive row on the null page, group 1 and 4."""
+    rng = np.random.default_rng(C)
+    B, H, dh, ps, npp = 4, 8, 64, 16, 6
+    P = B * npp + 1
+    kp, vp = _pool(rng, P, ps, Hkv, dh)
+    kw = {}
+    if quant:
+        kp, ksc = _quantize(kp)
+        vp, vsc = _quantize(vp)
+        kw = dict(k_scale=_t(ksc).to(cuda_device),
+                  v_scale=_t(vsc).to(cuda_device))
+    dev = dict(device=cuda_device)
+    kpt = _t(kp).to(**dev) if quant else _t(kp).to(dtype=dtype, **dev)
+    vpt = _t(vp).to(**dev) if quant else _t(vp).to(dtype=dtype, **dev)
+    pt = _tables(rng, B, npp, P)
+    pt[0] = 0
+    lens, fed = (_t(a).to(**dev) for a in _verify_window(rng, B, C, npp, ps))
+    q = _t(rng.standard_normal((B, C, H, dh), dtype=np.float32)).to(
+        dtype=dtype, **dev)
+    tol = 1e-4 if dtype == torch.float32 and not quant else 2e-2
+    n = tk.spec_verify_attention.launches
+    got = tk.spec_verify_attention(q, kpt, vpt, _t(pt).to(**dev), lens, fed,
+                                   **kw)
+    want = tk.spec_verify_attention_plain(q, kpt, vpt, _t(pt).to(**dev),
+                                          lens, fed, **kw)
+    torch.cuda.synchronize()
+    assert tk.spec_verify_attention.launches == n + 1
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 

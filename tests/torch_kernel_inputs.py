@@ -30,3 +30,14 @@ def tables(rng, B, npp, P, stale: int = 0):
     if stale:
         perm[:, npp - stale:] = 0
     return perm.astype(np.int32)
+
+
+def verify_window(rng, B, C, npp, ps):
+    """Ragged speculative-verify lengths: seq_lens (B,) with room for the
+    C-token window in npp pages, n_fed (B,) from 1 to C. Row 0 is an
+    inactive slot as the model draft's catch-up feeds it (seq_len 0, one
+    fed pad token; its table row should be all null pages)."""
+    seq_lens = rng.integers(0, npp * ps - C + 1, size=B).astype(np.int32)
+    n_fed = rng.integers(1, C + 1, size=B).astype(np.int32)
+    seq_lens[0], n_fed[0] = 0, 1
+    return seq_lens, n_fed
