@@ -7,18 +7,23 @@ NVIDIA GPU. Run from the root of a checkout:
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for f32 matmuls and convolutions.
-  2. builds both paged-attention kernels from ``src/repro_torch/kernels/
-     csrc`` (nvcc, in parallel) and prints the build time and ptxas report.
+  2. builds the four attention kernels from ``src/repro_torch/kernels/
+     csrc`` (nvcc, one process a source, in parallel) and prints the build
+     time and ptxas report.
   3. holds each kernel entry against its plain PyTorch version on the card
-     at the serving path's shapes (page 16, head_dim 64, group 1 and 4,
-     ragged lengths up to 576 over a shuffled page table with stale
-     entries; a 64-token chunk with scalar and per-sequence start; the
-     speculative verify window at C = 1, 2, 4, 5, 8 with ragged fed
-     lengths and an inactive row on the null page; f32, bf16 and int8
-     pools) and times kernel, plain version and, as a yardstick only,
-     ``F.scaled_dot_product_attention`` on the gathered dense KV; prints
-     each kernel's bound (bytes over 3.35 TB/s or operations over the
-     type's peak, whichever is larger).
+     and times kernel, plain version and, as a yardstick only,
+     ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
+     over 3.35 TB/s or operations over the type's peak, whichever is
+     larger). Paged entries at page 16 for head_dim 64 (group 1 and 4) and
+     at qwen2.5-3b's width (head_dim 128, group 8): ragged lengths up to
+     576 over a shuffled page table with stale entries; a 64-token chunk
+     with scalar and per-sequence start; the speculative verify window at
+     C = 1, 2, 4, 5, 8 with ragged fed lengths and an inactive row on the
+     null page; f32, bf16 and int8 pools (SDPA on the gathered dense KV).
+     Dense decode at B=4, H=16, Hkv=2, dh=128, L=545, ragged kv_valid,
+     f32, bf16 and int8, plus a dh=64 group-1 case (SDPA with a length
+     mask). Flash attention at B=4, S = 256, 512 and 300, H=16, Hkv 2 and
+     16, dh=128, causal and full, f32 and bf16 (SDPA with enable_gqa).
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -33,16 +38,29 @@ Phases (any failure exits non-zero before the result line):
      must equal the CPU's, and its tokens follow the filtered softmax.
      Then torch.profiler splits one fused decode block's time by kernel
      and gives the device's busy share of its wall time.
-  5. in f32 at full width: the kernel path's logits agree with the CPU
+  5. serves qwen2.5-3b at full width (bf16, seeded init) through
+     ``ServeEngine(scheduler="static", decode_lookahead=8, max_len=640)``:
+     serve_bucketed on 4 prompts of 256 and 4 of 512 tokens, 32 new
+     tokens each, native and int8 KV. Each run must launch the flash
+     kernel 36 times a wave and the dense decode kernel 36 times a
+     micro-step, call no plain version, and emit in-vocabulary tokens.
+     Then the profiler splits one fused static decode block, with a
+     native and with an int8 cache.
+  6. in f32 at full width: the kernel path's logits agree with the CPU
      plain path on one prompt; decode_lookahead 8 is token-identical to
      decode_lookahead 1, and n-gram speculation (k=4) to no speculation
      (a divergence is allowed only where the spec-off top-2 logit gap is
-     below 1e-4).
+     below 1e-4). The same on qwen2.5-3b cut to 4 layers for the static
+     path: prefill and decode logits against the CPU, static K=8 == K=1,
+     and static == continuous on phase 5's requests (the same near-tie
+     allowance).
 Then prints the per-kernel JSON line and, last, the device JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -57,8 +75,13 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM device memory
 # dense peak operations/s by input type (H100 SXM data sheet): bf16/f16 on
 # the tensor cores; f32 on the CUDA cores (TF32 is off)
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
-PS, DH, H, MAX_LEN, C = 16, 64, 32, 576, 64
+PS, MAX_LEN, C = 16, 576, 64
+# (heads, head_dim, kv heads) of the paged kernel cases: llama3.2-1b as the
+# continuous path serves it (group 1), at group 4, and qwen2.5-3b's width
+PAGED_WIDTHS = ((32, 64, 32), (32, 64, 8), (16, 128, 2))
 VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
+# the static phase: qwen2.5-3b, prompts of 256 and 512 tokens, 32 new
+QWEN_PROMPTS, QWEN_NEW, QWEN_MAX_LEN = (256, 512), 32, 640
 
 
 def log(msg: str) -> None:
@@ -99,140 +122,232 @@ def median_ms(torch, fn, iters: int = 30) -> float:
 
 # ------------------------------ phase 3 --------------------------------- #
 
-def kernel_cases(torch, kern):
-    """Inputs at the serving path's shapes. Yields (name, label, dtype
+def _pools(torch, g, shape, pool, qdt):
+    """Random K and V of ``shape`` in the pool type: f32/bf16, or int8 with
+    per-kv-head (dim 2) scales. Returns (k, v, scale kwargs)."""
+    kf = torch.randn(shape, generator=g, device="cuda")
+    vf = torch.randn(shape, generator=g, device="cuda")
+    if pool != "int8":
+        return kf.to(qdt), vf.to(qdt), {}
+    ksc = kf.abs().amax((0, 1, 3)) / 127.0
+    vsc = vf.abs().amax((0, 1, 3)) / 127.0
+    kq = torch.round(kf / ksc[:, None]).clamp(-127, 127).to(torch.int8)
+    vq = torch.round(vf / vsc[:, None]).clamp(-127, 127).to(torch.int8)
+    return kq, vq, dict(k_scale=ksc.float().contiguous(),
+                        v_scale=vsc.float().contiguous())
+
+
+def kernel_cases(torch, kern, flash):
+    """Inputs at the serving paths' shapes. Yields (name, label, dtype
     name, kernel fn, plain fn, sdpa fn, bytes, ops, tolerance)."""
+    for width in PAGED_WIDTHS:
+        yield from paged_cases(torch, kern, *width)
+    yield from dense_decode_cases(torch, kern)
+    yield from flash_cases(torch, flash)
+
+
+def paged_cases(torch, kern, H, DH, Hkv):
+    """The paged entries at one width: decode, the chunk at a scalar and a
+    per-sequence start, the verify windows."""
     import torch.nn.functional as F
     dev = "cuda"
     B = 8
     n_pp = -(-MAX_LEN // PS)
     P = B * n_pp + 1
     g = torch.Generator(device=dev).manual_seed(0)
-    for Hkv in (32, 8):
-        for pool in ("float32", "bfloat16", "int8"):
-            qdt = torch.float32 if pool == "float32" else torch.bfloat16
-            kf = torch.randn((P, PS, Hkv, DH), generator=g, device=dev)
-            vf = torch.randn((P, PS, Hkv, DH), generator=g, device=dev)
-            if pool == "int8":
-                ksc = kf.abs().amax((0, 1, 3)) / 127.0
-                vsc = vf.abs().amax((0, 1, 3)) / 127.0
-                kp = torch.round(kf / ksc[:, None]).clamp(-127, 127).to(torch.int8)
-                vp = torch.round(vf / vsc[:, None]).clamp(-127, 127).to(torch.int8)
-                sc = dict(k_scale=ksc.float().contiguous(),
-                          v_scale=vsc.float().contiguous())
-            else:
-                kp, vp, sc = kf.to(qdt), vf.to(qdt), {}
-            elem = kp.element_size()
-            # shuffled pages; entries past each sequence's last page are
-            # stale ids of other pages, which must stay masked
-            pt = (torch.randperm(P - 1, generator=g, device=dev)[:B * n_pp]
-                  .reshape(B, n_pp) + 1).to(torch.int32)
-            lens = torch.randint(1, MAX_LEN + 1, (B,), generator=g,
-                                 device=dev).to(torch.int32)
-            lens[0], lens[1] = MAX_LEN, 1
-            kd = kern._dequant(kp, pt, sc.get("k_scale")).to(qdt)
-            vd = kern._dequant(vp, pt, sc.get("v_scale")).to(qdt)
-            grp = H // Hkv
-            kdh = kd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
-            vdh = vd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
-            tol = 1e-4 if pool == "float32" else 2e-2
-            kv_row = 2 * Hkv * DH * elem + (8 * Hkv if sc else 0)
+    wide = "" if DH == 64 else f" dh={DH}"
+    for pool in ("float32", "bfloat16", "int8"):
+        qdt = torch.float32 if pool == "float32" else torch.bfloat16
+        kp, vp, sc = _pools(torch, g, (P, PS, Hkv, DH), pool, qdt)
+        elem = kp.element_size()
+        # shuffled pages; entries past each sequence's last page are
+        # stale ids of other pages, which must stay masked
+        pt = (torch.randperm(P - 1, generator=g, device=dev)[:B * n_pp]
+              .reshape(B, n_pp) + 1).to(torch.int32)
+        lens = torch.randint(1, MAX_LEN + 1, (B,), generator=g,
+                             device=dev).to(torch.int32)
+        lens[0], lens[1] = MAX_LEN, 1
+        kd = kern._dequant(kp, pt, sc.get("k_scale")).to(qdt)
+        vd = kern._dequant(vp, pt, sc.get("v_scale")).to(qdt)
+        grp = H // Hkv
+        kdh = kd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
+        vdh = vd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
+        tol = 1e-4 if pool == "float32" else 2e-2
+        kv_row = 2 * Hkv * DH * elem + (8 * Hkv if sc else 0)
 
-            # decode: q (B, H, dh) at the seq_lens above
-            q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
-            pos = torch.arange(n_pp * PS, device=dev)
-            dmask = (pos[None] < lens[:, None])[:, None, None]
-            n_keys = int(lens.sum())
-            yield ("paged_decode_attention", f"group={grp} pool={pool}",
+        # decode: q (B, H, dh) at the seq_lens above
+        q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
+        pos = torch.arange(n_pp * PS, device=dev)
+        dmask = (pos[None] < lens[:, None])[:, None, None]
+        n_keys = int(lens.sum())
+        yield ("paged_decode_attention",
+               f"group={grp} pool={pool}{wide}",
+               pool if pool != "int8" else "bfloat16",
+               lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
+                   kern.paged_decode_attention(q, kp, vp, pt, lens, **sc),
+               lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
+                   kern.paged_decode_attention_plain(q, kp, vp, pt, lens,
+                                                     **sc),
+               lambda q=q, k=kdh, v=vdh, m=dmask:
+                   F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                  attn_mask=m),
+               2 * q.numel() * q.element_size() + pt.numel() * 4
+               + B * 4 + n_keys * kv_row,
+               4 * H * DH * n_keys, tol)
+
+        # chunk: scalar start (B=1, as the engine prefills) and a
+        # per-sequence start (B=4)
+        for label, starts, reals in (
+                ("start=scalar", [384], [64]),
+                ("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])):
+            Bc = len(starts)
+            qc = torch.randn((Bc, C, H, DH), generator=g,
+                             device=dev).to(qdt)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            nv = st + torch.tensor(reals, dtype=torch.int32, device=dev)
+            s_arg = starts[0] if Bc == 1 else st
+            ptc = pt[:Bc].contiguous()
+            qpos = st[:, None] + torch.arange(C, device=dev)
+            lim = torch.minimum(qpos + 1, nv[:, None])        # (Bc, C)
+            cmask = (pos[None, None] < lim[..., None])[:, None]
+            keys = int(torch.minimum(st + C, nv).sum())
+            row_keys = int(lim.sum())
+            yield ("chunk_prefill_attention",
+                   f"group={grp} pool={pool} {label}{wide}",
                    pool if pool != "int8" else "bfloat16",
-                   lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
-                       kern.paged_decode_attention(q, kp, vp, pt, lens, **sc),
-                   lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
-                       kern.paged_decode_attention_plain(q, kp, vp, pt, lens,
-                                                         **sc),
-                   lambda q=q, k=kdh, v=vdh, m=dmask:
-                       F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                                      attn_mask=m),
-                   2 * q.numel() * q.element_size() + pt.numel() * 4
-                   + B * 4 + n_keys * kv_row,
-                   4 * H * DH * n_keys, tol)
-
-            # chunk: scalar start (B=1, as the engine prefills) and a
-            # per-sequence start (B=4)
-            for label, starts, reals in (
-                    ("start=scalar", [384], [64]),
-                    ("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])):
-                Bc = len(starts)
-                qc = torch.randn((Bc, C, H, DH), generator=g,
-                                 device=dev).to(qdt)
-                st = torch.tensor(starts, dtype=torch.int32, device=dev)
-                nv = st + torch.tensor(reals, dtype=torch.int32, device=dev)
-                s_arg = starts[0] if Bc == 1 else st
-                ptc = pt[:Bc].contiguous()
-                qpos = st[:, None] + torch.arange(C, device=dev)
-                lim = torch.minimum(qpos + 1, nv[:, None])        # (Bc, C)
-                cmask = (pos[None, None] < lim[..., None])[:, None]
-                keys = int(torch.minimum(st + C, nv).sum())
-                row_keys = int(lim.sum())
-                yield ("chunk_prefill_attention",
-                       f"group={grp} pool={pool} {label}",
-                       pool if pool != "int8" else "bfloat16",
-                       lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
-                       sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
-                                                           nv, **sc),
-                       lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
-                       sc=sc: kern.chunk_prefill_attention_plain(
-                           q, kp, vp, pt, s, nv, **sc),
-                       lambda q=qc, k=kdh[:Bc], v=vdh[:Bc], m=cmask:
-                           F.scaled_dot_product_attention(
-                               q.transpose(1, 2), k, v, attn_mask=m),
-                       2 * qc.numel() * qc.element_size() + ptc.numel() * 4
-                       + 8 * Bc + keys * kv_row,
-                       4 * H * DH * row_keys, tol)
-
-            # speculative verify: the windows of spec_k 4 and 7; ragged
-            # landed lengths with room for the window, 1..C fed tokens, and
-            # row 0 inactive as the model draft's catch-up feeds it
-            # (seq_len 0, one fed token, a table of null pages)
-            for Cv in VERIFY_C:
-                sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
-                                   device=dev).to(torch.int32)
-                nf = torch.randint(1, Cv + 1, (B,), generator=g,
-                                   device=dev).to(torch.int32)
-                sl[0], nf[0], sl[1], nf[1] = 0, 1, MAX_LEN - Cv, Cv
-                ptv = pt.clone()
-                ptv[0] = 0
-                qv = torch.randn((B, Cv, H, DH), generator=g,
-                                 device=dev).to(qdt)
-                kdv = kern._dequant(kp, ptv, sc.get("k_scale")).to(qdt)
-                vdv = kern._dequant(vp, ptv, sc.get("v_scale")).to(qdt)
-                qpos = torch.minimum(                             # (B, Cv)
-                    sl[:, None] + torch.arange(Cv, device=dev),
-                    (sl + nf - 1)[:, None])
-                vmask = (pos[None, None] <= qpos[..., None])[:, None]
-                yield ("spec_verify_attention",
-                       f"group={grp} pool={pool} C={Cv}",
-                       pool if pool != "int8" else "bfloat16",
-                       lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
-                       sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
-                                                         nf, **sc),
-                       lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
-                       sc=sc: kern.spec_verify_attention_plain(
-                           q, kp, vp, pt, sl, nf, **sc),
-                       lambda q=qv, k=kdv.permute(0, 2, 1, 3)
-                       .repeat_interleave(grp, 1),
-                       v=vdv.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
-                       m=vmask: F.scaled_dot_product_attention(
+                   lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
+                   sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
+                                                       nv, **sc),
+                   lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
+                   sc=sc: kern.chunk_prefill_attention_plain(
+                       q, kp, vp, pt, s, nv, **sc),
+                   lambda q=qc, k=kdh[:Bc], v=vdh[:Bc], m=cmask:
+                       F.scaled_dot_product_attention(
                            q.transpose(1, 2), k, v, attn_mask=m),
-                       2 * qv.numel() * qv.element_size() + ptv.numel() * 4
-                       + 8 * B + int((sl + nf).sum()) * kv_row,
-                       4 * H * DH * int((qpos + 1).sum()), tol)
+                   2 * qc.numel() * qc.element_size() + ptc.numel() * 4
+                   + 8 * Bc + keys * kv_row,
+                   4 * H * DH * row_keys, tol)
+
+        # speculative verify: the windows of spec_k 4 and 7; ragged
+        # landed lengths with room for the window, 1..C fed tokens, and
+        # row 0 inactive as the model draft's catch-up feeds it
+        # (seq_len 0, one fed token, a table of null pages)
+        for Cv in VERIFY_C:
+            sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
+                               device=dev).to(torch.int32)
+            nf = torch.randint(1, Cv + 1, (B,), generator=g,
+                               device=dev).to(torch.int32)
+            sl[0], nf[0], sl[1], nf[1] = 0, 1, MAX_LEN - Cv, Cv
+            ptv = pt.clone()
+            ptv[0] = 0
+            qv = torch.randn((B, Cv, H, DH), generator=g,
+                             device=dev).to(qdt)
+            kdv = kern._dequant(kp, ptv, sc.get("k_scale")).to(qdt)
+            vdv = kern._dequant(vp, ptv, sc.get("v_scale")).to(qdt)
+            qpos = torch.minimum(                             # (B, Cv)
+                sl[:, None] + torch.arange(Cv, device=dev),
+                (sl + nf - 1)[:, None])
+            vmask = (pos[None, None] <= qpos[..., None])[:, None]
+            yield ("spec_verify_attention",
+                   f"group={grp} pool={pool} C={Cv}{wide}",
+                   pool if pool != "int8" else "bfloat16",
+                   lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                   sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
+                                                     nf, **sc),
+                   lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                   sc=sc: kern.spec_verify_attention_plain(
+                       q, kp, vp, pt, sl, nf, **sc),
+                   lambda q=qv, k=kdv.permute(0, 2, 1, 3)
+                   .repeat_interleave(grp, 1),
+                   v=vdv.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
+                   m=vmask: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k, v, attn_mask=m),
+                   2 * qv.numel() * qv.element_size() + ptv.numel() * 4
+                   + 8 * B + int((sl + nf).sum()) * kv_row,
+                   4 * H * DH * int((qpos + 1).sum()), tol)
 
 
-def check_kernels(torch, kern):
+def dense_decode_cases(torch, kern):
+    """The static engine's decode at qwen2.5-3b's width (B=4, H=16, Hkv=2,
+    dh=128, the 545-position cache of a 512-token wave, ragged kv_valid
+    1..545) in f32, bf16 and an int8 cache with bf16 queries; and a dh=64
+    group-1 case. The SDPA yardstick runs on the dense cache (dequantized
+    beforehand when int8) with a length mask."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, L = 4, 545
+    for H, DH, Hkv, pools in ((16, 128, 2, ("float32", "bfloat16", "int8")),
+                              (32, 64, 32, ("bfloat16",))):
+        for pool in pools:
+            qdt = torch.float32 if pool == "float32" else torch.bfloat16
+            kc, vc, sc = _pools(torch, g, (B, L, Hkv, DH), pool, qdt)
+            valid = torch.randint(1, L + 1, (B,), generator=g,
+                                  device=dev).to(torch.int32)
+            valid[0], valid[1] = L, 1
+            q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
+            kd = kern._dequant_dense(kc, sc.get("k_scale")).to(qdt)
+            vd = kern._dequant_dense(vc, sc.get("v_scale")).to(qdt)
+            mask = (torch.arange(L, device=dev)[None]
+                    < valid[:, None])[:, None, None]              # (B,1,1,L)
+            n_keys = int(valid.sum())
+            kv_row = 2 * Hkv * DH * kc.element_size()
+            yield ("decode_attention",
+                   f"group={H // Hkv} pool={pool} L={L} dh={DH}",
+                   pool if pool != "int8" else "bfloat16",
+                   lambda q=q, k=kc, v=vc, n=valid, sc=sc:
+                       kern.decode_attention(q, k, v, n, **sc),
+                   lambda q=q, k=kc, v=vc, n=valid, sc=sc:
+                       kern.decode_attention_plain(q, k, v, n, **sc),
+                   lambda q=q, k=kd.transpose(1, 2), v=vd.transpose(1, 2),
+                   m=mask: F.scaled_dot_product_attention(
+                       q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
+                   2 * q.numel() * q.element_size() + 4 * B
+                   + n_keys * kv_row + (8 * Hkv if sc else 0),
+                   4 * H * DH * n_keys,
+                   1e-4 if pool == "float32" else 2e-2)
+
+
+def flash_cases(torch, flash):
+    """The static engine's prefill attention at qwen2.5-3b's width (B=4,
+    H=16, dh=128; Hkv 2 and 16) for prompts of 256, 512 and 300 tokens,
+    causal and full, f32 and bf16. SDPA (enable_gqa) is the yardstick."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, H, DH = 4, 16, 128
+    for S in (256, 512, 300):
+        for Hkv in (2, 16):
+            for dt in ("float32", "bfloat16"):
+                tdt = getattr(torch, dt)
+                q, k, v = (torch.randn((B, S, h, DH), generator=g,
+                                       device=dev).to(tdt)
+                           for h in (H, Hkv, Hkv))
+                for causal in (True, False):
+                    pairs = S * (S + 1) // 2 if causal else S * S
+                    yield ("flash_attention",
+                           f"group={H // Hkv} {dt} S={S} "
+                           f"{'causal' if causal else 'full'}",
+                           dt,
+                           lambda q=q, k=k, v=v, c=causal:
+                               flash.flash_attention(q, k, v, causal=c),
+                           lambda q=q, k=k, v=v, c=causal:
+                               flash.flash_attention_plain(q, k, v,
+                                                           causal=c),
+                           lambda q=q, k=k, v=v, c=causal:
+                               F.scaled_dot_product_attention(
+                                   q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), is_causal=c,
+                                   enable_gqa=True),
+                           (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                           4 * B * H * DH * pairs,
+                           1e-4 if dt == "float32" else 2e-2)
+
+
+def check_kernels(torch, kern, flash):
     rows = []
     for (name, label, ops_type, fn, plain, sdpa, nbytes, ops,
-         tol) in kernel_cases(torch, kern):
+         tol) in kernel_cases(torch, kern, flash):
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -275,16 +390,46 @@ def requests(vocab: int):
 
 
 KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
-           "spec_verify_attention")
+           "spec_verify_attention", "decode_attention", "flash_attention")
+PAGED = KERNELS[:3]
+
+
+def _entries(kern) -> dict:
+    from repro_torch.kernels import flash_attention as flash
+    return {name: getattr(flash if name == "flash_attention" else kern, name)
+            for name in KERNELS}
 
 
 def zero_counts(kern) -> None:
-    for name in KERNELS:
-        getattr(kern, name).launches = 0
+    for fn in _entries(kern).values():
+        fn.launches = 0
 
 
 def read_counts(kern) -> dict:
-    return {name: getattr(kern, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in _entries(kern).items()}
+
+
+@contextlib.contextmanager
+def count_plain(*modules):
+    """Count the calls of every plain version (``*_plain``) of the
+    kernels' modules while the block runs: on the card the serving path
+    must make none."""
+    calls, saved = {}, []
+    for mod in modules:
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                fn = getattr(mod, name)
+
+                def counted(*a, _fn=fn, _name=f"{mod.__name__}.{name}", **kw):
+                    calls[_name] = calls.get(_name, 0) + 1
+                    return _fn(*a, **kw)
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
@@ -342,8 +487,7 @@ def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
     for policy in ("native", "int8"):
         eng, _, results[policy] = serve_run(
             torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
-            policy, ("paged_decode_attention", "chunk_prefill_attention"),
-            kv_policy=policy)
+            policy, PAGED[:2], kv_policy=policy)
         params = eng.params                 # one seeded init for every run
     return results, read_counts(kern), params
 
@@ -392,7 +536,7 @@ def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
         ("spec_verify_attention", "chunk_prefill_attention"), **spec)
     _, _, runs["self-draft"] = serve_run(
         torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
-        "self-draft", KERNELS, spec_mode="model", spec_k=4, draft_cfg=cfg,
+        "self-draft", PAGED, spec_mode="model", spec_k=4, draft_cfg=cfg,
         draft_params=params)
     acc = runs["self-draft"]["acceptance"]
     check(acc >= 0.9, f"self-draft accepted {acc:.3f} < 0.9 of its "
@@ -414,12 +558,8 @@ def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
 
 
 def profile_decode_block(torch, tm, cfg, params):
-    """Where a fused decode block's time goes: one K=8 block over 8 slots
-    holding 300 cached tokens each, at full width. Device busy time is the
-    sum of the kernels torch.profiler records; the wall time is taken
-    without the profiler (median of 5)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where a fused paged decode block's time goes: one K=8 block over 8
+    slots holding 300 cached tokens each, at full width."""
     opts = tm.RuntimeOptions(dtype="bfloat16")
     B, K = 8, 8
     n_pp = -(-MAX_LEN // PS)
@@ -432,6 +572,97 @@ def profile_decode_block(torch, tm, cfg, params):
     def block():
         tm.decode_steps_paged(cfg, params, tok, lens, pt, cache, K, opts)
         torch.cuda.synchronize()
+    return profile_block(torch, block, f"decode block K={K} B={B} len=300")
+
+
+# ------------------------------ phase 5 --------------------------------- #
+
+def qwen_requests(vocab: int):
+    """4 prompts of 256 and 4 of 512 tokens from a fixed seed: two static
+    waves."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, vocab, size=n).tolist()
+            for n in QWEN_PROMPTS for _ in range(4)]
+
+
+def serve_static(torch, kern, ServeEngine, RuntimeOptions, cfg):
+    """qwen2.5-3b at full width, bf16, the port's seeded init on the card,
+    through the static engine (serve_bucketed, K=8), native and int8 KV.
+    Each wave must launch the flash kernel once a layer and the dense
+    decode kernel once a layer a micro-step, the plain versions never,
+    and emit in-vocabulary tokens. Returns (rows, launches, params)."""
+    from repro_torch.kernels import flash_attention as flash
+    reqs = qwen_requests(cfg.vocab)
+    waves = len(QWEN_PROMPTS)
+    results, params = {}, None
+    zero_counts(kern)
+    for policy in ("native", "int8"):
+        eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
+                          device="cuda", seed=0, scheduler="static",
+                          kv_policy=policy, decode_lookahead=8,
+                          max_len=QWEN_MAX_LEN)
+        params = eng.params                 # one seeded init for both runs
+        before = read_counts(kern)
+        with count_plain(kern, flash) as plain:
+            t0 = time.perf_counter()
+            outs = eng.serve([r[:] for r in reqs], QWEN_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        s = eng.stats
+        n = {k: v - before[k] for k, v in read_counts(kern).items()}
+        label = f"static {policy}"
+        check(s.decode_steps == waves * QWEN_NEW,
+              f"{label}: {s.decode_steps} micro-steps, not {QWEN_NEW} a wave")
+        check(n["flash_attention"] == cfg.n_layers * waves,
+              f"{label}: flash launches {n['flash_attention']} != "
+              f"{cfg.n_layers} x {waves} waves")
+        check(n["decode_attention"] == cfg.n_layers * s.decode_steps,
+              f"{label}: decode launches {n['decode_attention']} != "
+              f"{cfg.n_layers} x {s.decode_steps} micro-steps")
+        check(all(n[k] == 0 for k in PAGED), f"{label}: paged launches {n}")
+        check(not plain, f"{label}: plain versions called on the card: "
+              f"{plain}")
+        check(all(len(o) == QWEN_NEW and all(0 <= t < cfg.vocab for t in o)
+                  for o in outs), f"{label}: malformed outputs")
+        results[policy] = dict(
+            tokens_per_s=s.tps, prefill_s=s.prefill_s, decode_s=s.decode_s,
+            host_syncs=s.host_syncs, decode_steps=s.decode_steps,
+            decode_compiles=s.decode_compiles, new_tokens=s.new_tokens,
+            requests=s.requests, wall_s=wall, launches=n)
+        log(f"{label} tokens/s={s.tps:.1f} prefill_s={s.prefill_s:.3f} "
+            f"decode_s={s.decode_s:.3f} host_syncs={s.host_syncs} "
+            f"decode_steps={s.decode_steps} "
+            f"decode_compiles={s.decode_compiles} launches flash="
+            f"{n['flash_attention']} decode={n['decode_attention']} "
+            f"wall={wall:.1f}s")
+    return results, read_counts(kern), params
+
+
+def profile_static_block(torch, tm, cfg, params, cache_dtype=""):
+    """Where a fused static decode block's time goes: one K=8 block of a
+    4-sequence wave whose dense caches hold a 512-token prompt, at full
+    width, with a native ("") or int8 cache."""
+    opts = tm.RuntimeOptions(dtype="bfloat16", cache_dtype=cache_dtype)
+    B, K, S = 4, 8, max(QWEN_PROMPTS)
+    cache = tm.init_cache(cfg, B, S + 1 + QWEN_NEW, opts, "cuda")
+    tok = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+
+    def block():
+        tm.decode_steps(cfg, params, tok, S, cache, K, opts)
+        torch.cuda.synchronize()
+    return profile_block(torch, block,
+                         f"static decode block K={K} B={B} pos={S} "
+                         f"cache={cache_dtype or 'native'}")
+
+
+def profile_block(torch, block, label):
+    """Device busy time of one call of ``block`` is the sum of the kernels
+    torch.profiler records; the wall time is taken without the profiler
+    (median of 5). The port's attention kernels live in the namespace
+    ``repro_paged``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     block()
     walls = []
     for _ in range(5):
@@ -451,9 +682,9 @@ def profile_decode_block(torch, tm, cfg, params):
     check(busy_ms > 0, "the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if "repro_paged" in k)
-    log(f"decode block K={K} B={B} len=300: wall {wall_ms:.2f}ms, device "
+    log(f"{label}: wall {wall_ms:.2f}ms, device "
         f"busy {busy_ms:.2f}ms ({100 * busy_ms / wall_ms:.1f}% of wall), "
-        f"paged attention {attn:.2f}ms "
+        f"attention kernels {attn:.2f}ms "
         f"({100 * attn / busy_ms:.1f}% of busy)")
     for name, ms in top:
         log(f"  {ms:7.3f}ms {100 * ms / busy_ms:5.1f}%  {name[:70]}")
@@ -462,7 +693,7 @@ def profile_decode_block(torch, tm, cfg, params):
                 top=[dict(name=n, ms=v) for n, v in top])
 
 
-# ------------------------------ phase 5 --------------------------------- #
+# ------------------------------ phase 6 --------------------------------- #
 
 def f32_checks(torch, tm, ServeEngine, cfg):
     import numpy as np
@@ -536,6 +767,69 @@ def f32_checks(torch, tm, ServeEngine, cfg):
     return err
 
 
+def f32_static_checks(torch, tm, ServeEngine, cfg_full):
+    """qwen2.5-3b at full width but 4 layers, f32: the kernel path's
+    prefill and decode logits against the CPU plain path; static K=8 ==
+    K=1; static == continuous on the static phase's requests (up to a
+    near-tie)."""
+    import numpy as np
+    cfg = dataclasses.replace(cfg_full, n_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = tm.init_params(cfg, gen, "float32", "cuda")
+    opts = tm.RuntimeOptions(dtype="float32")
+
+    rng = np.random.default_rng(2)
+    B, S, n_dec = 2, 128, 3
+    toks = rng.integers(1, cfg.vocab, size=(B, S + n_dec)).astype(np.int32)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _to(params, "cpu")
+        cache = tm.init_cache(cfg, B, S + n_dec, opts, dev)
+        lg, cache = tm.prefill(cfg, p, torch.as_tensor(toks[:, :S],
+                                                       device=dev),
+                               cache, opts)
+        rows = [lg.float().cpu()]
+        for j in range(n_dec):
+            lg, cache = tm.decode_step(
+                cfg, p, torch.as_tensor(toks[:, S + j], device=dev), S + j,
+                cache, opts)
+            rows.append(lg.float().cpu())
+        logits[dev] = torch.stack(rows)
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    log(f"f32 static kernel path vs CPU plain path (qwen2.5-3b, 4 layers): "
+        f"max |logit diff| = {err:.2e} (max |logit| {scale:.2f})")
+    check(err <= 2e-3 * max(scale, 1.0), "static GPU and CPU logits disagree")
+
+    reqs = qwen_requests(cfg.vocab)
+    new = 16
+    outs = {}
+    for k in (1, 8):
+        eng = ServeEngine(cfg, params, opts, device="cuda",
+                          scheduler="static", decode_lookahead=k,
+                          max_len=QWEN_MAX_LEN)
+        outs[k] = eng.serve([r[:] for r in reqs], new)
+    check(outs[1] == outs[8], "static decode_lookahead 8 diverged from 1")
+    eng = ServeEngine(cfg, params, opts, device="cuda",
+                      scheduler="continuous", page_size=PS, max_batch=8,
+                      prefill_chunk=C, max_len=QWEN_MAX_LEN)
+    cont = eng.serve([r[:] for r in reqs], new)
+    check(eng.trace_report["ok"] and eng.kv_manager.n_used == 0,
+          "continuous: trace did not reconcile or pages leaked")
+    n_tie = 0
+    for prompt, got, want in zip(reqs, cont, outs[8]):
+        if got != want:
+            n = tie_free_prefix(torch, tm, cfg, params, opts, prompt, want)
+            check(n < len(want) and got[:n] == want[:n],
+                  f"f32 continuous diverged from static before any "
+                  f"near-tie: {got} vs {want}")
+            n_tie += 1
+    log(f"f32 static K=8 == K=1 and static == continuous on {len(reqs)} "
+        f"requests ({sum(map(len, outs[8]))} tokens; {n_tie} differ after "
+        f"a top-2 gap < 1e-4)")
+    return dict(logit_err=err, near_tie_requests=n_tie)
+
+
 def tie_free_prefix(torch, tm, cfg, params, opts, prompt, out, gap=1e-4):
     """Length of ``out`` before the first position whose spec-off logits
     (one chunked prefill of prompt + out) have a top-2 gap below ``gap``:
@@ -599,15 +893,17 @@ def main() -> None:
 
     # ---- phase 2 ----
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import decode_attention as kern
+    from repro_torch.kernels import flash_attention as flash
     import repro_torch.models as tm
     from repro_torch.serving import ServeEngine
     t0 = time.perf_counter()
-    built = kern.build_kernels()
+    built = kbuild.build_kernels()
     log(f"build {time.perf_counter() - t0:.1f}s "
         + " ".join(f"{k}={v:.1f}s" for k, v in built.items()))
-    for name in kern._SOURCES:
-        text = kern.build_log(name)
+    for name in kbuild.SOURCES:
+        text = kbuild.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
                                              text)]
@@ -618,7 +914,7 @@ def main() -> None:
             f"{max(spills, default=0)} B")
 
     # ---- phase 3 ----
-    rows = check_kernels(torch, kern)
+    rows = check_kernels(torch, kern, flash)
 
     # ---- phase 4 ----
     cfg = get_config("llama3.2-1b")
@@ -631,26 +927,49 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
-    # ---- phase 5 ----
-    f32_err = f32_checks(torch, tm, ServeEngine, cfg)
+    # ---- phase 5: the static engine ----
+    qwen = get_config("qwen2.5-3b")
+    static, static_launches, params = serve_static(
+        torch, kern, ServeEngine, tm.RuntimeOptions, qwen)
+    static_breakdown = {policy: profile_static_block(torch, tm, qwen, params,
+                                                     cache_dtype)
+                        for policy, cache_dtype in (("native", ""),
+                                                    ("int8", "int8"))}
+    del params
+    torch.cuda.empty_cache()
 
-    # the main path's configuration: bf16 pool, group 1 (llama3.2-1b as
-    # the paper sizes it: 32 KV heads), the engine's scalar-start chunk and
-    # the full verify window of spec_k 4. Launches: the spec-off path's
-    # for the first two, the speculative path's for the verify entry.
+    # ---- phase 6 ----
+    f32_err = f32_checks(torch, tm, ServeEngine, cfg)
+    f32_static = f32_static_checks(torch, tm, ServeEngine, qwen)
+
+    # the main paths' configurations: for the paged entries a bf16 pool,
+    # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
+    # engine's scalar-start chunk and the full verify window of spec_k 4;
+    # for the static entries qwen2.5-3b's width (group 8) at the 512-token
+    # wave. Launches: the spec-off path's for the first two, the
+    # speculative path's for the verify entry, the static path's for the
+    # last two.
     head = {"paged_decode_attention": "group=1 pool=bfloat16",
             "chunk_prefill_attention":
                 "group=1 pool=bfloat16 start=scalar",
-            "spec_verify_attention": "group=1 pool=bfloat16 C=5"}
+            "spec_verify_attention": "group=1 pool=bfloat16 C=5",
+            "decode_attention": "group=8 pool=bfloat16 L=545 dh=128",
+            "flash_attention": "group=8 bfloat16 S=512 causal"}
     replaces = {"paged_decode_attention":
                     "src/repro/kernels/decode_attention.py:180",
                 "chunk_prefill_attention":
                     "src/repro/kernels/decode_attention.py:284",
                 "spec_verify_attention":
-                    "src/repro/kernels/decode_attention.py:360"}
+                    "src/repro/kernels/decode_attention.py:360",
+                "decode_attention":
+                    "src/repro/kernels/decode_attention.py:91",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention.py:71"}
     launches["spec_verify_attention"] = spec_launches["spec_verify_attention"]
-    source = dict(kern._SOURCES,
-                  spec_verify_attention=kern._SOURCES[
+    for name in ("decode_attention", "flash_attention"):
+        launches[name] = static_launches[name]
+    source = dict(kbuild.SOURCES,
+                  spec_verify_attention=kbuild.SOURCES[
                       "chunk_prefill_attention"])
     kernels = []
     for name, case in head.items():
@@ -667,8 +986,10 @@ def main() -> None:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             gpu=smi, kernel_cases=rows, engine=engine,
-            spec_path_launches=spec_launches,
-            decode_block=breakdown, f32_logit_err=f32_err,
+            spec_path_launches=spec_launches, static=static,
+            static_path_launches=static_launches,
+            decode_block=breakdown, static_decode_block=static_breakdown,
+            f32_logit_err=f32_err, f32_static=f32_static,
             build_s=built, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

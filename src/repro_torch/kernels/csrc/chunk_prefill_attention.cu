@@ -39,8 +39,10 @@ chunk_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int rows = C * (H / Hkv);
   const int r0 = blockIdx.z * MAX_ROWS;
   const int nrows = min(MAX_ROWS, rows - r0);
-  attend_rows<T, KV, DH>(q, kp, vp, pt, ksc, vsc, out, b, h, r0, nrows, C, H, Hkv, ps, n_pp,
-                         n_pages, start[b], n_valid[b], scale);
+  attend_rows<T, KV, DH>(q, kp, vp, PagedRows{pt + static_cast<size_t>(b) * n_pp, n_pp,
+                                              n_pages, ps},
+                         ksc, vsc, out, b, h, r0, nrows, C, H, Hkv, start[b], n_valid[b],
+                         scale);
 }
 
 template <typename T, typename KV, int DH>

@@ -1,6 +1,8 @@
-// Type/width dispatch shared by the two paged-attention entry points: the
-// wrapper passes dtype codes (repro_paged::DType) and the head width, and
-// Launch<T, KV, DH>::run is instantiated for every supported combination.
+// Type/width dispatch shared by the attention entry points: the wrapper
+// passes dtype codes (repro_paged::DType) and the head width, and
+// Launch<T, KV, DH>::run is instantiated for every supported combination
+// (dispatch: any query type against any K/V type; dispatch_same: K/V of
+// the query's type).
 #pragma once
 
 #include "paged_attention.cuh"
@@ -32,16 +34,37 @@ int by_query(int q_dtype, int kv_dtype, A... args) {
   }
 }
 
-template <template <typename, typename, int> class Launch, typename... A>
-int dispatch(int dh, int q_dtype, int kv_dtype, A... args) {
-  int rc;
-  switch (dh) {
-    case 64: rc = by_query<Launch, 64>(q_dtype, kv_dtype, args...); break;
-    case 128: rc = by_query<Launch, 128>(q_dtype, kv_dtype, args...); break;
+template <template <typename, typename, int> class Launch, int DH, typename... A>
+int by_same(int dtype, A... args) {
+  switch (dtype) {
+    case F32: Launch<float, float, DH>::run(args...); return 0;
+    case BF16: Launch<__nv_bfloat16, __nv_bfloat16, DH>::run(args...); return 0;
+    case F16: Launch<__half, __half, DH>::run(args...); return 0;
     default: return UNSUPPORTED;
   }
-  if (rc) return rc;
-  return static_cast<int>(cudaGetLastError());
+}
+
+// rc of the dispatch, else cudaGetLastError() after the launch
+inline int launch_status(int rc) {
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+template <template <typename, typename, int> class Launch, typename... A>
+int dispatch(int dh, int q_dtype, int kv_dtype, A... args) {
+  switch (dh) {
+    case 64: return launch_status(by_query<Launch, 64>(q_dtype, kv_dtype, args...));
+    case 128: return launch_status(by_query<Launch, 128>(q_dtype, kv_dtype, args...));
+    default: return UNSUPPORTED;
+  }
+}
+
+template <template <typename, typename, int> class Launch, typename... A>
+int dispatch_same(int dh, int dtype, A... args) {
+  switch (dh) {
+    case 64: return launch_status(by_same<Launch, 64>(dtype, args...));
+    case 128: return launch_status(by_same<Launch, 128>(dtype, args...));
+    default: return UNSUPPORTED;
+  }
 }
 
 }  // namespace repro_paged

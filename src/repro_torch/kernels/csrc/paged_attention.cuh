@@ -1,6 +1,8 @@
-// Shared body of the two paged-attention kernels (paged decode, chunked
-// prefill): a tile of query rows of one (sequence, kv head) against the
-// sequence's KV pages, read through its page table, with an online softmax.
+// Shared body of the port's attention kernels (paged decode, chunked
+// prefill, dense-cache decode, flash attention): a tile of query rows of
+// one (sequence, kv head) against the sequence's keys, with an online
+// softmax. Where a key position's K/V row lives is a policy (PagedRows:
+// through the sequence's page table; DenseRows: a dense per-sequence cache).
 //
 // Numerics follow the reference kernels' shared step
 // (repro/kernels/decode_attention.py, _online_softmax_step/_finalize):
@@ -16,12 +18,13 @@
 // the serial tile walk, not by bandwidth):
 //   * one thread block of NT threads per (sequence, kv head, row tile);
 //   * the keys are walked in tiles of TK = 4096 / DH positions, which may
-//     span several pages: each staged vector reads its own page id from the
-//     page table (there is no scalar prefetch) and the id is clamped to the
-//     null page 0 when it is out of [0, n_pages);
+//     span several pages: with PagedRows each staged vector reads its own
+//     page id from the page table (there is no scalar prefetch) and the id
+//     is clamped to the null page 0 when it is out of [0, n_pages);
 //   * K and V tiles are staged in shared memory as f32 with 16-byte loads;
 //     key positions past the tile's last attendable position (or past the
-//     page table) are zero-filled and never read from device memory;
+//     page table or the dense cache) are zero-filled and never read from
+//     device memory;
 //   * scores and probabilities live in shared memory, the running max and
 //     sum in shared memory, the output accumulator in registers.
 // Plain FMA arithmetic; no tensor cores, TMA or split-K yet.
@@ -54,6 +57,32 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
+// Key position kpos of the block's sequence in the paged pool: row
+// pid * ps + kpos % ps of the (n_pages * ps, Hkv, DH) view, pid read from
+// the sequence's page-table row and clamped to the null page 0 when it is
+// out of [0, n_pages); -1 past the page table.
+struct PagedRows {
+  const int* pt_row;
+  int n_pp, n_pages, ps;
+  __device__ __forceinline__ long long operator()(int kpos) const {
+    const int pi = kpos / ps;
+    if (pi >= n_pp) return -1;
+    int pid = pt_row[pi];
+    if (pid < 0 || pid >= n_pages) pid = 0;    // never leave the pool
+    return static_cast<long long>(pid) * ps + kpos % ps;
+  }
+};
+
+// Key position kpos of sequence b in a dense (B, L, Hkv, DH) cache: row
+// b * L + kpos of the (B * L, Hkv, DH) view (base = b * L); -1 at or past L.
+struct DenseRows {
+  long long base;
+  int L;
+  __device__ __forceinline__ long long operator()(int kpos) const {
+    return kpos < L ? base + kpos : -1;
+  }
+};
+
 template <int DH>
 struct Tile {
   static constexpr int TK = 4096 / DH;   // key positions per staged tile
@@ -72,14 +101,14 @@ struct Smem {
 };
 
 // Stage key positions [base, base + TK) of kv head h into shared memory as
-// f32 (scaled when int8). Positions >= limit or past the page table are
-// zero-filled. 16-byte vector loads: VEC elements of KV each.
-template <typename KV, int DH>
+// f32 (scaled when int8). Positions >= limit, or that rows_at places
+// outside the storage, are zero-filled. 16-byte vector loads: VEC elements
+// of KV each.
+template <typename KV, int DH, typename Rows>
 __device__ __forceinline__ void stage_kv(Smem<DH>& sm, const KV* __restrict__ kp,
-                                         const KV* __restrict__ vp,
-                                         const int* __restrict__ pt_row, int n_pp,
-                                         int n_pages, int ps, int Hkv, int h, int base,
-                                         int limit, float ksc, float vsc) {
+                                         const KV* __restrict__ vp, const Rows& rows_at,
+                                         int Hkv, int h, int base, int limit, float ksc,
+                                         float vsc) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int KS = Tile<DH>::KSTRIDE;
   constexpr int VEC = 16 / sizeof(KV);
@@ -88,12 +117,10 @@ __device__ __forceinline__ void stage_kv(Smem<DH>& sm, const KV* __restrict__ kp
     const int j = i / VPR;
     const int c = (i % VPR) * VEC;
     const int kpos = base + j;
-    const int pi = kpos / ps;
+    const long long row = kpos < limit ? rows_at(kpos) : -1;
     float kf[VEC], vf[VEC];
-    if (kpos < limit && pi < n_pp) {
-      int pid = pt_row[pi];
-      if (pid < 0 || pid >= n_pages) pid = 0;    // never leave the pool
-      const size_t off = ((static_cast<size_t>(pid) * ps + kpos % ps) * Hkv + h) * DH + c;
+    if (row >= 0) {
+      const size_t off = (static_cast<size_t>(row) * Hkv + h) * DH + c;
       const uint4 kr = *reinterpret_cast<const uint4*>(kp + off);
       const uint4 vr = *reinterpret_cast<const uint4*>(vp + off);
       const KV* ke = reinterpret_cast<const KV*>(&kr);
@@ -118,14 +145,14 @@ __device__ __forceinline__ void stage_kv(Smem<DH>& sm, const KV* __restrict__ kp
 // Attend rows [r0, r0 + nrows) of sequence b's query block for kv head h.
 // Row r (in (position, head-in-group) order) is position c = r / group of
 // the chunk and query head h * group + r % group; it may attend key
-// positions < min(start + c + 1, n_valid). q/out: (B, C, H, DH).
-template <typename T, typename KV, int DH>
+// positions < min(start + c + 1, n_valid). q/out: (B, C, H, DH); rows_at
+// maps sequence b's key positions to K/V rows (PagedRows, DenseRows).
+template <typename T, typename KV, int DH, typename Rows>
 __device__ void attend_rows(const T* __restrict__ q, const KV* __restrict__ kp,
-                            const KV* __restrict__ vp, const int* __restrict__ pt,
+                            const KV* __restrict__ vp, const Rows& rows_at,
                             const float* __restrict__ ksc_p, const float* __restrict__ vsc_p,
                             T* __restrict__ out, int b, int h, int r0, int nrows, int C,
-                            int H, int Hkv, int ps, int n_pp, int n_pages, int start,
-                            int n_valid, float scale) {
+                            int H, int Hkv, int start, int n_valid, float scale) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int KS = Tile<DH>::KSTRIDE;
   constexpr int APT = MAX_ROWS * DH / NT;   // accumulator elements per thread
@@ -134,7 +161,6 @@ __device__ void attend_rows(const T* __restrict__ q, const KV* __restrict__ kp,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int* pt_row = pt + static_cast<size_t>(b) * n_pp;
   const float ksc = ksc_p ? ksc_p[h] : 1.f;
   const float vsc = vsc_p ? vsc_p[h] : 1.f;
 
@@ -158,7 +184,7 @@ __device__ void attend_rows(const T* __restrict__ q, const KV* __restrict__ kp,
   __syncthreads();
 
   for (int base = 0; base < limit; base += TK) {
-    stage_kv<KV, DH>(sm, kp, vp, pt_row, n_pp, n_pages, ps, Hkv, h, base, limit, ksc, vsc);
+    stage_kv<KV, DH>(sm, kp, vp, rows_at, Hkv, h, base, limit, ksc, vsc);
     __syncthreads();
 
     // scores: one (row, key) dot per step; keys vary fastest across lanes

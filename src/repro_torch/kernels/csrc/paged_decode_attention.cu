@@ -36,8 +36,10 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int len = seq_lens[b];
   // a decode query is a one-position chunk at position len - 1 whose rows
   // all see keys < len
-  attend_rows<T, KV, DH>(q, kp, vp, pt, ksc, vsc, out, b, h, r0, nrows, /*C=*/1, H, Hkv,
-                         ps, n_pp, n_pages, /*start=*/len - 1, /*n_valid=*/len, scale);
+  attend_rows<T, KV, DH>(q, kp, vp, PagedRows{pt + static_cast<size_t>(b) * n_pp, n_pp,
+                                              n_pages, ps},
+                         ksc, vsc, out, b, h, r0, nrows, /*C=*/1, H, Hkv, /*start=*/len - 1,
+                         /*n_valid=*/len, scale);
 }
 
 template <typename T, typename KV, int DH>

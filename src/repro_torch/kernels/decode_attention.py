@@ -1,7 +1,8 @@
-"""Paged attention kernels for the H100, with their plain PyTorch versions.
+"""Attention kernels over the KV cache for the H100, with their plain
+PyTorch versions.
 
-Two hand-written CUDA kernels (``csrc/``) carry the continuous-batching
-path's attention, reached through three entries:
+Three hand-written CUDA kernels (``csrc/``) carry the serving paths'
+cache attention, reached through four entries:
 
 * ``paged_decode_attention`` — one query token per sequence against the
   page-table-indirected KV pool (replaces the TPU kernel
@@ -11,51 +12,38 @@ path's attention, reached through three entries:
 * ``spec_verify_attention`` — the speculative verify window, a per-sequence
   start and per-row frontier (replaces ``spec_verify_attention`` there,
   which is the chunk kernel's ``pallas_call`` with ``start=seq_lens``; here
-  too it launches the chunk kernel).
+  too it launches the chunk kernel);
+* ``decode_attention`` — one query token per sequence against a dense
+  ``(B, L, Hkv, dh)`` cache, masked at a per-row valid length: the static
+  engine's decode (replaces ``decode_attention`` there).
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
 counts its launches in a plain integer attribute (``.launches``).
 
-Measured on the H100 (PERF.md), both kernels are latency bound, not
-memory bound: about 10x (decode) and 70x (chunk) their byte bound, set by
-their serial walk over key tiles and the chunk kernel's f32 FMA dot
-products. The source notes in ``csrc/*.cu`` say what the design does.
-
-Build: ``nvcc`` compiles each ``.cu`` into its own shared library under
-``build/repro_torch/`` at first use, keyed by a hash of the sources, and
-the library is loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). All sources build in parallel.
+Measured on the H100 (PERF.md), the kernels are latency bound, not memory
+bound: their serial walk over key tiles and the chunk kernel's f32 FMA dot
+products set their times. The source notes in ``csrc/*.cu`` say what each
+design does. ``kernels.build`` compiles and loads them.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import kernel
+
 NEG_INF = -1e30
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_HEADERS = ("paged_attention.cuh", "dispatch.cuh")
-_SOURCES = {"paged_decode_attention": "paged_decode_attention.cu",
-            "chunk_prefill_attention": "chunk_prefill_attention.cu"}
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dtype codes of repro_paged::DType (csrc/paged_attention.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
-_LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,87 +54,21 @@ _ARGTYPES = {
     # q, k, v, page_table, start, n_valid, k_scale, v_scale, out,
     # B, C, H, Hkv, dh, ps, n_pp, n_pages, q_dtype, kv_dtype, scale, stream
     "chunk_prefill_attention": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    # q, k_cache, v_cache, kv_valid, k_scale, v_scale, out,
+    # B, H, Hkv, dh, L, q_dtype, kv_dtype, scale, stream
+    "decode_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
 }
 
 
-# ------------------------------- build --------------------------------- #
-
-def _source_hash(name: str) -> str:
-    h = hashlib.sha256()
-    for f in (_SOURCES[name], *_HEADERS):
-        h.update((_CSRC / f).read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _lib_path(name: str) -> Path:
-    return _BUILD / f"{name}_{_source_hash(name)}.so"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (nvcc); set CUDA_HOME")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_kernels() -> Dict[str, float]:
-    """Compile every kernel whose library is missing, all in parallel (one
-    ``nvcc`` per source). Returns {kernel: seconds} for the builds run;
-    each build's compiler output (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside its library as ``.log``."""
-    todo = {n: _lib_path(n) for n in _SOURCES if not _lib_path(n).exists()}
-    if not todo:
-        return {}
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        log = open(path.with_suffix(".log"), "w")
-        procs[name] = (subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / _SOURCES[name])],
-            stdout=log, stderr=subprocess.STDOUT), tmp, path, log)
-    secs = {}
-    failed = []
-    for name, (proc, tmp, path, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        secs[name] = time.perf_counter() - t0
-        if rc:
-            failed.append(f"{name} (rc={rc}, see {path.with_suffix('.log')})")
-        else:
-            os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("nvcc failed: " + "; ".join(failed))
-    return secs
-
-
-def build_log(name: str) -> str:
-    """The compiler output of ``name``'s current build ('' if none)."""
-    log = _lib_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_kernels()
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+def _fn(name: str):
+    return kernel(name, _ARGTYPES[name])
 
 
 # ---------------------------- validation -------------------------------- #
 
 def _check(q, k_pages, v_pages, k_scale, v_scale, ints, *, q_ndim: int):
-    """Raise on anything the CUDA kernels do not take."""
+    """Raise on anything the CUDA kernels do not take. k/v_pages: the K/V
+    pools, dense caches or key/value tensors (4-D, kv heads on dim 2)."""
     if q.dim() != q_ndim or k_pages.dim() != 4:
         raise ValueError(f"q must be {q_ndim}-D and the pools 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
@@ -199,7 +121,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-# ------------------------------ decode ---------------------------------- #
+# ------------------------------ plain math ------------------------------ #
 
 def _probs(s):
     """Unnormalised probabilities and row sums of masked f32 scores s
@@ -209,6 +131,14 @@ def _probs(s):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m))
     return p, p.sum(dim=-1).clamp_min(1e-30)
+
+
+def _dequant_dense(x, scale):
+    """(B, L, Hkv, dh) K or V as f32, times its (Hkv,) scale when given."""
+    x = x.float()
+    if scale is not None:
+        x = x * scale.float()[None, None, :, None]
+    return x
 
 
 def _gather(pages, page_table):
@@ -221,32 +151,53 @@ def _gather(pages, page_table):
 
 
 def _dequant(pages, page_table, scale):
-    x = _gather(pages, page_table).float()
-    if scale is not None:
-        x = x * scale.float()[None, None, :, None]
-    return x
+    return _dequant_dense(_gather(pages, page_table), scale)
 
+
+def _decode_plain(q, kd, vd, valid, *, scale):
+    """q (B, H, dh) against dense f32 K/V (B, L, Hkv, dh): sequence b
+    attends key positions < valid[b], softmax in f32."""
+    B, H, dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    L, Hkv = kd.shape[1], kd.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, dh).float()
+    s = torch.einsum("bhgd,blhd->bhgl", qg, kd) * scale
+    keep = (torch.arange(L, device=q.device)[None, :]
+            < valid.to(q.device)[:, None])                  # (B, L)
+    s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p, l = _probs(s)
+    o = torch.einsum("bhgl,blhd->bhgd", p, vd) / l[..., None]
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+def _attend_rows_plain(q, kd, vd, hi, *, scale):
+    """Query (b, c) of q (B, C, H, dh) attends key positions < hi[b, c] of
+    the dense f32 K/V (B, L, Hkv, dh), softmax in f32."""
+    B, C, H, dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    L, Hkv = kd.shape[1], kd.shape[2]
+    g = H // Hkv
+    mask = torch.arange(L, device=q.device)[None, None, :] < hi[:, :, None]
+    qg = q.reshape(B, C, Hkv, g, dh).float()
+    s = torch.einsum("bchgd,blhd->bhgcl", qg, kd) * scale
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p, l = _probs(s)
+    o = (torch.einsum("bhgcl,blhd->bchgd", p, vd)
+         / l.permute(0, 3, 1, 2)[..., None])
+    return o.reshape(B, C, H, dh).to(q.dtype)
+
+
+# ------------------------------ paged decode ---------------------------- #
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
                                  *, scale: float = None, k_scale=None,
                                  v_scale=None):
     """Plain PyTorch version: gather the pages densely, mask positions
     >= seq_lens[b], softmax in f32. q: (B, H, dh) -> (B, H, dh)."""
-    B, H, dh = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    kd = _dequant(k_pages, page_table, k_scale)           # (B, L, Hkv, dh)
-    vd = _dequant(v_pages, page_table, v_scale)
-    L, Hkv = kd.shape[1], kd.shape[2]
-    g = H // Hkv
-    qg = q.reshape(B, Hkv, g, dh).float()
-    s = torch.einsum("bhgd,blhd->bhgl", qg, kd) * scale
-    valid = (torch.arange(L, device=q.device)[None, :]
-             < seq_lens.to(q.device)[:, None])             # (B, L)
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p, l = _probs(s)
-    o = torch.einsum("bhgl,blhd->bhgd", p, vd) / l[..., None]
-    return o.reshape(B, H, dh).to(q.dtype)
-
+    return _decode_plain(q, _dequant(k_pages, page_table, k_scale),
+                         _dequant(v_pages, page_table, v_scale), seq_lens,
+                         scale=scale)
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                            scale: float = None, k_scale=None, v_scale=None):
@@ -270,7 +221,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
         raise ValueError("page_table must be (B, n_pp) and seq_lens (B,)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
-    fn = _lib("paged_decode_attention").paged_decode_attention
+    fn = _fn("paged_decode_attention")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), _ptr(k_scale),
             _ptr(v_scale), out.data_ptr(), B, H, Hkv, dh, ps,
@@ -292,20 +243,9 @@ def _attend_chunk_plain(q, k_pages, v_pages, page_table, hi, *, scale,
                         k_scale, v_scale):
     """Gather the pages densely; query (b, c) attends key positions
     < hi[b, c], softmax in f32. q: (B, C, H, dh); hi: (B, C)."""
-    B, C, H, dh = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    kd = _dequant(k_pages, page_table, k_scale)
-    vd = _dequant(v_pages, page_table, v_scale)
-    L, Hkv = kd.shape[1], kd.shape[2]
-    g = H // Hkv
-    mask = torch.arange(L, device=q.device)[None, None, :] < hi[:, :, None]
-    qg = q.reshape(B, C, Hkv, g, dh).float()
-    s = torch.einsum("bchgd,blhd->bhgcl", qg, kd) * scale
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    p, l = _probs(s)
-    o = (torch.einsum("bhgcl,blhd->bchgd", p, vd)
-         / l.permute(0, 3, 1, 2)[..., None])
-    return o.reshape(B, C, H, dh).to(q.dtype)
+    return _attend_rows_plain(q, _dequant(k_pages, page_table, k_scale),
+                              _dequant(v_pages, page_table, v_scale), hi,
+                              scale=scale)
 
 
 def _start_vector(start, B: int, device) -> torch.Tensor:
@@ -331,7 +271,7 @@ def _launch_chunk(name, q, k_pages, v_pages, page_table, start, n_valid, *,
                          "(B,)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
-    fn = _lib("chunk_prefill_attention").chunk_prefill_attention
+    fn = _fn("chunk_prefill_attention")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B, C, H, Hkv, dh,
@@ -430,3 +370,51 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
 
 
 spec_verify_attention.launches = 0
+
+
+# ------------------------------ dense decode ---------------------------- #
+
+def decode_attention_plain(q, k_cache, v_cache, kv_valid, *,
+                           scale: float = None, k_scale=None, v_scale=None):
+    """Plain PyTorch version: K/V to f32 (times their scales when int8),
+    mask positions >= kv_valid[b], softmax in f32. q: (B, H, dh) ->
+    (B, H, dh)."""
+    return _decode_plain(q, _dequant_dense(k_cache, k_scale),
+                         _dequant_dense(v_cache, v_scale), kv_valid,
+                         scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
+                     k_scale=None, v_scale=None):
+    """Decode attention over a dense KV cache.
+
+    q: (B, H, dh); k/v_cache: (B, L, Hkv, dh) (int8 when scales are given,
+    else any of f32/bf16/f16), any L; kv_valid: (B,) int32 valid positions
+    per sequence (positions >= kv_valid[b] are masked and, on the card,
+    never read); k/v_scale: (Hkv,) f32. The GQA group of H/Hkv consecutive
+    query heads reads one kv head. Returns (B, H, dh) in q's dtype."""
+    if not _on_cuda(q):
+        return decode_attention_plain(q, k_cache, v_cache, kv_valid,
+                                      scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale)
+    _check(q, k_cache, v_cache, k_scale, v_scale, (kv_valid,), q_ndim=3)
+    B, H, dh = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B or kv_valid.shape != (B,):
+        raise ValueError(f"caches must be (B={B}, L, Hkv, dh) and kv_valid "
+                         f"({B},), got {tuple(k_cache.shape)} and "
+                         f"{tuple(kv_valid.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    rc = _fn("decode_attention")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_valid.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B,
+        H, Hkv, dh, L, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"decode_attention launch failed (rc={rc})")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

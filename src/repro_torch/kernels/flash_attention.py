@@ -1,0 +1,74 @@
+"""Flash attention (forward) for the H100, with its plain PyTorch version.
+
+``flash_attention`` is the static engine's prefill attention: blocked
+online-softmax GQA attention, causal or full, over a prompt whose keys are
+its own positions (``S == L``). On a CUDA tensor it launches the
+hand-written kernel ``csrc/flash_attention.cu`` (replaces the TPU kernel
+``repro/kernels/flash_attention.py::flash_attention``), or raises on what
+the kernel does not take; on a CPU tensor it runs the plain version. It
+counts its launches in ``flash_attention.launches``.
+
+Two differences from the TPU wrapper: any ``S`` is taken (the Pallas
+wrapper asserts block multiples of S and L), and the probabilities stay in
+f32 for the value product (the Pallas kernel casts them to the value's
+dtype first, which rounds them in bf16).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import kernel
+from repro_torch.kernels.decode_attention import (_DTYPE_CODE,
+                                                  _attend_rows_plain,
+                                                  _check, _on_cuda)
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float = None):
+    """Plain PyTorch version: f32 scores, query position c attends keys
+    <= c (causal) or all keys, softmax in f32. q: (B, S, H, dh); k, v:
+    (B, L, Hkv, dh) -> (B, S, H, dh) in q's dtype."""
+    B, S = q.shape[:2]
+    L = k.shape[1]
+    if causal:
+        hi = torch.arange(1, S + 1, device=q.device)[None].expand(B, S)
+    else:
+        hi = torch.full((B, S), L, device=q.device)
+    return _attend_rows_plain(q, k.float(), v.float(), hi, scale=scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
+    """Blocked GQA attention of q (B, S, H, dh) over k, v (B, S, Hkv, dh),
+    query head h reading kv head h // (H / Hkv); causal or full. q, k and v
+    share one dtype (f32, bf16 or f16). Returns (B, S, H, dh) in q's
+    dtype."""
+    if not _on_cuda(q):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    _check(q, k, v, None, None, (), q_ndim=4)
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    if k.dtype != q.dtype:
+        raise ValueError(f"k/v dtype {k.dtype} must be the query's "
+                         f"{q.dtype}")
+    if k.shape[:2] != (B, S):
+        raise ValueError(f"k/v must be (B={B}, S={S}, Hkv, dh) like the "
+                         f"queries (S == L), got {tuple(k.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    rc = kernel("flash_attention", _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        Hkv, dh, _DTYPE_CODE[q.dtype], int(causal), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention launch failed (rc={rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

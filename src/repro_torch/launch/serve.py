@@ -1,10 +1,14 @@
-"""Serving CLI of the PyTorch port: continuous batching over the paged KV
-pool, greedy or sampled decoding, optionally speculative, on the GPU by
-default.
+"""Serving CLI of the PyTorch port, on the GPU by default: continuous
+batching over the paged KV pool (greedy or sampled decoding, optionally
+speculative), or static waves over a dense cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --scheduler continuous --concurrency 16 --prompt-len 256 \\
         --new-tokens 64 --dtype bfloat16
+    # static waves: one --batch x --prompt-len wave, or --concurrency
+    # ragged requests bucketed by length
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --scheduler static --batch 4 --prompt-len 256 --dtype bfloat16
 
     # a small CPU run (the plain attention path instead of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -16,9 +20,9 @@ default.
         --reduced --device cpu --temperature 0.8 --top-p 0.9
 
 The flags and their destinations are the reference CLI's
-(``repro/launch/serve.py``). Options the port does not run yet
-(``--scheduler static``, ``--shards`` > 1) are rejected by the engine with
-``NotImplementedError``.
+(``repro/launch/serve.py``). What the port does not run yet (``--shards``
+> 1, families and attention masks other than dense causal GQA/MHA) is
+rejected by the engine with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -187,7 +191,10 @@ def main(argv=None) -> None:
     else:
         lens = [args.prompt_len] * args.batch
     reqs = [doc + rng.integers(1, cfg.vocab, size=n).tolist() for n in lens]
-    outs = eng.serve(reqs, args.new_tokens)
+    if args.scheduler == "static" and not args.concurrency:
+        outs = eng.generate(np.asarray(reqs), args.new_tokens)
+    else:
+        outs = eng.serve(reqs, args.new_tokens)
     s = eng.stats
     print(f"[serve] arch={cfg.name} device={eng.device} "
           f"sched={args.scheduler} kv={args.kv_policy} reqs={s.requests} "
@@ -196,6 +203,15 @@ def main(argv=None) -> None:
           f"steps={s.decode_steps} lookahead={args.decode_lookahead} "
           f"syncs={s.host_syncs} preempt={s.preemptions} TPS={s.tps:.1f} "
           f"overlap={not args.no_overlap}")
+    if args.scheduler == "continuous":
+        _print_continuous(args, eng, hier)
+    print("[serve] first output:", outs[0][:16])
+
+
+def _print_continuous(args, eng, hier) -> None:
+    """The continuous engine's prefix-cache, offload, speculation and
+    trace reports."""
+    s = eng.stats
     print(f"[serve] prefill_toks={s.prefill_tokens_computed} "
           f"cached={s.cached_prefix_tokens} deduped={s.pages_deduped} "
           f"cow={s.cow_copies} compiles={s.prefill_compiles} "
@@ -247,7 +263,6 @@ def main(argv=None) -> None:
         eng.trace.save(args.trace_out)
         print(f"[serve] wrote trace {args.trace_out} "
               f"(reconciled={eng.trace_report['ok']})")
-    print("[serve] first output:", outs[0][:16])
 
 
 if __name__ == "__main__":

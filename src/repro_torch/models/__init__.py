@@ -1,16 +1,22 @@
-"""The port's paged decoder-only LM (PyTorch): the continuous engine's
-model surface."""
+"""The port's dense decoder-only LM (PyTorch): the model surfaces of the
+continuous engine (paged KV pool) and of the static engine (dense
+cache)."""
+from repro_torch.models.api import decode_steps, module_for
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.lm import (RuntimeOptions, copy_pages,
+from repro_torch.models.lm import (RuntimeOptions, copy_pages, decode_step,
                                    decode_step_paged, decode_steps_paged,
-                                   decode_verify_paged, init_paged_cache,
-                                   init_params, layer_dma_slices,
-                                   page_layer_nbytes, paged_supported,
+                                   decode_verify_paged, forward, init_cache,
+                                   init_paged_cache, init_params,
+                                   layer_dma_slices, page_layer_nbytes,
+                                   paged_supported, prefill,
                                    prefill_paged_chunk, resolve_device,
-                                   spec_decode_verify, torch_dtype)
+                                   spec_decode_verify, static_supported,
+                                   torch_dtype)
 
-__all__ = ["RuntimeOptions", "copy_pages", "decode_step_paged",
-           "decode_steps_paged", "decode_verify_paged", "init_paged_cache",
-           "init_params", "layer_dma_slices", "page_layer_nbytes",
-           "paged_supported", "params_from_numpy", "prefill_paged_chunk",
-           "resolve_device", "spec_decode_verify", "torch_dtype"]
+__all__ = ["RuntimeOptions", "copy_pages", "decode_step", "decode_step_paged",
+           "decode_steps", "decode_steps_paged", "decode_verify_paged",
+           "forward", "init_cache", "init_paged_cache", "init_params",
+           "layer_dma_slices", "module_for", "page_layer_nbytes",
+           "paged_supported", "params_from_numpy", "prefill",
+           "prefill_paged_chunk", "resolve_device", "spec_decode_verify",
+           "static_supported", "torch_dtype"]

@@ -1,5 +1,6 @@
-"""Shared PyTorch building blocks of the paged serving path: dense layers,
-RMSNorm, rotary embeddings and the SwiGLU activation.
+"""Shared PyTorch building blocks of the serving paths: dense layers,
+RMSNorm, rotary embeddings, the SwiGLU activation and the dense-cache
+write.
 
 Parameters are plain dicts of tensors in the reference package's layout
 (``dense`` weights are ``(d_in, d_out)`` and apply as ``x @ w``), so weights
@@ -70,3 +71,17 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 def swiglu(gate, up):
     return F.silu(gate) * up
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos: int):
+    """Write k/v (B, S, Hkv, dh) at positions [pos, pos + S) of the dense
+    (B, Lmax, Hkv, dh) caches, in place (cast to the caches' dtype). The
+    reference's ``dynamic_update_slice`` clamps a start that would run
+    past Lmax; here that raises instead."""
+    S, L = k_new.shape[1], cache_k.shape[1]
+    if not 0 <= pos <= L - S:
+        raise ValueError(f"cache write of {S} positions at {pos} runs past "
+                         f"the cache length {L}")
+    cache_k[:, pos:pos + S] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + S] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v

@@ -1,18 +1,25 @@
-"""Decoder-only LM over the paged KV pool, in PyTorch: the continuous
-engine's chunked prefill, fused K-step decode (greedy or sampled),
-speculative verify and copy-on-write.
+"""Decoder-only LM in PyTorch, over the paged KV pool (the continuous
+engine's chunked prefill, fused K-step decode, speculative verify and
+copy-on-write) and over a dense per-sequence cache (the static engine's
+full-prompt prefill and decode).
 
-The reference is ``repro/models/lm.py`` (its paged subset). Parameters keep
-its layout: ``params["stack"]`` carries a leading ``n_layers`` axis and the
-layer loop indexes it. Unlike the reference, the KV pool is updated in
-place: a prefill chunk or decode step writes its KV into the pool tensors it
-was given (``index_copy_``) and returns the same cache dict.
+The reference is ``repro/models/lm.py`` (its dense GQA/MHA subset).
+Parameters keep its layout: ``params["stack"]`` carries a leading
+``n_layers`` axis and the layer loop indexes it. Unlike the reference, the
+caches are updated in place: a prefill or decode step writes its KV into
+the cache tensors it was given and returns the same cache dict.
 
-Attention runs through ``kernels.decode_attention``: on a CUDA tensor the
-hand-written kernels, on a CPU tensor their plain versions.
+Attention runs through ``kernels.decode_attention`` and
+``kernels.flash_attention``: on a CUDA tensor the hand-written kernels, on
+a CPU tensor their plain versions.
 
 Public surface:
     init_params(cfg, generator, dtype, device)          -> params
+    static_supported(cfg)                               -> reason or None
+    forward(cfg, params, tokens, opts, collect_kv=)     -> logits[, kvs]
+    init_cache(cfg, batch, max_len, opts, device)       -> cache
+    prefill(cfg, params, tokens, cache, opts)           -> (logits, cache)
+    decode_step(cfg, params, token, pos, cache, opts)   -> (logits, cache)
     init_paged_cache(cfg, n_pages, page_size, opts, device) -> cache
     prefill_paged_chunk(cfg, params, tokens, cache, page_table, start,
                         n_valid, opts, calibrate=)      -> (logits, cache)
@@ -37,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import decode_attention as kern
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling as sampling_mod
@@ -102,7 +110,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
     """Random weights from ``generator`` in the reference layout. The draws
     are PyTorch's, not JAX's: to share weights with the reference package,
     convert its params with ``models.convert.params_from_numpy``."""
-    reason = paged_supported(cfg)
+    reason = _family_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
     device = resolve_device(device)
@@ -154,9 +162,9 @@ def _embed_tokens(cfg, params, tokens):
 # masked by length, writes land on data nobody consumes).
 
 
-def paged_supported(cfg: ArchConfig) -> Optional[str]:
-    """None when this slice of the port runs ``cfg``; else why not, naming
-    the ROADMAP.md item that will port it."""
+def _family_supported(cfg: ArchConfig) -> Optional[str]:
+    """None for a dense GQA/MHA decoder; else why not, naming the
+    ROADMAP.md item that will port it."""
     if cfg.mla is not None:
         return ("MLA latent caches are not ported yet (ROADMAP.md queue A, "
                 "item 10)")
@@ -165,6 +173,15 @@ def paged_supported(cfg: ArchConfig) -> Optional[str]:
     if cfg.family != "dense":
         return (f"family {cfg.family!r} is not ported yet (ROADMAP.md queue "
                 f"A, item 10)")
+    return None
+
+
+def paged_supported(cfg: ArchConfig) -> Optional[str]:
+    """None when the port's paged path runs ``cfg``; else why not, naming
+    the ROADMAP.md item that will port it."""
+    reason = _family_supported(cfg)
+    if reason:
+        return reason
     if cfg.sliding_window:
         return ("sliding-window layers need windowed page masking, which the "
                 "reference's paged path lacks too")
@@ -534,3 +551,162 @@ def spec_decode_verify(cfg: ArchConfig, params, tokens, draft_len, seq_lens,
         logits, tokens[:, 1:].to(torch.int32), draft_len, u, noise,
         temperature=temperature, top_k=top_k, top_p=top_p, pad_id=pad_id)
     return out, n_acc, cache
+
+
+# ------------------------- static dense-cache serving ------------------- #
+# The static engine's path: one prefill of a whole equal-length prompt wave
+# (flash attention over the prompt, every layer's KV written to a dense
+# per-sequence cache), then decode steps that all write and read at one
+# shared position ``pos`` (dense decode attention at kv_valid = pos + 1,
+# which is the reference's causal attention at q_offset = pos).
+
+
+def static_supported(cfg: ArchConfig) -> Optional[str]:
+    """None when the port's static dense-cache path runs ``cfg``; else why
+    not, naming the ROADMAP.md item that will port it. The path attends
+    causally (prefill) or by valid length (decode) only: the reference's
+    general masked attention (sliding window, prefix-LM, soft-capping) is
+    not ported yet."""
+    reason = _family_supported(cfg)
+    if reason:
+        return reason
+    masked = {"sliding-window attention": cfg.sliding_window,
+              "prefix-LM masking": cfg.prefix_bidirectional and cfg.prefix_len,
+              "logit soft-capping": cfg.logit_softcap}
+    for what, on in masked.items():
+        if on:
+            return (f"{what} needs the general masked attention, which is "
+                    f"not ported yet (ROADMAP.md queue A, item 10)")
+    return None
+
+
+def _attn_apply(p, x, cfg: ArchConfig, rope):
+    """Causal attention over the whole prompt x (B, S, d) through the flash
+    kernel. Returns the block output and this layer's (k, v) (B, S, Hkv,
+    dh), k rotated."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, rope)
+    out = flash.flash_attention(q, k, v, causal=True,
+                                scale=1.0 / math.sqrt(hd))
+    return cm.dense(p["wo"], out.reshape(B, S, H * hd)), (k, v)
+
+
+def _block(lp, x, cfg: ArchConfig, rope):
+    h, kv = _attn_apply(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg, rope)
+    x = x + h
+    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg), kv
+
+
+def _hidden(cfg: ArchConfig, params, tokens):
+    """The final residual stream (B, S, d) of a full-prompt forward and
+    every layer's (k, v)."""
+    reason = static_supported(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+    B, S = tokens.shape
+    x = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    rope = cm.rope_cos_sin(positions, cfg.head_dim)
+    kvs = []
+    for i in range(cfg.n_layers):
+        x, kv = _block(_layer(params["stack"], i), x, cfg, rope)
+        kvs.append(kv)
+    return x, kvs
+
+
+def forward(cfg: ArchConfig, params, tokens,
+            opts: RuntimeOptions = RuntimeOptions(), *,
+            collect_kv: bool = False):
+    """Full-sequence causal forward. tokens: (B, S) int32. Returns logits
+    (B, S, vocab), or (logits, kvs) with ``collect_kv``: one (k, v) pair of
+    (B, S, Hkv, dh) per layer, k rotated (the reference returns the same
+    pairs stacked on a leading layer axis)."""
+    x, kvs = _hidden(cfg, params, tokens)
+    logits = _logits(cfg, params, x)
+    return (logits, kvs) if collect_kv else logits
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               opts: RuntimeOptions = RuntimeOptions(), device="cuda"):
+    """Dense KV cache: (n_layers, batch, max_len, Hkv, dh) per k/v.
+
+    ``opts.cache_dtype='int8'`` stores int8 with per-(layer, kv-head) f32
+    scales, which each prefill sets afresh from its prompt."""
+    reason = static_supported(cfg)
+    if reason:
+        raise NotImplementedError(f"dense KV cache: {reason}")
+    device = resolve_device(device)
+    quant = opts.cache_dtype == "int8"
+    dtype = torch_dtype(opts.cache_dtype or opts.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if quant:
+        c["k_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
+                                  dtype=torch.float32, device=device)
+        c["v_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
+                                  dtype=torch.float32, device=device)
+    return {"stack": c}
+
+
+def prefill(cfg: ArchConfig, params, tokens, cache,
+            opts: RuntimeOptions = RuntimeOptions()):
+    """Run the prompt (B, S), write every layer's KV at positions [0, S) of
+    the dense cache in place (int8: quantized with fresh per-layer scales
+    from this prompt), and return (last-position logits (B, vocab),
+    cache)."""
+    x, kvs = _hidden(cfg, params, tokens)
+    st = cache["stack"]
+    for i, (k, v) in enumerate(kvs):
+        if "k_scale" in st:
+            ksc, vsc = _amax_scale(k, (0, 1, 3)), _amax_scale(v, (0, 1, 3))
+            st["k_scale"][i].copy_(ksc)
+            st["v_scale"][i].copy_(vsc)
+            k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
+        cm.update_cache(st["k"][i], st["v"][i], k, v, 0)
+    return _logits(cfg, params, x[:, -1]), cache
+
+
+def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
+                 kv_valid):
+    """Single-token attention against the dense cache. x: (B, 1, d). The
+    new KV lands at ``pos`` first (int8: quantized with the prefill's
+    scales); the dense decode kernel then reads positions < kv_valid
+    (= pos + 1), dequantizing int8 itself."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg, rope)
+    ksc = vsc = None
+    if "k_scale" in cache_layer:
+        ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
+        k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
+    ck, cv = cm.update_cache(cache_layer["k"], cache_layer["v"], k, v, pos)
+    out = kern.decode_attention(q[:, 0], ck, cv, kv_valid,
+                                scale=1.0 / math.sqrt(hd), k_scale=ksc,
+                                v_scale=vsc)
+    return cm.dense(p["wo"], out.reshape(B, 1, H * hd))
+
+
+def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
+                  kv_valid):
+    x = x + _decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
+                         cache_layer, pos, rope, kv_valid)
+    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+
+
+def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+                opts: RuntimeOptions = RuntimeOptions()):
+    """One new token for every sequence of a static wave. token: (B,)
+    int32 (its KV lands at ``pos``, a host int shared by the wave). Returns
+    (logits (B, vocab), cache) with the cache updated in place."""
+    B = token.shape[0]
+    x = _embed_tokens(cfg, params, token[:, None])
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    rope = cm.rope_cos_sin(positions, cfg.head_dim)
+    kv_valid = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    st = cache["stack"]
+    for i in range(cfg.n_layers):
+        x = _decode_block(_layer(params["stack"], i), x, cfg, _layer(st, i),
+                          pos, rope, kv_valid)
+    return _logits(cfg, params, x)[:, 0], cache

@@ -1,17 +1,23 @@
-"""Continuous-batching serve engine over the paged, tiered KV pool, in
-PyTorch (the reference is ``repro/serving/engine.py``).
+"""Serve engines over the tiered KV cache, in PyTorch (the reference is
+``repro/serving/engine.py``).
 
-``ServeEngine(scheduler="continuous")`` is the only engine ported so far:
-iteration-level batching over a pool of fixed-size KV pages (native or
-int8), shared-prefix page reuse with copy-on-write, chunked prefill, a
-fused K-step decode block with one host sync per block, greedy or sampled
-(temperature/top-k/top-p) on the device, and speculative decoding
-(``spec_mode="ngram"`` or ``"model"``: propose, one verify pass,
-leftover/rejection sampling, rollback of the rejected suffix). Page
-residency across a ``MemoryHierarchy`` (HBS offload, chiplet promotion)
-is charged on a virtual clock exactly as in the reference. On the card
-every prefill chunk, decode step and verify pass attends through the
-hand-written kernels of ``kernels.decode_attention``.
+``ServeEngine(scheduler="continuous")``: iteration-level batching over a
+pool of fixed-size KV pages (native or int8), shared-prefix page reuse
+with copy-on-write, chunked prefill, a fused K-step decode block with one
+host sync per block, greedy or sampled (temperature/top-k/top-p) on the
+device, and speculative decoding (``spec_mode="ngram"`` or ``"model"``:
+propose, one verify pass, leftover/rejection sampling, rollback of the
+rejected suffix). Page residency across a ``MemoryHierarchy`` (HBS
+offload, chiplet promotion) is charged on a virtual clock exactly as in
+the reference. On the card every prefill chunk, decode step and verify
+pass attends through the paged kernels of ``kernels.decode_attention``.
+
+``ServeEngine(scheduler="static")``: waves of equal-length prompts over a
+dense per-wave KV cache (native or int8, int8 scales set afresh by each
+wave's prefill); ``generate`` prefills the wave (flash attention) and
+decodes it in fused K-step greedy blocks (dense decode attention), or
+token by token when sampling; ``serve_bucketed`` groups ragged requests
+by length into waves.
 
 Sampling draws come from ``models.sampling``'s counter-based generator
 keyed by ``(sample_seed, rid, token index)``, not JAX's threefry keys: at
@@ -22,9 +28,9 @@ CUDA work is asynchronous, so each timed bracket closes after the host
 pull (or a ``torch.cuda.synchronize()``) that ends it: ``prefill_s``,
 ``decode_s`` and the virtual clock measure kernel time, not launch time.
 
-Not ported yet, and rejected with ``NotImplementedError``: the static
-engine (ROADMAP.md A6), head-sharded serving (A9), and families other than
-dense GQA/MHA (A7, A10).
+Not ported yet, and rejected with ``NotImplementedError``: head-sharded
+serving (ROADMAP.md A9) and families or attention masks other than dense
+causal GQA/MHA (A7, A10).
 """
 from __future__ import annotations
 
@@ -36,11 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import (RuntimeOptions, copy_pages,
-                                decode_steps_paged, init_paged_cache,
-                                init_params, layer_dma_slices,
-                                paged_supported, prefill_paged_chunk,
-                                resolve_device, spec_decode_verify,
+from repro_torch.models import (RuntimeOptions, copy_pages, decode_step,
+                                decode_steps, decode_steps_paged, init_cache,
+                                init_paged_cache, init_params,
+                                layer_dma_slices, paged_supported, prefill,
+                                prefill_paged_chunk, resolve_device,
+                                spec_decode_verify, static_supported,
                                 torch_dtype)
 from repro_torch.models import sampling
 from repro_torch.serving import metrics
@@ -206,17 +213,16 @@ class ServeEngine:
                              f"{kv_policy!r}")
         if kv_policy == "int8":
             opts = dataclasses.replace(opts, cache_dtype="int8")
-        # ---- what this slice of the port does not run yet ---- #
-        if scheduler == "static":
-            raise NotImplementedError(
-                "the static dense-cache engine is not ported yet (ROADMAP.md "
-                "queue A, item 6); use scheduler='continuous'")
-        if scheduler != "continuous":
+        if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         # ---- speculative decoding / sampling configuration ---- #
         if spec_mode not in ("off", "ngram", "model"):
             raise ValueError(f"spec_mode must be one of off|ngram|model, "
                              f"got {spec_mode!r}")
+        if spec_mode != "off" and scheduler != "continuous":
+            raise ValueError("speculative decoding runs on the paged "
+                             "continuous engine; use scheduler='continuous' "
+                             "or spec_mode='off'")
         if spec_mode != "off" and spec_k < 1:
             raise ValueError(f"spec_k ({spec_k}) must be >= 1")
         if spec_mode == "model" and draft_cfg is None:
@@ -238,10 +244,16 @@ class ServeEngine:
             raise NotImplementedError(
                 "head-sharded serving is not ported yet (ROADMAP.md queue A, "
                 "item 9)")
-        reason = paged_supported(cfg)
-        if reason:
-            raise NotImplementedError(
-                f"continuous scheduler needs the paged KV path: {reason}")
+        if scheduler == "continuous":
+            reason = paged_supported(cfg)
+            if reason:
+                raise NotImplementedError(
+                    f"continuous scheduler needs the paged KV path: {reason}")
+        else:
+            reason = static_supported(cfg)
+            if reason:
+                raise NotImplementedError(
+                    f"static scheduler needs the dense-cache path: {reason}")
         self.spec_mode = spec_mode
         self.spec_k = spec_k
         self.draft_cfg = draft_cfg
@@ -344,10 +356,123 @@ class ServeEngine:
                                      self._dev(emitted))
 
     # ------------------------------------------------------------------ #
+    def generate(self, prompts, max_new_tokens: int, *, greedy: bool = True,
+                 seed: int = 0, noise=None) -> List[List[int]]:
+        """One static wave. prompts: (B, S) int array (equal lengths).
+
+        Greedy decode runs in fused K-step blocks (``models.decode_steps``,
+        K = ``decode_lookahead``): the host pulls one (B, K) token block a
+        sync instead of one token, and a tail block is clamped to the next
+        power of two of the tokens still owed. Emitted columns are the same
+        for every K: a block may overrun EOS on the device, but the host
+        truncates at exactly the step the per-token loop stops at.
+
+        ``greedy=False`` samples one token a step from softmax(logits)
+        (temperature 1, no filter) with one host sync a token, as
+        ``argmax(logits + Gumbel noise)``: step i's noise is ``noise[i]``
+        ((B, vocab) arrays, so a test can hand in the reference's own
+        draws), or else the counter-based draws of ``(seed, row, i)``."""
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
+                                  device=self.device)
+        B, S = prompts.shape
+        if S + max_new_tokens > self.max_len:
+            raise ValueError(f"prompt({S}) + new({max_new_tokens}) exceeds "
+                             f"max_len={self.max_len}")
+        cfg, params, opts = self.cfg, self.params, self.opts
+        K = self.decode_lookahead if greedy else 1
+        n_blocks = -(-max(max_new_tokens - 1, 0) // K)
+        # the last fused block may overrun the token budget: headroom keeps
+        # its (discarded) writes inside the cache
+        cache = init_cache(cfg, B, S + 1 + n_blocks * K, opts, self.device)
+
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, prompts, cache, opts)
+        _sync(self.device)
+        self.stats.host_syncs += 1
+        self.stats.prefill_s += time.perf_counter() - t0
+
+        out: List[np.ndarray] = []
+        done = np.zeros((B,), bool)
+        t0 = time.perf_counter()
+        launched = 0                        # device decode micro-steps
+        if greedy:
+            tok = sampling.sample_greedy(logits)
+            pending = tok[:, None]          # device columns not yet pulled
+            n_sent = 1                      # tokens produced on device
+            stop = False
+            while True:
+                cols = pending.cpu().numpy()
+                self.stats.host_syncs += 1
+                for j in range(cols.shape[1]):
+                    if len(out) >= max_new_tokens:
+                        break
+                    out.append(cols[:, j])
+                    if self.eos_id is not None:
+                        done |= cols[:, j] == self.eos_id
+                        if done.all():
+                            stop = True
+                            break
+                if stop or len(out) >= max_new_tokens:
+                    break
+                k_eff = min(K, _next_pow2(max_new_tokens - len(out)))
+                self._decode_shapes.add(("dense", B, k_eff))
+                pending, cache = decode_steps(cfg, params, tok,
+                                              S + n_sent - 1, cache, k_eff,
+                                              opts)
+                tok = pending[:, -1]
+                n_sent += k_eff
+                launched += k_eff
+        else:
+            rows = torch.arange(B, device=self.device)
+            for i in range(max_new_tokens):
+                if noise is not None:
+                    g = torch.as_tensor(np.array(noise[i], np.float32),
+                                        device=self.device)
+                else:
+                    g = sampling.gumbel(sampling.request_keys(
+                        seed, rows, torch.full_like(rows, i)),
+                        logits.shape[-1])
+                tok = sampling.sample(logits, g, temperature=1.0)
+                out.append(tok.cpu().numpy())
+                self.stats.host_syncs += 1
+                if self.eos_id is not None:
+                    done |= out[-1] == self.eos_id
+                    if done.all():
+                        break
+                if i + 1 < max_new_tokens:
+                    logits, cache = decode_step(cfg, params, tok, S + i,
+                                                cache, opts)
+                    launched += 1
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.new_tokens += len(out) * B
+        self.stats.requests += B
+        # launched device micro-steps (may exceed emitted - 1: blocks can
+        # overrun EOS), as the continuous engine counts them
+        self.stats.decode_steps += launched
+        self.stats.decode_compiles = len(self._decode_shapes)
+        return [row.tolist() for row in np.stack(out, axis=1)]
+
+    # ------------------------------------------------------------------ #
     def serve(self, requests: List[List[int]],
               max_new_tokens: int) -> List[List[int]]:
-        """Serve ragged requests with the continuous scheduler."""
-        return self.serve_continuous(requests, max_new_tokens)
+        """Serve ragged requests with the configured scheduler."""
+        if self.scheduler == "continuous":
+            return self.serve_continuous(requests, max_new_tokens)
+        return self.serve_bucketed(requests, max_new_tokens)
+
+    def serve_bucketed(self, requests: List[List[int]],
+                       max_new_tokens: int) -> List[List[int]]:
+        """Group ragged requests into equal-length waves, shortest first,
+        and serve each with ``generate``."""
+        buckets: Dict[int, List[int]] = {}
+        for i, r in enumerate(requests):
+            buckets.setdefault(len(r), []).append(i)
+        results: Dict[int, List[int]] = {}
+        for _, idxs in sorted(buckets.items()):
+            outs = self.generate([requests[i] for i in idxs], max_new_tokens)
+            for i, o in zip(idxs, outs):
+                results[i] = o
+        return [results[i] for i in range(len(requests))]
 
     # ------------------------------------------------------------------ #
     def serve_continuous(self, requests: List[List[int]],

@@ -5,7 +5,8 @@ same weights and requests, on the CPU.
 Token identity and equal bookkeeping (host syncs, prefill tokens, COW
 copies, peak pages) over {native, int8} x prefix cache {on, off} at K=8,
 the port's K=1 == K=8 identity, trace reconciliation, and the
-entry-point contract (CUDA by default, off-path options rejected)."""
+entry-point contract (CUDA by default, options and attention masks the
+port does not run yet rejected)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -167,12 +168,15 @@ def test_default_device_needs_cuda(models):
         ServeEngine(tcfg)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(scheduler="static"), "item 6"),
-    (dict(shards=2), "item 9"),
+@pytest.mark.parametrize("arch,kw,item", [
+    ("gemma3-1b", dict(scheduler="static"), "item 10"),     # sliding window
+    ("paligemma-3b", dict(scheduler="static"), "item 10"),  # prefix-LM
+    (None, dict(shards=2), "item 9"),
 ])
-def test_off_path_options_raise(models, kw, item):
+def test_off_path_options_raise(models, arch, kw, item):
     _, tcfg, _, tp = models
+    if arch is not None:
+        tcfg, tp = treduced(tget(arch)), None
     with pytest.raises(NotImplementedError, match=item):
         ServeEngine(tcfg, tp, device="cpu", **kw)
 

@@ -97,7 +97,10 @@ def test_serve_cli_offload_flags(capsys):
     assert "[serve] offload: stall=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--scheduler", "static"],
+@pytest.mark.parametrize("flags", [["--scheduler", "static", "--arch",
+                                    "gemma3-1b"],
+                                   ["--scheduler", "static", "--arch",
+                                    "paligemma-3b"],
                                    ["--arch", "deepseek-v2-236b"],
                                    ["--arch", "arctic-480b"],
                                    ["--shards", "2"]])

@@ -14,6 +14,7 @@ import torch
 
 import repro.kernels.decode_attention as da
 import repro_torch.kernels.decode_attention as tk
+from repro_torch.kernels import build as kbuild
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import t as _t
@@ -219,12 +220,13 @@ def test_kernel_argument_check_accepts_path_shapes():
 
 
 def test_build_is_keyed_by_the_sources():
-    """Each kernel library's name carries a hash of its source, the shared
-    headers and the compiler flags, so an edited source rebuilds."""
-    for name in tk._SOURCES:
-        path = tk._lib_path(name)
-        assert path.parent == tk._BUILD and path.suffix == ".so"
+    """Each kernel library's name carries a hash of its source, the
+    headers it includes and the compiler flags, so an edited source
+    rebuilds."""
+    for name in kbuild.SOURCES:
+        path = kbuild.lib_path(name)
+        assert path.parent == kbuild._BUILD and path.suffix == ".so"
         assert path.name.startswith(name + "_")
-    assert tk._source_hash("paged_decode_attention") != tk._source_hash(
+    assert kbuild.source_hash("paged_decode_attention") != kbuild.source_hash(
         "chunk_prefill_attention")
-    assert "arch=compute_90a,code=sm_90a" in tk._NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kbuild._NVCC_FLAGS

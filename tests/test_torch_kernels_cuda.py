@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Needs an NVIDIA GPU and nvcc (the kernels have no CPU mode), so every
-test here is marked ``cuda`` and skips without a card; the file imports no
-JAX, so it runs on a machine that has none:
+"""The port's CUDA kernels (paged decode, chunk prefill, speculative
+verify, dense decode, flash attention) against their plain PyTorch
+versions, on the card. Needs an NVIDIA GPU and nvcc (the kernels have no
+CPU mode), so every test here is marked ``cuda`` and skips without a card;
+the file imports no JAX, so it runs on a machine that has none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch.kernels.decode_attention as tk
+import repro_torch.kernels.flash_attention as tkf
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import t as _t
@@ -115,3 +117,91 @@ def test_cuda_launch_counts_and_rejects(cuda_device):
                                   kp[..., :16].contiguous(),
                                   kp[..., :16].contiguous(), pt, lens)
     assert tk.paged_decode_attention.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
+                                          (3, 8, 8, 64, 300)])
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.bfloat16, True)])
+def test_cuda_dense_decode_matches_plain(cuda_device, dtype, quant, B, H,
+                                         Hkv, dh, L):
+    """The static engine's decode at qwen2.5-3b's width (group 8) and a
+    dh=64 group-1 case: ragged kv_valid from 1 to L, an L that is not a
+    multiple of any tile, keys past kv_valid poisoned."""
+    rng = np.random.default_rng(L)
+    dev = dict(device=cuda_device)
+    kc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
+    vc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
+    valid = rng.integers(1, L + 1, size=B).astype(np.int32)
+    valid[0], valid[-1] = L, 1
+    kw = {}
+    if quant:
+        kc, ksc = _quantize(kc)
+        vc, vsc = _quantize(vc)
+        kw = dict(k_scale=_t(ksc).to(**dev), v_scale=_t(vsc).to(**dev))
+    kct = _t(kc).to(**dev) if quant else _t(kc).to(dtype=dtype, **dev)
+    vct = _t(vc).to(**dev) if quant else _t(vc).to(dtype=dtype, **dev)
+    q = _t(rng.standard_normal((B, H, dh), dtype=np.float32)).to(
+        dtype=dtype, **dev)
+    kv_valid = _t(valid).to(**dev)
+    tol = 1e-4 if dtype == torch.float32 and not quant else 2e-2
+    n = tk.decode_attention.launches
+    got = tk.decode_attention(q, kct, vct, kv_valid, **kw)
+    want = tk.decode_attention_plain(q, kct, vct, kv_valid, **kw)
+    for b in range(B):                      # never read past kv_valid
+        kct[b, valid[b]:] = 100 if quant else 1e4
+        vct[b, valid[b]:] = -100 if quant else -1e4
+    again = tk.decode_attention(q, kct, vct, kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert tk.decode_attention.launches == n + 2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 300])
+@pytest.mark.parametrize("Hkv", [2, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_plain(cuda_device, dtype, causal, Hkv, S):
+    """The static engine's prefill attention at qwen2.5-3b's width (16
+    heads, group 8 and 1, head_dim 128), a prompt length that is not a
+    multiple of the row tile, causal and full."""
+    rng = np.random.default_rng(S + Hkv)
+    dev = dict(device=cuda_device, dtype=dtype)
+    B, H, dh = 2, 16, 128
+    q = _t(rng.standard_normal((B, S, H, dh), dtype=np.float32)).to(**dev)
+    k = _t(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).to(**dev)
+    v = _t(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).to(**dev)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    n = tkf.flash_attention.launches
+    got = tkf.flash_attention(q, k, v, causal=causal)
+    want = tkf.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tkf.flash_attention.launches == n + 1
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_paged_kernels_at_qwen_width(cuda_device):
+    """The paged kernels at head_dim 128 and group 8 (qwen2.5-3b), which
+    the continuous path serves at that width."""
+    rng = np.random.default_rng(9)
+    B, H, Hkv, dh, ps, npp, C = 4, 16, 2, 128, 16, 8, 32
+    P = B * npp + 1
+    dev = dict(device=cuda_device)
+    kp, vp = (_t(a).to(**dev) for a in _pool(rng, P, ps, Hkv, dh))
+    pt = _t(_tables(rng, B, npp, P)).to(**dev)
+    lens = _t(rng.integers(1, npp * ps + 1, size=B).astype(np.int32)).to(
+        **dev)
+    q = _t(rng.standard_normal((B, H, dh), dtype=np.float32)).to(**dev)
+    got = tk.paged_decode_attention(q, kp, vp, pt, lens)
+    want = tk.paged_decode_attention_plain(q, kp, vp, pt, lens)
+    assert float((got - want).abs().max()) <= 1e-4
+    qc = _t(rng.standard_normal((B, C, H, dh), dtype=np.float32)).to(**dev)
+    nv = torch.full((B,), 40, dtype=torch.int32, **dev)
+    got = tk.chunk_prefill_attention(qc, kp, vp, pt, 8, nv)
+    want = tk.chunk_prefill_attention_plain(qc, kp, vp, pt, 8, nv)
+    assert float((got - want).abs().max()) <= 1e-4
