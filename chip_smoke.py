@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the result line):
      TF32 off for f32 matmuls and convolutions.
   2. builds the four attention kernels from ``src/repro_torch/kernels/
      csrc`` (nvcc, one process a source, in parallel) and prints the build
-     time and ptxas report.
+     time and ptxas report; counts the tensor-core (HMMA) instructions in
+     the flash library's bf16/f16 kernels (cuobjdump -sass), which must
+     hold some.
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -20,10 +22,15 @@ Phases (any failure exits non-zero before the result line):
      with scalar and per-sequence start; the speculative verify window at
      C = 1, 2, 4, 5, 8 with ragged fed lengths and an inactive row on the
      null page; f32, bf16 and int8 pools (SDPA on the gathered dense KV).
-     Dense decode at B=4, H=16, Hkv=2, dh=128, L=545, ragged kv_valid,
-     f32, bf16 and int8, plus a dh=64 group-1 case (SDPA with a length
-     mask). Flash attention at B=4, S = 256, 512 and 300, H=16, Hkv 2 and
-     16, dh=128, causal and full, f32 and bf16 (SDPA with enable_gqa).
+     Dense decode (split-K) at B=4, H=16, Hkv=2, dh=128, L=545, ragged
+     kv_valid, f32, bf16, f16 and int8 (at least 132 pass-1 blocks), with
+     kv_valid at 1, L and the split boundaries +-1, at B=32 with Hkv=8
+     (where only the 128-key cap splits the cache), plus a dh=64 group-1
+     case (SDPA with a length mask).
+     Flash attention at B=4, H=16, Hkv 2 and 16, dh=128, causal and full:
+     bf16 and f16 (tensor-core tiles) at S = 1, 17, 64, 256, 300 and 512,
+     f32 at 256, 300 and 512 (SDPA with enable_gqa). Every kernel entry
+     must give bitwise the same result on a second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -118,6 +125,21 @@ def median_ms(torch, fn, iters: int = 30) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def hmma_counts(kbuild) -> dict:
+    """Tensor-core (HMMA) instructions in each bf16/f16 flash kernel of the
+    built flash library, from its SASS (cuobjdump -sass)."""
+    sass = subprocess.run(
+        [str(Path(kbuild._nvcc()).with_name("cuobjdump")), "-sass",
+         str(kbuild.lib_path("flash_attention"))], capture_output=True,
+        text=True, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "flash_mma_kernel" in name:
+            counts[name] = fn.count("HMMA")
+    return counts
 
 
 # ------------------------------ phase 3 --------------------------------- #
@@ -267,24 +289,47 @@ def paged_cases(torch, kern, H, DH, Hkv):
                    4 * H * DH * int((qpos + 1).sum()), tol)
 
 
+def decode_boundaries(B, L, split):
+    """kv_valid for B sequences: 1, L and each split boundary +-1, in
+    turn."""
+    vals = [1, L]
+    for edge in range(split, L + 1, split):
+        vals += [edge - 1, edge, edge + 1]
+    vals = [v for v in vals if 1 <= v <= L]
+    return [vals[i % len(vals)] for i in range(B)]
+
+
 def dense_decode_cases(torch, kern):
     """The static engine's decode at qwen2.5-3b's width (B=4, H=16, Hkv=2,
     dh=128, the 545-position cache of a 512-token wave, ragged kv_valid
-    1..545) in f32, bf16 and an int8 cache with bf16 queries; and a dh=64
+    1..545) in f32, bf16, f16 and an int8 cache with bf16 queries; the same
+    width with kv_valid at the split boundaries (B=12) and at B=32 with
+    Hkv=8 (where only the 128-key cap splits the cache); and a dh=64
     group-1 case. The SDPA yardstick runs on the dense cache (dequantized
     beforehand when int8) with a length mask."""
     import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
-    B, L = 4, 545
-    for H, DH, Hkv, pools in ((16, 128, 2, ("float32", "bfloat16", "int8")),
-                              (32, 64, 32, ("bfloat16",))):
+    L = 545
+    for B, H, DH, Hkv, pools, edges in (
+            (4, 16, 128, 2, ("float32", "bfloat16", "float16", "int8"),
+             False),
+            (12, 16, 128, 2, ("float32", "bfloat16", "int8"), True),
+            (32, 64, 128, 8, ("bfloat16",), True),
+            (4, 32, 64, 32, ("bfloat16",), False)):
+        split = kern.decode_split(B, Hkv, L, H // Hkv, kern._sm_count(
+            torch.cuda.current_device()))
         for pool in pools:
-            qdt = torch.float32 if pool == "float32" else torch.bfloat16
+            qdt = (torch.bfloat16 if pool == "int8"
+                   else getattr(torch, pool))
             kc, vc, sc = _pools(torch, g, (B, L, Hkv, DH), pool, qdt)
-            valid = torch.randint(1, L + 1, (B,), generator=g,
-                                  device=dev).to(torch.int32)
-            valid[0], valid[1] = L, 1
+            if edges:
+                valid = torch.tensor(decode_boundaries(B, L, split),
+                                     dtype=torch.int32, device=dev)
+            else:
+                valid = torch.randint(1, L + 1, (B,), generator=g,
+                                      device=dev).to(torch.int32)
+                valid[0], valid[1] = L, 1
             q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
             kd = kern._dequant_dense(kc, sc.get("k_scale")).to(qdt)
             vd = kern._dequant_dense(vc, sc.get("v_scale")).to(qdt)
@@ -292,8 +337,10 @@ def dense_decode_cases(torch, kern):
                     < valid[:, None])[:, None, None]              # (B,1,1,L)
             n_keys = int(valid.sum())
             kv_row = 2 * Hkv * DH * kc.element_size()
-            yield ("decode_attention",
-                   f"group={H // Hkv} pool={pool} L={L} dh={DH}",
+            label = (f"group={H // Hkv} pool={pool} L={L} dh={DH}"
+                     + (f" B={B} split={split} kv_valid=edges"
+                        if edges else ""))
+            yield ("decode_attention", label,
                    pool if pool != "int8" else "bfloat16",
                    lambda q=q, k=kc, v=vc, n=valid, sc=sc:
                        kern.decode_attention(q, k, v, n, **sc),
@@ -310,15 +357,18 @@ def dense_decode_cases(torch, kern):
 
 def flash_cases(torch, flash):
     """The static engine's prefill attention at qwen2.5-3b's width (B=4,
-    H=16, dh=128; Hkv 2 and 16) for prompts of 256, 512 and 300 tokens,
-    causal and full, f32 and bf16. SDPA (enable_gqa) is the yardstick."""
+    H=16, dh=128; Hkv 2 and 16), causal and full: bf16 and f16 (the
+    tensor-core tiles) for prompts of 1, 17, 64, 256, 512 and 300 tokens,
+    f32 (the FMA body) for 256, 512 and 300. SDPA (enable_gqa) is the
+    yardstick."""
     import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, DH = 4, 16, 128
-    for S in (256, 512, 300):
+    for S in (256, 512, 300, 1, 17, 64):
         for Hkv in (2, 16):
-            for dt in ("float32", "bfloat16"):
+            for dt in (("float32",) if S >= 256 else ()) + ("bfloat16",
+                                                            "float16"):
                 tdt = getattr(torch, dt)
                 q, k, v = (torch.randn((B, S, h, DH), generator=g,
                                        device=dev).to(tdt)
@@ -349,11 +399,14 @@ def check_kernels(torch, kern, flash):
     for (name, label, ops_type, fn, plain, sdpa, nbytes, ops,
          tol) in kernel_cases(torch, kern, flash):
         got = fn()
+        again = fn()
         want = plain()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         check(math.isfinite(err) and err <= tol,
               f"{name} [{label}] max_abs_err {err:.3g} > {tol:g}")
+        check(torch.equal(got, again),
+              f"{name} [{label}] differs between two calls")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_OPS[ops_type] * 1e3
         row = dict(name=name, case=label, max_abs_err=err, tol=tol,
@@ -673,11 +726,12 @@ def profile_block(torch, block, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         block()
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
+            count[e.name] = count.get(e.name, 0) + 1
     busy_ms = sum(by_name.values())
     check(busy_ms > 0, "the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -688,9 +742,15 @@ def profile_block(torch, block, label):
         f"({100 * attn / busy_ms:.1f}% of busy)")
     for name, ms in top:
         log(f"  {ms:7.3f}ms {100 * ms / busy_ms:5.1f}%  {name[:70]}")
+    kernels = {n: dict(launches=count[n], mean_us=1e3 * v / count[n])
+               for n, v in by_name.items() if "repro_paged" in n}
+    for name, k in kernels.items():
+        log(f"  attention {k['launches']:4d} x {k['mean_us']:7.2f}us  "
+            f"{name[:60]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms, attention_ms=attn,
-                top=[dict(name=n, ms=v) for n, v in top])
+                top=[dict(name=n, ms=v) for n, v in top],
+                attention_kernels=kernels)
 
 
 # ------------------------------ phase 6 --------------------------------- #
@@ -913,7 +973,19 @@ def main() -> None:
             f"{max(smem, default=0)} B, spill stores max "
             f"{max(spills, default=0)} B")
 
+    hmma = hmma_counts(kbuild)
+    log("sass flash_attention: HMMA "
+        + " ".join(f"{n}={c}" for n, c in hmma.items()))
+    check(any("bfloat16" in n for n in hmma) and all(hmma.values()),
+          f"the flash library's bf16/f16 kernels lack HMMA: {hmma}")
+
     # ---- phase 3 ----
+    n_sm = kern._sm_count(torch.cuda.current_device())
+    split = kern.decode_split(4, 2, 545, 8, n_sm)
+    blocks = -(-545 // split) * 4 * 2
+    log(f"dense decode at B=4 Hkv=2 L=545: split={split} keys, {blocks} "
+        f"pass-1 blocks on {n_sm} SMs")
+    check(blocks >= n_sm, f"dense decode fills {blocks} < {n_sm} blocks")
     rows = check_kernels(torch, kern, flash)
 
     # ---- phase 4 ----
@@ -990,7 +1062,9 @@ def main() -> None:
             static_path_launches=static_launches,
             decode_block=breakdown, static_decode_block=static_breakdown,
             f32_logit_err=f32_err, f32_static=f32_static,
-            build_s=built, kernels=kernels), indent=1))
+            build_s=built, flash_hmma=hmma,
+            decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
+            kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

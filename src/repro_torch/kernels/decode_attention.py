@@ -22,14 +22,17 @@ For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
 counts its launches in a plain integer attribute (``.launches``).
 
-Measured on the H100 (PERF.md), the kernels are latency bound, not memory
-bound: their serial walk over key tiles and the chunk kernel's f32 FMA dot
-products set their times. The source notes in ``csrc/*.cu`` say what each
-design does. ``kernels.build`` compiles and loads them.
+Measured on the H100 (PERF.md), the paged kernels are latency bound, not
+memory bound: their serial walk over key tiles and the chunk kernel's f32
+FMA dot products set their times. The dense decode splits its key walk
+across blocks (split-K, two launches a call). The source notes in
+``csrc/*.cu`` say what each design does. ``kernels.build`` compiles and
+loads them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -54,9 +57,9 @@ _ARGTYPES = {
     # q, k, v, page_table, start, n_valid, k_scale, v_scale, out,
     # B, C, H, Hkv, dh, ps, n_pp, n_pages, q_dtype, kv_dtype, scale, stream
     "chunk_prefill_attention": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
-    # q, k_cache, v_cache, kv_valid, k_scale, v_scale, out,
-    # B, H, Hkv, dh, L, q_dtype, kv_dtype, scale, stream
-    "decode_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out,
+    # B, H, Hkv, dh, L, split, n_split, q_dtype, kv_dtype, scale, stream
+    "decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
 }
 
 
@@ -384,6 +387,79 @@ def decode_attention_plain(q, k_cache, v_cache, kv_valid, *,
                          scale=scale)
 
 
+_SPLIT_ALIGN = 16   # keys a split is a multiple of
+_SPLIT_MAX = 128    # keys a split at most: pass 1 walks a split serially
+
+
+def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int) -> int:
+    """Keys a split of the split-K dense decode (csrc/decode_attention.cu).
+
+    A pure function of the shapes and the card's SM count, never of
+    ``kv_valid`` (which lies on the device: reading it would cost a
+    device-to-host sync a layer). A pass-1 block takes one split of one
+    (sequence, kv head) for the GQA group, MAX_ROWS (16) rows at a time, so
+    the card holds ``B * Hkv * ceil(group / 16)`` units of work a split.
+    The cache is cut into the number of splits that brings that nearest to
+    two an SM, and into at least enough that no split exceeds 128 keys, in
+    multiples of 16 keys. ``ceil(L / split)`` splits then cover ``L``."""
+    units = B * Hkv * -(-group // 16)
+    n_split = max(1, (2 * n_sm + units // 2) // units,
+                  -(-L // _SPLIT_MAX))
+    split = -(-max(L, 1) // n_split)
+    return -(-split // _SPLIT_ALIGN) * _SPLIT_ALIGN
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_split_plain(q, k_cache, v_cache, kv_valid, split: int, *,
+                        scale: float = None, k_scale=None, v_scale=None):
+    """Plain mirror of the split-K dense decode's two passes, for the tests
+    (the plain version of the function is ``decode_attention_plain``).
+
+    Pass 1 gives split s, keys ``[s * split, (s + 1) * split)`` clipped to
+    ``min(kv_valid[b], L)``, each query row's max m, sum l and unnormalised
+    accumulator acc; a split wholly past the valid length has m = NEG_INF,
+    l = 0, acc = 0. Pass 2 combines the splits: ``M = max m``,
+    ``w = exp(min(m - M, 0))`` (0 where m <= NEG_INF / 2),
+    ``out = sum w acc / max(sum w l, 1e-30)``. Returns out (B, H, dh) in
+    q's dtype and the partials (m, l: (B, H, n_split); acc: (B, H,
+    n_split, dh))."""
+    B, H, dh = q.shape
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    g = H // Hkv
+    n_split = max(1, -(-L // split))
+    pad = n_split * split - L
+    kd = _dequant_dense(k_cache, k_scale)
+    vd = torch.nn.functional.pad(_dequant_dense(v_cache, v_scale),
+                                 (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bhgd,blhd->bhgl", q.reshape(B, Hkv, g, dh).float(),
+                     kd) * scale
+    keep = (torch.arange(L, device=q.device)[None, :]
+            < kv_valid.to(q.device)[:, None])                   # (B, L)
+    s = torch.where(keep[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    s = s.reshape(B, Hkv, g, n_split, split)
+    m = s.amax(dim=-1)                                      # (B, Hkv, g, n)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgnk,bnkhd->bhgnd", p,
+                       vd.reshape(B, n_split, split, Hkv, dh))
+    w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                    torch.exp((m - m.amax(dim=-1, keepdim=True))
+                              .clamp_max(0.0)))
+    out = ((w[..., None] * acc).sum(dim=-2)
+           / (w * l).sum(dim=-1).clamp_min(1e-30)[..., None])
+    return (out.reshape(B, H, dh).to(q.dtype),
+            (m.reshape(B, H, n_split), l.reshape(B, H, n_split),
+             acc.reshape(B, H, n_split, dh)))
+
+
 def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
                      k_scale=None, v_scale=None):
     """Decode attention over a dense KV cache.
@@ -392,7 +468,11 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
     else any of f32/bf16/f16), any L; kv_valid: (B,) int32 valid positions
     per sequence (positions >= kv_valid[b] are masked and, on the card,
     never read); k/v_scale: (Hkv,) f32. The GQA group of H/Hkv consecutive
-    query heads reads one kv head. Returns (B, H, dh) in q's dtype."""
+    query heads reads one kv head. Returns (B, H, dh) in q's dtype.
+
+    On the card the cache is cut into splits of ``decode_split(...)`` keys:
+    pass 1 writes each split's partials into f32 scratch allocated here,
+    pass 2 combines them in split order (bitwise repeatable)."""
     if not _on_cuda(q):
         return decode_attention_plain(q, k_cache, v_cache, kv_valid,
                                       scale=scale, k_scale=k_scale,
@@ -405,12 +485,18 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
                          f"({B},), got {tuple(k_cache.shape)} and "
                          f"{tuple(kv_valid.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    split = decode_split(B, Hkv, L, H // Hkv, _sm_count(q.device.index))
+    n_split = max(1, -(-L // split))
+    # pass 1's partials: acc (B, H, n_split, dh), then m and l (B, H, n_split)
+    part = torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     rc = _fn("decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_valid.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B,
-        H, Hkv, dh, L, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        kv_valid.data_ptr(), _ptr(k_scale), _ptr(v_scale), part.data_ptr(),
+        out.data_ptr(), B, H, Hkv, dh, L, split, n_split,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention launch failed (rc={rc})")
     decode_attention.launches += 1

@@ -8,10 +8,13 @@ hand-written kernel ``csrc/flash_attention.cu`` (replaces the TPU kernel
 the kernel does not take; on a CPU tensor it runs the plain version. It
 counts its launches in ``flash_attention.launches``.
 
-Two differences from the TPU wrapper: any ``S`` is taken (the Pallas
-wrapper asserts block multiples of S and L), and the probabilities stay in
-f32 for the value product (the Pallas kernel casts them to the value's
-dtype first, which rounds them in bf16).
+Two differences from the TPU kernel: any ``S`` is taken (the Pallas
+wrapper asserts block multiples of S and L), and on bf16/f16 inputs the
+CUDA kernel rounds the probabilities to the input dtype for its
+tensor-core value product, as FlashAttention does. The Pallas kernel and
+the plain version keep them in f32 (the Pallas kernel casts ``v`` to f32
+before ``p.astype(v.dtype)``, so that cast is to f32). f32 inputs run an
+f32 FMA body, with no such rounding.
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
     if k.shape[:2] != (B, S):
         raise ValueError(f"k/v must be (B={B}, S={S}, Hkv, dh) like the "
                          f"queries (S == L), got {tuple(k.shape)}")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
     rc = kernel("flash_attention", _ARGTYPES)(

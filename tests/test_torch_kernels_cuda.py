@@ -12,8 +12,11 @@ import torch
 
 import repro_torch.kernels.decode_attention as tk
 import repro_torch.kernels.flash_attention as tkf
+from repro_torch.kernels import build as kbuild
+from torch_kernel_inputs import PAGED_LIBS
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
+from torch_kernel_inputs import split_edges
 from torch_kernel_inputs import t as _t
 from torch_kernel_inputs import tables as _tables
 from torch_kernel_inputs import verify_window as _verify_window
@@ -205,3 +208,89 @@ def test_cuda_paged_kernels_at_qwen_width(cuda_device):
     got = tk.chunk_prefill_attention(qc, kp, vp, pt, 8, nv)
     want = tk.chunk_prefill_attention_plain(qc, kp, vp, pt, 8, nv)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
+                                          (32, 64, 8, 128, 545),
+                                          (7, 8, 8, 64, 300)])
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.float16, False),
+                                         (torch.bfloat16, True)])
+def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
+                                            Hkv, dh, L):
+    """The split-K decode with kv_valid at 1, L and its splits' boundaries
+    +-1: the static path's shape (many splits), B=32 with Hkv=8 (B * Hkv
+    alone fills the card: only the 128-key cap splits the cache), a dh=64
+    group-1 case. Keys past kv_valid are poisoned; two calls are bitwise
+    equal."""
+    split = tk.decode_split(B, Hkv, L, H // Hkv,
+                            tk._sm_count(torch.cuda.current_device()))
+    rng = np.random.default_rng(B + L)
+    dev = dict(device=cuda_device)
+    kc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
+    vc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
+    edges = split_edges(L, split)
+    valid = np.asarray([edges[i % len(edges)] for i in range(B)], np.int32)
+    kw = {}
+    if quant:
+        kc, ksc = _quantize(kc)
+        vc, vsc = _quantize(vc)
+        kw = dict(k_scale=_t(ksc).to(**dev), v_scale=_t(vsc).to(**dev))
+    kct = _t(kc).to(**dev) if quant else _t(kc).to(dtype=dtype, **dev)
+    vct = _t(vc).to(**dev) if quant else _t(vc).to(dtype=dtype, **dev)
+    q = _t(rng.standard_normal((B, H, dh), dtype=np.float32)).to(
+        dtype=dtype, **dev)
+    kv_valid = _t(valid).to(**dev)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    want = tk.decode_attention_plain(q, kct, vct, kv_valid, **kw)
+    for b in range(B):                      # never read past kv_valid
+        kct[b, valid[b]:] = 100 if quant else 1e4
+        vct[b, valid[b]:] = -100 if quant else -1e4
+    got = tk.decode_attention(q, kct, vct, kv_valid, **kw)
+    again = tk.decode_attention(q, kct, vct, kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 64, 300])
+@pytest.mark.parametrize("H,Hkv,dh", [(16, 2, 128), (8, 8, 64), (12, 4, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
+                                                  H, Hkv, dh, S):
+    """The tensor-core flash tiles at both head widths and groups 8, 1 and
+    3, at prompt lengths shorter than a tile, one tile, and not a multiple
+    of either the 64-row or the 64-key tile; causal and full; bitwise
+    repeatable."""
+    rng = np.random.default_rng(S + H + dh)
+    dev = dict(device=cuda_device, dtype=dtype)
+    B = 2
+    q = _t(rng.standard_normal((B, S, H, dh), dtype=np.float32)).to(**dev)
+    k = _t(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).to(**dev)
+    v = _t(rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)).to(**dev)
+    got = tkf.flash_attention(q, k, v, causal=causal)
+    again = tkf.flash_attention(q, k, v, causal=causal)
+    want = tkf.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_libraries_unchanged(cuda_device):
+    """The paged entries launch from the libraries they were built into
+    before the redesign of the dense decode and flash kernels."""
+    q = torch.randn((2, 4, 64), device=cuda_device)
+    kp = torch.randn((5, 16, 4, 64), device=cuda_device)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([20, 3], dtype=torch.int32, device=cuda_device)
+    tk.paged_decode_attention(q, kp, kp, pt, lens)
+    tk.chunk_prefill_attention(q[:, None], kp, kp, pt, 2, lens)
+    torch.cuda.synchronize()
+    for name, lib in PAGED_LIBS.items():
+        path = kbuild.lib_path(name)
+        assert path.name == lib and path.exists()

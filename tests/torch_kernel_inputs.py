@@ -3,6 +3,14 @@ the card-only tests can use them on a machine without it)."""
 import numpy as np
 import torch
 
+# the paged entries' libraries (kernels.build.lib_path) as built before the
+# dense decode and flash kernels were redesigned: the redesign leaves their
+# sources, headers and compiler flags as they were
+PAGED_LIBS = {
+    "paged_decode_attention": "paged_decode_attention_0fd935ec44eda43a.so",
+    "chunk_prefill_attention": "chunk_prefill_attention_724d3abe02686b42.so",
+}
+
 
 def t(a):
     """numpy -> a torch tensor that owns a copy of the data."""
@@ -41,3 +49,12 @@ def verify_window(rng, B, C, npp, ps):
     n_fed = rng.integers(1, C + 1, size=B).astype(np.int32)
     seq_lens[0], n_fed[0] = 0, 1
     return seq_lens, n_fed
+
+
+def split_edges(L: int, split: int):
+    """kv_valid values of 1, L and each boundary of ``split``-key splits
+    +-1, within [1, L], sorted."""
+    vals = {1, L}
+    for edge in range(split, L + 1, split):
+        vals.update((edge - 1, edge, edge + 1))
+    return sorted(v for v in vals if 1 <= v <= L)
