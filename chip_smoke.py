@@ -4,14 +4,20 @@ NVIDIA GPU. Run from the root of a checkout:
 
     python3 chip_smoke.py [--out results.json]
 
+To compare two checkouts on one card, ``--kernels-only --src DIR`` runs
+only phase 3 (every kernel entry's checks and times) and the three paged
+profiles of phase 4 on the ``repro_torch`` under DIR, and prints no
+result line.
+
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for f32 matmuls and convolutions.
   2. builds the four attention kernels from ``src/repro_torch/kernels/
      csrc`` (nvcc, one process a source, in parallel) and prints the build
      time and ptxas report; counts the tensor-core (HMMA) instructions in
-     the flash library's bf16/f16 kernels (cuobjdump -sass), which must
-     hold some.
+     the flash and chunk libraries' bf16/f16 kernels (cuobjdump -sass),
+     which must hold some (64 in each dh=128 flash kernel), and checks
+     that the paged decode library keeps its name (its source hash).
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -21,7 +27,9 @@ Phases (any failure exits non-zero before the result line):
      576 over a shuffled page table with stale entries; a 64-token chunk
      with scalar and per-sequence start; the speculative verify window at
      C = 1, 2, 4, 5, 8 with ragged fed lengths and an inactive row on the
-     null page; f32, bf16 and int8 pools (SDPA on the gathered dense KV).
+     null page; chunks and C=5 windows whose frontiers fall on and beside
+     the chunk kernel's split edges (right-padded chunks); f32, bf16, f16
+     and int8 pools (SDPA on the gathered dense KV).
      Dense decode (split-K) at B=4, H=16, Hkv=2, dh=128, L=545, ragged
      kv_valid, f32, bf16, f16 and int8 (at least 132 pass-1 blocks), with
      kv_valid at 1, L and the split boundaries +-1, at B=32 with Hkv=8
@@ -43,8 +51,10 @@ Phases (any failure exits non-zero before the result line):
      path's kernels, reconcile its trace, free every page and emit
      in-vocabulary tokens. The sampler's counter-based draws on the card
      must equal the CPU's, and its tokens follow the filtered softmax.
-     Then torch.profiler splits one fused decode block's time by kernel
-     and gives the device's busy share of its wall time.
+     Then torch.profiler splits by kernel the time of one fused decode
+     block, one prefill chunk (B=1, C=64 at start 384) and one verify pass
+     (B=8, C=5), and gives the device's busy share of their wall time and
+     the chunk kernel's share of the busy time.
   5. serves qwen2.5-3b at full width (bf16, seeded init) through
      ``ServeEngine(scheduler="static", decode_lookahead=8, max_len=640)``:
      serve_bucketed on 4 prompts of 256 and 4 of 512 tokens, 32 new
@@ -86,6 +96,11 @@ PS, MAX_LEN, C = 16, 576, 64
 # (heads, head_dim, kv heads) of the paged kernel cases: llama3.2-1b as the
 # continuous path serves it (group 1), at group 4, and qwen2.5-3b's width
 PAGED_WIDTHS = ((32, 64, 32), (32, 64, 8), (16, 128, 2))
+# the paged decode library (its source, headers and flags unchanged since
+# the port's first slice), and the tensor-core instructions of each dh=128
+# flash kernel on its tensor-core tiles
+PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+FLASH_HMMA_DH128 = 64
 VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
 # the static phase: qwen2.5-3b, prompts of 256 and 512 tokens, 32 new
 QWEN_PROMPTS, QWEN_NEW, QWEN_MAX_LEN = (256, 512), 32, 640
@@ -127,17 +142,17 @@ def median_ms(torch, fn, iters: int = 30) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def hmma_counts(kbuild) -> dict:
-    """Tensor-core (HMMA) instructions in each bf16/f16 flash kernel of the
-    built flash library, from its SASS (cuobjdump -sass)."""
+def hmma_counts(kbuild, lib: str, kernel: str) -> dict:
+    """Tensor-core (HMMA) instructions in each kernel named ``kernel`` of
+    the built library ``lib``, from its SASS (cuobjdump -sass)."""
     sass = subprocess.run(
         [str(Path(kbuild._nvcc()).with_name("cuobjdump")), "-sass",
-         str(kbuild.lib_path("flash_attention"))], capture_output=True,
+         str(kbuild.lib_path(lib))], capture_output=True,
         text=True, check=True).stdout
     counts = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "flash_mma_kernel" in name:
+        if kernel in name:
             counts[name] = fn.count("HMMA")
     return counts
 
@@ -170,7 +185,9 @@ def kernel_cases(torch, kern, flash):
 
 def paged_cases(torch, kern, H, DH, Hkv):
     """The paged entries at one width: decode, the chunk at a scalar and a
-    per-sequence start, the verify windows."""
+    per-sequence start, the verify windows, and (where the chunk kernel
+    splits its keys) chunks and windows whose frontiers fall on and beside
+    its split edges."""
     import torch.nn.functional as F
     dev = "cuda"
     B = 8
@@ -178,8 +195,11 @@ def paged_cases(torch, kern, H, DH, Hkv):
     P = B * n_pp + 1
     g = torch.Generator(device=dev).manual_seed(0)
     wide = "" if DH == 64 else f" dh={DH}"
-    for pool in ("float32", "bfloat16", "int8"):
-        qdt = torch.float32 if pool == "float32" else torch.bfloat16
+    grp = H // Hkv
+    pos = torch.arange(n_pp * PS, device=dev)
+    for pool in ("float32", "bfloat16", "float16", "int8"):
+        qdt = torch.bfloat16 if pool == "int8" else getattr(torch, pool)
+        ops_type = pool if pool != "int8" else "bfloat16"
         kp, vp, sc = _pools(torch, g, (P, PS, Hkv, DH), pool, qdt)
         elem = kp.element_size()
         # shuffled pages; entries past each sequence's last page are
@@ -191,7 +211,6 @@ def paged_cases(torch, kern, H, DH, Hkv):
         lens[0], lens[1] = MAX_LEN, 1
         kd = kern._dequant(kp, pt, sc.get("k_scale")).to(qdt)
         vd = kern._dequant(vp, pt, sc.get("v_scale")).to(qdt)
-        grp = H // Hkv
         kdh = kd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
         vdh = vd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
         tol = 1e-4 if pool == "float32" else 2e-2
@@ -199,12 +218,10 @@ def paged_cases(torch, kern, H, DH, Hkv):
 
         # decode: q (B, H, dh) at the seq_lens above
         q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
-        pos = torch.arange(n_pp * PS, device=dev)
         dmask = (pos[None] < lens[:, None])[:, None, None]
         n_keys = int(lens.sum())
         yield ("paged_decode_attention",
-               f"group={grp} pool={pool}{wide}",
-               pool if pool != "int8" else "bfloat16",
+               f"group={grp} pool={pool}{wide}", ops_type,
                lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
                    kern.paged_decode_attention(q, kp, vp, pt, lens, **sc),
                lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
@@ -217,14 +234,9 @@ def paged_cases(torch, kern, H, DH, Hkv):
                + B * 4 + n_keys * kv_row,
                4 * H * DH * n_keys, tol)
 
-        # chunk: scalar start (B=1, as the engine prefills) and a
-        # per-sequence start (B=4)
-        for label, starts, reals in (
-                ("start=scalar", [384], [64]),
-                ("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])):
+        def chunk(label, starts, reals):
             Bc = len(starts)
-            qc = torch.randn((Bc, C, H, DH), generator=g,
-                             device=dev).to(qdt)
+            qc = torch.randn((Bc, C, H, DH), generator=g, device=dev).to(qdt)
             st = torch.tensor(starts, dtype=torch.int32, device=dev)
             nv = st + torch.tensor(reals, dtype=torch.int32, device=dev)
             s_arg = starts[0] if Bc == 1 else st
@@ -233,60 +245,82 @@ def paged_cases(torch, kern, H, DH, Hkv):
             lim = torch.minimum(qpos + 1, nv[:, None])        # (Bc, C)
             cmask = (pos[None, None] < lim[..., None])[:, None]
             keys = int(torch.minimum(st + C, nv).sum())
-            row_keys = int(lim.sum())
-            yield ("chunk_prefill_attention",
-                   f"group={grp} pool={pool} {label}{wide}",
-                   pool if pool != "int8" else "bfloat16",
-                   lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
-                   sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
-                                                       nv, **sc),
-                   lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
-                   sc=sc: kern.chunk_prefill_attention_plain(
-                       q, kp, vp, pt, s, nv, **sc),
-                   lambda q=qc, k=kdh[:Bc], v=vdh[:Bc], m=cmask:
-                       F.scaled_dot_product_attention(
-                           q.transpose(1, 2), k, v, attn_mask=m),
-                   2 * qc.numel() * qc.element_size() + ptc.numel() * 4
-                   + 8 * Bc + keys * kv_row,
-                   4 * H * DH * row_keys, tol)
+            return ("chunk_prefill_attention",
+                    f"group={grp} pool={pool} {label}{wide}", ops_type,
+                    lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
+                    sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
+                                                        nv, **sc),
+                    lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
+                    sc=sc: kern.chunk_prefill_attention_plain(
+                        q, kp, vp, pt, s, nv, **sc),
+                    lambda q=qc, k=kdh[:Bc], v=vdh[:Bc], m=cmask:
+                        F.scaled_dot_product_attention(
+                            q.transpose(1, 2), k, v, attn_mask=m),
+                    2 * qc.numel() * qc.element_size() + ptc.numel() * 4
+                    + 8 * Bc + keys * kv_row,
+                    4 * H * DH * int(lim.sum()), tol)
 
-        # speculative verify: the windows of spec_k 4 and 7; ragged
-        # landed lengths with room for the window, 1..C fed tokens, and
-        # row 0 inactive as the model draft's catch-up feeds it
-        # (seq_len 0, one fed token, a table of null pages)
-        for Cv in VERIFY_C:
-            sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
-                               device=dev).to(torch.int32)
-            nf = torch.randint(1, Cv + 1, (B,), generator=g,
-                               device=dev).to(torch.int32)
-            sl[0], nf[0], sl[1], nf[1] = 0, 1, MAX_LEN - Cv, Cv
+        def verify(label, Cv, sl, nf):
+            # row 0 is inactive as the model draft's catch-up feeds it
+            # (seq_len 0, one fed token, a table of null pages)
+            sl[0], nf[0] = 0, 1
             ptv = pt.clone()
             ptv[0] = 0
-            qv = torch.randn((B, Cv, H, DH), generator=g,
-                             device=dev).to(qdt)
+            qv = torch.randn((B, Cv, H, DH), generator=g, device=dev).to(qdt)
             kdv = kern._dequant(kp, ptv, sc.get("k_scale")).to(qdt)
             vdv = kern._dequant(vp, ptv, sc.get("v_scale")).to(qdt)
             qpos = torch.minimum(                             # (B, Cv)
                 sl[:, None] + torch.arange(Cv, device=dev),
                 (sl + nf - 1)[:, None])
             vmask = (pos[None, None] <= qpos[..., None])[:, None]
-            yield ("spec_verify_attention",
-                   f"group={grp} pool={pool} C={Cv}{wide}",
-                   pool if pool != "int8" else "bfloat16",
-                   lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
-                   sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
-                                                     nf, **sc),
-                   lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
-                   sc=sc: kern.spec_verify_attention_plain(
-                       q, kp, vp, pt, sl, nf, **sc),
-                   lambda q=qv, k=kdv.permute(0, 2, 1, 3)
-                   .repeat_interleave(grp, 1),
-                   v=vdv.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
-                   m=vmask: F.scaled_dot_product_attention(
-                       q.transpose(1, 2), k, v, attn_mask=m),
-                   2 * qv.numel() * qv.element_size() + ptv.numel() * 4
-                   + 8 * B + int((sl + nf).sum()) * kv_row,
-                   4 * H * DH * int((qpos + 1).sum()), tol)
+            return ("spec_verify_attention",
+                    f"group={grp} pool={pool} {label}{wide}", ops_type,
+                    lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                    sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
+                                                      nf, **sc),
+                    lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
+                    sc=sc: kern.spec_verify_attention_plain(
+                        q, kp, vp, pt, sl, nf, **sc),
+                    lambda q=qv, k=kdv.permute(0, 2, 1, 3)
+                    .repeat_interleave(grp, 1),
+                    v=vdv.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
+                    m=vmask: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k, v, attn_mask=m),
+                    2 * qv.numel() * qv.element_size() + ptv.numel() * 4
+                    + 8 * B + int((sl + nf).sum()) * kv_row,
+                    4 * H * DH * int((qpos + 1).sum()), tol)
+
+        # chunk: scalar start (B=1, as the engine prefills) and a
+        # per-sequence start (B=4)
+        yield chunk("start=scalar", [384], [64])
+        yield chunk("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])
+        # speculative verify: the windows of spec_k 4 and 7; ragged landed
+        # lengths with room for the window, 1..C fed tokens
+        for Cv in VERIFY_C:
+            sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
+                               device=dev).to(torch.int32)
+            nf = torch.randint(1, Cv + 1, (B,), generator=g,
+                               device=dev).to(torch.int32)
+            sl[1], nf[1] = MAX_LEN - Cv, Cv
+            yield verify(f"C={Cv}", Cv, sl, nf)
+        if not hasattr(kern, "chunk_split"):   # a kernel that does not split
+            continue
+        n_sm = kern._sm_count(torch.cuda.current_device())
+        for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * PS, n_sm),
+                     2 * kern.chunk_split(4, Hkv, C, grp, n_pp * PS, n_sm)):
+            # the last row's frontier one key before, on and past the
+            # edge, the last two right-padded, and a chunk at 0
+            starts = [0] + [min(max(edge - C + d, 0), MAX_LEN - C)
+                            for d in (-1, 0, 1)]
+            yield chunk(f"start=edge {edge}", starts, [C, C, C - 3, C - 1])
+        Cv = VERIFY_C[3]
+        edge = kern.chunk_split(B, Hkv, Cv, grp, n_pp * PS, n_sm)
+        sl = torch.tensor([0, edge - Cv, edge - 3, edge - 1, edge, edge + 1,
+                           2 * edge - 1, 2 * edge - Cv], dtype=torch.int32,
+                          device=dev).clamp(0, MAX_LEN - Cv)
+        nf = torch.tensor([1, Cv, Cv, 2, Cv, 1, Cv, Cv - 1],
+                          dtype=torch.int32, device=dev)
+        yield verify(f"C={Cv} seq_lens=edge {edge}", Cv, sl, nf)
 
 
 def decode_boundaries(B, L, split):
@@ -628,6 +662,47 @@ def profile_decode_block(torch, tm, cfg, params):
     return profile_block(torch, block, f"decode block K={K} B={B} len=300")
 
 
+def profile_chunk_block(torch, tm, cfg, params):
+    """Where a full-width prefill chunk's time goes: one
+    prefill_paged_chunk of B=1, C=64 positions at start 384 (448 keys),
+    bf16 pool."""
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    n_pp = -(-MAX_LEN // PS)
+    cache = tm.init_paged_cache(cfg, n_pp + 1, PS, opts, "cuda")
+    pt = torch.arange(1, n_pp + 1, dtype=torch.int32, device="cuda")[None]
+    toks = torch.arange(1, C + 1, dtype=torch.int32, device="cuda")[None]
+    nv = torch.tensor([384 + C], dtype=torch.int32, device="cuda")
+
+    def block():
+        tm.prefill_paged_chunk(cfg, params, toks, cache, pt, 384, nv, opts)
+        torch.cuda.synchronize()
+    return profile_block(torch, block, f"prefill chunk B=1 C={C} start=384",
+                         chunk_pass2=True)
+
+
+def profile_verify_block(torch, tm, cfg, params):
+    """Where a full-width verify pass's time goes: one spec_decode_verify
+    of B=8 windows of C=5 (4 drafts each) over 300 cached tokens, bf16
+    pool, greedy."""
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    B, Cv = 8, 5
+    n_pp = -(-MAX_LEN // PS)
+    cache = tm.init_paged_cache(cfg, B * n_pp + 1, PS, opts, "cuda")
+    pt = torch.arange(1, B * n_pp + 1, dtype=torch.int32,
+                      device="cuda").reshape(B, n_pp)
+    toks = torch.arange(1, B * Cv + 1, dtype=torch.int32,
+                        device="cuda").reshape(B, Cv)
+    draft = torch.full((B,), Cv - 1, dtype=torch.int32, device="cuda")
+    lens = torch.full((B,), 300, dtype=torch.int32, device="cuda")
+
+    def block():
+        tm.spec_decode_verify(cfg, params, toks, draft, lens, pt, cache,
+                              opts=opts)
+        torch.cuda.synchronize()
+    return profile_block(torch, block, f"verify pass B={B} C={Cv} len=300",
+                         chunk_pass2=True)
+
+
 # ------------------------------ phase 5 --------------------------------- #
 
 def qwen_requests(vocab: int):
@@ -709,7 +784,7 @@ def profile_static_block(torch, tm, cfg, params, cache_dtype=""):
                          f"cache={cache_dtype or 'native'}")
 
 
-def profile_block(torch, block, label):
+def profile_block(torch, block, label, chunk_pass2=False):
     """Device busy time of one call of ``block`` is the sum of the kernels
     torch.profiler records; the wall time is taken without the profiler
     (median of 5). The port's attention kernels live in the namespace
@@ -736,10 +811,15 @@ def profile_block(torch, block, label):
     check(busy_ms > 0, "the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if "repro_paged" in k)
+    # the chunk kernel; with chunk_pass2 its combine pass too (the block
+    # runs no other split-K kernel, which would share the combine's name)
+    chunk = sum(v for k, v in by_name.items() if "repro_paged" in k
+                and ("chunk_" in k or chunk_pass2 and "split_combine" in k))
     log(f"{label}: wall {wall_ms:.2f}ms, device "
         f"busy {busy_ms:.2f}ms ({100 * busy_ms / wall_ms:.1f}% of wall), "
         f"attention kernels {attn:.2f}ms "
-        f"({100 * attn / busy_ms:.1f}% of busy)")
+        f"({100 * attn / busy_ms:.1f}% of busy), chunk kernel {chunk:.3f}ms "
+        f"({100 * chunk / busy_ms:.1f}% of busy)")
     for name, ms in top:
         log(f"  {ms:7.3f}ms {100 * ms / busy_ms:5.1f}%  {name[:70]}")
     kernels = {n: dict(launches=count[n], mean_us=1e3 * v / count[n])
@@ -749,6 +829,7 @@ def profile_block(torch, block, label):
             f"{name[:60]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms, attention_ms=attn,
+                chunk_ms=chunk, chunk_share=chunk / busy_ms,
                 top=[dict(name=n, ms=v) for n, v in top],
                 attention_kernels=kernels)
 
@@ -920,19 +1001,47 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def kernels_only(torch, args, smi, kern, flash, tm, get_config, built, hmma,
+                 chunk_hmma, t_start):
+    """--kernels-only: every kernel entry against its plain version and
+    timed (phase 3), then the paged decode block, the prefill chunk and
+    the verify pass profiled on full-width llama3.2-1b (seeded bf16
+    init)."""
+    rows = check_kernels(torch, kern, flash)
+    cfg = get_config("llama3.2-1b")
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "bfloat16", "cuda")
+    blocks = dict(decode_block=profile_decode_block(torch, tm, cfg, params),
+                  chunk_block=profile_chunk_block(torch, tm, cfg, params),
+                  verify_block=profile_verify_block(torch, tm, cfg, params))
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(dict(
+            gpu=smi, src=args.src, kernel_cases=rows, build_s=built,
+            flash_hmma=hmma, chunk_hmma=chunk_hmma, **blocks), indent=1))
+
+
 # -------------------------------- main ---------------------------------- #
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="only build, check and time the kernel entries and "
+                    "profile the paged blocks (to compare two checkouts in "
+                    "one run); prints no result line")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src/ directory whose repro_torch is run "
+                    "(default: this checkout's)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("[smoke] FAIL: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    src = ROOT / "src"
+    src = Path(args.src).resolve()
     if not (src / "repro_torch").is_dir():
         print("[smoke] FAIL: run from the root of a checkout (src/repro_torch "
               "is missing)", file=sys.stderr)
@@ -973,11 +1082,29 @@ def main() -> None:
             f"{max(smem, default=0)} B, spill stores max "
             f"{max(spills, default=0)} B")
 
-    hmma = hmma_counts(kbuild)
+    hmma = hmma_counts(kbuild, "flash_attention", "flash_mma_kernel")
     log("sass flash_attention: HMMA "
         + " ".join(f"{n}={c}" for n, c in hmma.items()))
     check(any("bfloat16" in n for n in hmma) and all(hmma.values()),
           f"the flash library's bf16/f16 kernels lack HMMA: {hmma}")
+    check(all(c == FLASH_HMMA_DH128 for n, c in hmma.items() if "Li128E" in n),
+          f"the flash dh=128 kernels no longer hold {FLASH_HMMA_DH128} HMMA "
+          f"each: {hmma}")
+    chunk_hmma = hmma_counts(kbuild, "chunk_prefill_attention",
+                             "chunk_mma_kernel")
+    log("sass chunk_prefill_attention: HMMA "
+        + " ".join(f"{n}={c}" for n, c in chunk_hmma.items()))
+    check(args.kernels_only or (any("bfloat16" in n for n in chunk_hmma)
+                              and all(chunk_hmma.values())),
+          f"the chunk library's bf16/f16 kernels lack HMMA: {chunk_hmma}")
+    paged_lib = kbuild.lib_path("paged_decode_attention").name
+    check(paged_lib == PAGED_DECODE_LIB,
+          f"the paged decode library changed: {paged_lib}")
+
+    if args.kernels_only:
+        kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
+                     hmma, chunk_hmma, t_start)
+        return
 
     # ---- phase 3 ----
     n_sm = kern._sm_count(torch.cuda.current_device())
@@ -996,6 +1123,8 @@ def main() -> None:
                                           tm.RuntimeOptions, cfg, params)
     engine.update(spec_runs)
     breakdown = profile_decode_block(torch, tm, cfg, params)
+    chunk_block = profile_chunk_block(torch, tm, cfg, params)
+    verify_block = profile_verify_block(torch, tm, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1060,9 +1189,10 @@ def main() -> None:
             gpu=smi, kernel_cases=rows, engine=engine,
             spec_path_launches=spec_launches, static=static,
             static_path_launches=static_launches,
-            decode_block=breakdown, static_decode_block=static_breakdown,
+            decode_block=breakdown, chunk_block=chunk_block,
+            verify_block=verify_block, static_decode_block=static_breakdown,
             f32_logit_err=f32_err, f32_static=f32_static,
-            build_s=built, flash_hmma=hmma,
+            build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -46,6 +46,7 @@
 #include <type_traits>
 
 #include "dispatch.cuh"
+#include "mma_tile.cuh"
 
 namespace repro_paged {
 
@@ -87,72 +88,6 @@ struct Cfg {
   static_assert(BM <= 2 * BN, "Q is staged in one stage's place");
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled and not read when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), f32 accumulate
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4], const unsigned (&a)[4],
-                                                        unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&d)[4], const unsigned (&a)[4],
-                                                 unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two T (lo in the low half)
-template <typename T>
-__device__ __forceinline__ unsigned pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&x);
-}
-template <>
-__device__ __forceinline__ unsigned pack2<__half>(float lo, float hi) {
-  __half2 x = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&x);
-}
-
-// Fragment layout (m16n8k16): lane l holds rows l/4 and l/4 + 8 of its
-// warp's 16 rows; accumulator element e of an 8-column tile sits at row
-// l/4 + 8 * (e / 2), column 2 * (l % 4) + e % 2.
 template <typename T, int DH>
 __global__ void __launch_bounds__(NTHR)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,

@@ -22,10 +22,14 @@ For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
 counts its launches in a plain integer attribute (``.launches``).
 
-Measured on the H100 (PERF.md), the paged kernels are latency bound, not
-memory bound: their serial walk over key tiles and the chunk kernel's f32
-FMA dot products set their times. The dense decode splits its key walk
-across blocks (split-K, two launches a call). The source notes in
+Measured on the H100 (PERF.md), the paged decode kernel is latency
+bound, not memory bound: its serial walk over key tiles sets its time.
+The chunk kernel (chunk prefill and spec verify) runs bf16/f16 queries on
+tensor-core tiles and splits the page table's keys across blocks; the
+dense decode splits its key walk across blocks too (split-K). Each split
+kernel is two launches a call where there is more than one split, with
+the split size a function of the shapes and the SM count (``chunk_split``,
+``decode_split``), so no wrapper reads the device. The source notes in
 ``csrc/*.cu`` say what each design does. ``kernels.build`` compiles and
 loads them.
 """
@@ -54,9 +58,11 @@ _ARGTYPES = {
     # q, k, v, page_table, seq_lens, k_scale, v_scale, out,
     # B, H, Hkv, dh, ps, n_pp, n_pages, q_dtype, kv_dtype, scale, stream
     "paged_decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
-    # q, k, v, page_table, start, n_valid, k_scale, v_scale, out,
-    # B, C, H, Hkv, dh, ps, n_pp, n_pages, q_dtype, kv_dtype, scale, stream
-    "chunk_prefill_attention": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    # q, k, v, page_table, start, start0, n_valid, n_fed, k_scale, v_scale,
+    # part, out, B, C, H, Hkv, dh, ps, n_pp, n_pages, split, n_split,
+    # q_dtype, kv_dtype, scale, stream
+    "chunk_prefill_attention": ([_P] * 5 + [_I] + [_P] * 6 + [_I] * 12
+                                + [ctypes.c_float, _P]),
     # q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out,
     # B, H, Hkv, dh, L, split, n_split, q_dtype, kv_dtype, scale, stream
     "decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
@@ -126,13 +132,31 @@ def _ptr(t: Optional[torch.Tensor]):
 
 # ------------------------------ plain math ------------------------------ #
 
+@functools.lru_cache(maxsize=None)
+def _cpu_exp_ready() -> bool:
+    torch.exp(torch.zeros(8))      # one thread: below one parallel grain
+    return True
+
+
+def _exp(x):
+    """torch.exp of the plain versions. On the CPU, the first parallel call
+    in a process of the vector exp behind it (oneMKL's, in PyTorch's MKL
+    builds) can come out about 1e-4 off when its threads enter it
+    together; later calls are accurate to f32. One small call on one
+    thread first keeps every call of the plain versions accurate
+    (tests/test_torch_first_exp.py)."""
+    if x.device.type == "cpu":
+        _cpu_exp_ready()
+    return torch.exp(x)
+
+
 def _probs(s):
     """Unnormalised probabilities and row sums of masked f32 scores s
     (NEG_INF where masked), with the kernels' convention that a masked
     score contributes exactly 0 (a fully masked row then gives 0, not a
     uniform mean)."""
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m))
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), _exp(s - m))
     return p, p.sum(dim=-1).clamp_min(1e-30)
 
 
@@ -260,30 +284,141 @@ def _start_vector(start, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(start), dtype=torch.int32, device=device)
 
 
-def _launch_chunk(name, q, k_pages, v_pages, page_table, start, n_valid, *,
-                  scale, k_scale, v_scale):
+_CHUNK_STEPS = 4   # stages a split at most: pass 1 walks a split serially
+
+
+def chunk_on_tensor_cores(q_dtype, kv_dtype) -> bool:
+    """Whether the chunk kernel runs its tensor-core tiles (bf16/f16
+    queries over a pool of their own type or int8, split over keys) or its
+    FMA body (every other pairing, one pass)."""
+    return (q_dtype in (torch.bfloat16, torch.float16)
+            and kv_dtype in (q_dtype, torch.int8))
+
+
+def chunk_split(B: int, Hkv: int, C: int, group: int, n_keys: int,
+                n_sm: int) -> int:
+    """Keys a split of the chunk kernel's tensor-core tiles
+    (csrc/chunk_prefill_attention.cu) over a page table of ``n_keys =
+    n_pp * page_size`` keys.
+
+    A pure function of the shapes and the card's SM count, never of
+    ``start`` or ``n_valid`` (which lie on the device: reading them would
+    cost a device-to-host sync a layer). A block takes one split of one
+    (sequence, kv head, row tile): rows come 64 a tile (16 when ``C *
+    group <= 16``) and keys 32 a stage (64 with 16-row tiles). The table is
+    cut into the number of splits that brings the blocks nearest to two an
+    SM, and into at least enough that no split exceeds four stages (at
+    most 256 keys; the kernel takes up to 4096); a split is whole stages.
+    ``ceil(n_keys / split)`` splits then cover the table."""
+    rows = C * group
+    bm, sk = (16, 64) if rows <= 16 else (64, 32)
+    units = B * Hkv * -(-rows // bm)
+    n_keys = max(n_keys, 1)
+    n_split = max(1, (2 * n_sm + units // 2) // units,
+                  -(-n_keys // (_CHUNK_STEPS * sk)))
+    split = -(-n_keys // n_split)
+    return -(-split // sk) * sk
+
+
+def _launch_chunk(name, q, k_pages, v_pages, page_table, start, *, n_valid=None,
+                  n_fed=None, scale, k_scale, v_scale):
     """Check and launch the chunk kernel (csrc/chunk_prefill_attention.cu)
-    for the entry ``name``; start and n_valid are (B,) int32 on the card."""
+    for the entry ``name``. start: an int (every sequence's) or a (B,)
+    int32 tensor on the card; n_valid, or else n_fed (n_valid = start +
+    n_fed): (B,) int32 on the card. The kernel reads them as given, so no
+    tensor is built for them here. On the tensor-core tiles with more than
+    one split, the partials go to f32 scratch allocated here and a second
+    launch combines them."""
     B, C, H, dh = q.shape
-    _check(q, k_pages, v_pages, k_scale, v_scale, (page_table, start, n_valid),
+    vecs = [t for t in (start, n_valid, n_fed) if isinstance(t, torch.Tensor)]
+    _check(q, k_pages, v_pages, k_scale, v_scale, (page_table, *vecs),
            q_ndim=4)
     n_pages, ps, Hkv = k_pages.shape[:3]
     if (page_table.dim() != 2 or page_table.shape[0] != B
-            or start.shape != (B,) or n_valid.shape != (B,)):
-        raise ValueError("page_table must be (B, n_pp), start and n_valid "
-                         "(B,)")
+            or any(t.shape != (B,) for t in vecs)):
+        raise ValueError("page_table must be (B, n_pp), start, n_valid and "
+                         "n_fed (B,)")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    n_pp = page_table.shape[1]
+    split, n_split, part = 0, 1, None
+    if chunk_on_tensor_cores(q.dtype, k_pages.dtype):
+        split = chunk_split(B, Hkv, C, H // Hkv, n_pp * ps,
+                            _sm_count(q.device.index))
+        n_split = max(1, -(-(n_pp * ps) // split))
+        if n_split > 1:
+            # pass 1's partials: acc (B*C*H, n_split, dh), then m and l
+            part = torch.empty(B * C * H * n_split * (dh + 2),
+                               dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = _fn("chunk_prefill_attention")
+    vec_start = isinstance(start, torch.Tensor)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
-            _ptr(k_scale), _ptr(v_scale), out.data_ptr(), B, C, H, Hkv, dh,
-            ps, page_table.shape[1], n_pages, _DTYPE_CODE[q.dtype],
+            page_table.data_ptr(), _ptr(start) if vec_start else None,
+            0 if vec_start else int(start), _ptr(n_valid), _ptr(n_fed),
+            _ptr(k_scale), _ptr(v_scale), _ptr(part), out.data_ptr(), B, C, H,
+            Hkv, dh, ps, n_pp, n_pages, split, n_split, _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[k_pages.dtype], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{name} launch failed (rc={rc})")
     return out
+
+
+def _chunk_split_plain(q, k_pages, v_pages, page_table, start, n_valid,
+                       split: int, *, scale: float = None, k_scale=None,
+                       v_scale=None):
+    """Plain mirror of the chunk kernel's split over keys, for the tests
+    (the plain version of the function is ``chunk_prefill_attention_plain``).
+
+    Pass 1 gives split s, keys ``[s * split, (s + 1) * split)`` of the
+    gathered table, clipped to each query row's frontier ``min(start[b] + c
+    + 1, n_valid[b])``, each row's max m, sum l and unnormalised
+    accumulator acc, with the kernel's int8 scale folding: the scores are
+    the integer dots times ``scale * k_scale[h]`` and acc the integer sums
+    times ``v_scale[h]``. A split wholly past a row's frontier has m =
+    NEG_INF, l = 0, acc = 0. Pass 2 combines the splits as the dense decode
+    does (``_decode_split_plain``). Returns out (B, C, H, dh) in q's dtype
+    and the partials (m, l: (B, C, H, n_split); acc: (B, C, H, n_split,
+    dh))."""
+    B, C, H, dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    kd = _gather(k_pages, page_table).float()        # (B, L, Hkv, dh)
+    vd = _gather(v_pages, page_table).float()
+    L, Hkv = kd.shape[1], kd.shape[2]
+    g = H // Hkv
+    n_split = max(1, -(-L // split))
+    pad = n_split * split - L
+    ones = torch.ones(Hkv, device=q.device)
+    ksc = (k_scale.float() if k_scale is not None else ones) * scale
+    vsc = v_scale.float() if v_scale is not None else ones
+    start = _start_vector(start, B, q.device).long()
+    hi = torch.minimum(start[:, None] + torch.arange(C, device=q.device) + 1,
+                       n_valid.to(q.device).long()[:, None])      # (B, C)
+    s = (torch.einsum("bchgd,blhd->bhgcl", q.reshape(B, C, Hkv, g, dh).float(),
+                      kd) * ksc[None, :, None, None, None])
+    keep = torch.arange(L, device=q.device)[None, None, :] < hi[:, :, None]
+    s = torch.where(keep[:, None, None], s, torch.full_like(s, NEG_INF))
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    s = s.reshape(B, Hkv, g, C, n_split, split)
+    m = s.amax(dim=-1)                                   # (B, Hkv, g, C, n)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    _exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    vd = torch.nn.functional.pad(vd, (0, 0, 0, 0, 0, pad))
+    acc = (torch.einsum("bhgcnk,bnkhd->bhgcnd", p,
+                        vd.reshape(B, n_split, split, Hkv, dh))
+           * vsc[None, :, None, None, None, None])
+    w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                    _exp((m - m.amax(dim=-1, keepdim=True))
+                         .clamp_max(0.0)))
+    out = ((w[..., None] * acc).sum(dim=-2)
+           / (w * l).sum(dim=-1).clamp_min(1e-30)[..., None])
+
+    def rows(x):   # (B, Hkv, g, C, ...) -> (B, C, H, ...)
+        return x.movedim(3, 1).reshape(B, C, H, *x.shape[4:])
+    return rows(out).to(q.dtype), (rows(m), rows(l), rows(acc))
 
 
 def chunk_prefill_attention_plain(q, k_pages, v_pages, page_table, start,
@@ -315,11 +450,11 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
         return chunk_prefill_attention_plain(
             q, k_pages, v_pages, page_table, start, n_valid, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
+    if isinstance(start, torch.Tensor):
+        start = _start_vector(start, q.shape[0], q.device)
     out = _launch_chunk("chunk_prefill_attention", q, k_pages, v_pages,
-                        page_table, _start_vector(start, q.shape[0],
-                                                  q.device),
-                        n_valid, scale=scale, k_scale=k_scale,
-                        v_scale=v_scale)
+                        page_table, start, n_valid=n_valid, scale=scale,
+                        k_scale=k_scale, v_scale=v_scale)
     chunk_prefill_attention.launches += 1
     return out
 
@@ -360,13 +495,14 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
 
     On the card this is the chunk kernel (``csrc/chunk_prefill_attention
     .cu``) with ``start = seq_lens`` and ``n_valid = seq_lens + n_fed``,
-    set on the device. Returns (B, C, H, dh) in q's dtype."""
+    which the kernel adds as it reads them. Returns (B, C, H, dh) in q's
+    dtype."""
     if not _on_cuda(q):
         return spec_verify_attention_plain(
             q, k_pages, v_pages, page_table, seq_lens, n_fed, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
     out = _launch_chunk("spec_verify_attention", q, k_pages, v_pages,
-                        page_table, seq_lens, seq_lens + n_fed, scale=scale,
+                        page_table, seq_lens, n_fed=n_fed, scale=scale,
                         k_scale=k_scale, v_scale=v_scale)
     spec_verify_attention.launches += 1
     return out
@@ -446,13 +582,13 @@ def _decode_split_plain(q, k_cache, v_cache, kv_valid, split: int, *,
     s = s.reshape(B, Hkv, g, n_split, split)
     m = s.amax(dim=-1)                                      # (B, Hkv, g, n)
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
-                    torch.exp(s - m[..., None]))
+                    _exp(s - m[..., None]))
     l = p.sum(dim=-1)
     acc = torch.einsum("bhgnk,bnkhd->bhgnd", p,
                        vd.reshape(B, n_split, split, Hkv, dh))
     w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
-                    torch.exp((m - m.amax(dim=-1, keepdim=True))
-                              .clamp_max(0.0)))
+                    _exp((m - m.amax(dim=-1, keepdim=True))
+                         .clamp_max(0.0)))
     out = ((w[..., None] * acc).sum(dim=-2)
            / (w * l).sum(dim=-1).clamp_min(1e-30)[..., None])
     return (out.reshape(B, H, dh).to(q.dtype),

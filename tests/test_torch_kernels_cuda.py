@@ -1,8 +1,12 @@
 """The port's CUDA kernels (paged decode, chunk prefill, speculative
 verify, dense decode, flash attention) against their plain PyTorch
-versions, on the card. Needs an NVIDIA GPU and nvcc (the kernels have no
-CPU mode), so every test here is marked ``cuda`` and skips without a card;
-the file imports no JAX, so it runs on a machine that has none:
+versions, on the card; the tensor-core kernels (flash, and the chunk on
+bf16/f16/int8 pools) within 2e-2, because they round the probabilities to
+the input dtype for the value product where the plain versions keep them
+in f32, and their f32 paths within 1e-4. Needs an NVIDIA GPU and nvcc (the
+kernels have no CPU mode), so every test here is marked ``cuda`` and skips
+without a card; the file imports no JAX, so it runs on a machine that has
+none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -13,7 +17,9 @@ import torch
 import repro_torch.kernels.decode_attention as tk
 import repro_torch.kernels.flash_attention as tkf
 from repro_torch.kernels import build as kbuild
-from torch_kernel_inputs import PAGED_LIBS
+from torch_kernel_inputs import CHUNK_HEADERS
+from torch_kernel_inputs import PAGED_DECODE_LIB
+from torch_kernel_inputs import chunk_edges
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import split_edges
@@ -282,8 +288,9 @@ def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
 
 @pytest.mark.cuda
 def test_cuda_paged_libraries_unchanged(cuda_device):
-    """The paged entries launch from the libraries they were built into
-    before the redesign of the dense decode and flash kernels."""
+    """Paged decode launches from the library it was built into before the
+    redesigns of the dense decode, flash and chunk kernels; the chunk
+    launches from its library built from the tensor-core header."""
     q = torch.randn((2, 4, 64), device=cuda_device)
     kp = torch.randn((5, 16, 4, 64), device=cuda_device)
     pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda_device)
@@ -291,6 +298,115 @@ def test_cuda_paged_libraries_unchanged(cuda_device):
     tk.paged_decode_attention(q, kp, kp, pt, lens)
     tk.chunk_prefill_attention(q[:, None], kp, kp, pt, 2, lens)
     torch.cuda.synchronize()
-    for name, lib in PAGED_LIBS.items():
-        path = kbuild.lib_path(name)
-        assert path.name == lib and path.exists()
+    path = kbuild.lib_path("paged_decode_attention")
+    assert path.name == PAGED_DECODE_LIB and path.exists()
+    assert kbuild.lib_path("chunk_prefill_attention").exists()
+    assert set(kbuild.headers("chunk_prefill_attention")) == CHUNK_HEADERS
+
+
+def _paged_inputs(rng, dev, B, H, Hkv, dh, ps, npp, C, pool):
+    """Pools of B * npp + 1 pages in the pool type (f32, bf16, f16, or
+    int8 with bf16 queries), disjoint shuffled tables, queries (B, C, H,
+    dh). Returns (q, k, v, table (numpy), scale kwargs)."""
+    P = B * npp + 1
+    kp, vp = _pool(rng, P, ps, Hkv, dh)
+    qdt = torch.bfloat16 if pool == "int8" else getattr(torch, pool)
+    kw = {}
+    if pool == "int8":
+        kp, ksc = _quantize(kp)
+        vp, vsc = _quantize(vp)
+        kw = dict(k_scale=_t(ksc).to(dev), v_scale=_t(vsc).to(dev))
+        kpt, vpt = _t(kp).to(dev), _t(vp).to(dev)
+    else:
+        kpt, vpt = (_t(a).to(device=dev, dtype=qdt) for a in (kp, vp))
+    q = _t(rng.standard_normal((B, C, H, dh), dtype=np.float32)).to(
+        device=dev, dtype=qdt)
+    return q, kpt, vpt, _tables(rng, B, npp, P), kw
+
+
+def _poison_past(kp, vp, pt, limits, ps, quant):
+    """NaN (int8: extreme values) into every pool row that holds a key at
+    or past a sequence's last frontier and no key before one: the kernel
+    must never load them."""
+    slots = lambda b, ks: {(int(pt[b, k // ps]), k % ps) for k in ks}
+    live = set().union(*(slots(b, range(int(lim)))
+                         for b, lim in enumerate(limits)))
+    for b, lim in enumerate(limits):
+        for page, off in slots(b, range(int(lim), pt.shape[1] * ps)) - live:
+            kp[page, off] = 127 if quant else float("nan")
+            vp[page, off] = -127 if quant else float("nan")
+
+
+PAGED_TC_WIDTHS = [(32, 32, 64), (8, 2, 64), (16, 2, 128)]   # groups 1, 4, 8
+# bf16/f16 round P to the input dtype for the tensor-core value product
+# (the plain version keeps it in f32): one ulp of the output; f32 runs the
+# FMA body in f32
+PAGED_TC_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2,
+                "int8": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
+def test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool):
+    """The chunk on its tensor-core tiles (bf16/f16/int8 pools; f32 on the
+    FMA body) at groups 1, 4 and 8 and head_dim 64 and 128: the last row's
+    frontier one key before, on and past a split edge, right-padded
+    chunks, keys past each chunk's frontier poisoned; bitwise repeatable."""
+    rng = np.random.default_rng(H + dh)
+    B, ps, npp, C = 4, 16, 36, 64
+    split = tk.chunk_split(B, Hkv, C, H // Hkv, npp * ps,
+                           tk._sm_count(torch.cuda.current_device()))
+    q, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
+                                      npp, C, pool)
+    for edge in (split, 2 * split):
+        start, nv = chunk_edges(edge, C, npp * ps)
+        st, nvt = _t(start).to(cuda_device), _t(nv).to(cuda_device)
+        ptt = _t(pt).to(cuda_device)
+        want = tk.chunk_prefill_attention_plain(q, kp, vp, ptt, st, nvt, **kw)
+        kpp, vpp = kp.clone(), vp.clone()
+        _poison_past(kpp, vpp, pt, np.minimum(start + C, nv), ps,
+                     pool == "int8")
+        n = tk.chunk_prefill_attention.launches
+        got = tk.chunk_prefill_attention(q, kpp, vpp, ptt, st, nvt, **kw)
+        again = tk.chunk_prefill_attention(q, kpp, vpp, ptt, st, nvt, **kw)
+        torch.cuda.synchronize()
+        assert tk.chunk_prefill_attention.launches == n + 2
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= PAGED_TC_TOL[pool], (edge, err)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 8])
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
+def test_cuda_verify_split_edges_match_plain(cuda_device, H, Hkv, dh, pool,
+                                             C):
+    """The verify window on the tensor-core tiles (16-row tiles where C *
+    group <= 16): windows crossing a split edge, fewer fed tokens than
+    rows, an inactive row on a table of null pages, keys past each window
+    poisoned; bitwise repeatable."""
+    rng = np.random.default_rng(C + H + dh)
+    B, ps, npp = 6, 16, 36
+    split = tk.chunk_split(B, Hkv, C, H // Hkv, npp * ps,
+                           tk._sm_count(torch.cuda.current_device()))
+    q, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
+                                      npp, C, pool)
+    pt[0] = 0
+    seq_lens, n_fed = _verify_window(rng, B, C, npp, ps)
+    for i, d in enumerate((-C, -C // 2 - 1, -1, 0, 1)):
+        seq_lens[i + 1] = max(0, split + d)
+    n_fed[2] = max(1, C - 1)
+    want = tk.spec_verify_attention_plain(
+        q, kp, vp, _t(pt).to(cuda_device), _t(seq_lens).to(cuda_device),
+        _t(n_fed).to(cuda_device), **kw)
+    _poison_past(kp, vp, pt, seq_lens + n_fed, ps, pool == "int8")
+    args = (q, kp, vp, _t(pt).to(cuda_device), _t(seq_lens).to(cuda_device),
+            _t(n_fed).to(cuda_device))
+    got = tk.spec_verify_attention(*args, **kw)
+    again = tk.spec_verify_attention(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= PAGED_TC_TOL[pool], err
+    assert torch.equal(got, again)

@@ -20,7 +20,9 @@ import torch
 import repro.kernels.decode_attention as da
 import repro_torch.kernels.decode_attention as tk
 from repro_torch.kernels import build as kbuild
-from torch_kernel_inputs import PAGED_LIBS
+from torch_kernel_inputs import CHUNK_HEADERS
+from torch_kernel_inputs import OLD_CHUNK_LIB
+from torch_kernel_inputs import PAGED_DECODE_LIB
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import split_edges
 from torch_kernel_inputs import t as _t
@@ -123,9 +125,19 @@ def test_decode_split_is_a_function_of_the_shapes():
     assert tk.decode_split(32, 8, 100, 8, 132) == 112
 
 
-@pytest.mark.parametrize("name", sorted(PAGED_LIBS))
+@pytest.mark.parametrize("name", ["chunk_prefill_attention",
+                                  "paged_decode_attention"])
 def test_paged_libraries_unchanged(name):
-    """The paged entries' sources, headers and flags hash as before the
-    dense decode and flash redesign, so their libraries are the same."""
-    assert kbuild.lib_path(name).name == PAGED_LIBS[name]
-    assert "split_decode.cuh" not in kbuild.headers(name)
+    """The paged decode's source, headers and flags hash as before the
+    dense decode, flash and chunk redesigns, so its library is the same;
+    the chunk's library is built anew from the tensor-core header it
+    shares with flash and the split-K header it shares with the dense
+    decode."""
+    if name == "paged_decode_attention":
+        assert kbuild.lib_path(name).name == PAGED_DECODE_LIB
+        assert "split_decode.cuh" not in kbuild.headers(name)
+        assert "mma_tile.cuh" not in kbuild.headers(name)
+    else:
+        assert set(kbuild.headers(name)) == CHUNK_HEADERS
+        assert kbuild.lib_path(name).name != OLD_CHUNK_LIB
+        assert "mma_tile.cuh" in kbuild.headers("flash_attention")

@@ -203,10 +203,13 @@ def test_builds_every_source_from_one_place():
     assert set(kbuild.SOURCES) == {"paged_decode_attention",
                                    "chunk_prefill_attention",
                                    "decode_attention", "flash_attention"}
+    extra = {"decode_attention": {"split_decode.cuh"},
+             "flash_attention": {"mma_tile.cuh"},
+             "chunk_prefill_attention": {"mma_tile.cuh", "split_decode.cuh"}}
     for name in kbuild.SOURCES:
-        split_k = {"split_decode.cuh"} if name == "decode_attention" else set()
         assert set(kbuild.headers(name)) == {"dispatch.cuh",
-                                             "paged_attention.cuh"} | split_k
+                                             "paged_attention.cuh"} | extra.get(
+                                                 name, set())
         assert kbuild.lib_path(name).name.startswith(name + "_")
     hashes = {kbuild.source_hash(n) for n in kbuild.SOURCES}
     assert len(hashes) == len(kbuild.SOURCES)

@@ -3,13 +3,17 @@ the card-only tests can use them on a machine without it)."""
 import numpy as np
 import torch
 
-# the paged entries' libraries (kernels.build.lib_path) as built before the
-# dense decode and flash kernels were redesigned: the redesign leaves their
-# sources, headers and compiler flags as they were
-PAGED_LIBS = {
-    "paged_decode_attention": "paged_decode_attention_0fd935ec44eda43a.so",
-    "chunk_prefill_attention": "chunk_prefill_attention_724d3abe02686b42.so",
-}
+# the paged decode library (kernels.build.lib_path) as built before the
+# dense decode, flash and chunk kernels were redesigned: the redesigns leave
+# its source, headers and compiler flags as they were
+PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+# the chunk library before its redesign on tensor-core tiles
+OLD_CHUNK_LIB = "chunk_prefill_attention_724d3abe02686b42.so"
+# the headers the redesigned chunk kernel is built from: the tensor-core
+# tiles it shares with flash and the split-K combine it shares with the
+# dense decode
+CHUNK_HEADERS = {"dispatch.cuh", "paged_attention.cuh", "mma_tile.cuh",
+                 "split_decode.cuh"}
 
 
 def t(a):
@@ -58,3 +62,14 @@ def split_edges(L: int, split: int):
     for edge in range(split, L + 1, split):
         vals.update((edge - 1, edge, edge + 1))
     return sorted(v for v in vals if 1 <= v <= L)
+
+
+def chunk_edges(split: int, C: int, n_keys: int):
+    """(start, n_valid) of chunks of C positions against ``n_keys`` table
+    keys whose last row's frontier falls one key before, on and one key
+    past a split edge (the last two right-padded, n_valid < start + C),
+    and a chunk at 0."""
+    edge = min(split, n_keys - 1)
+    starts = [0] + [min(max(edge - C + d, 0), n_keys - C) for d in (-1, 0, 1)]
+    n_valid = [C, starts[1] + C, starts[2] + C - 3, starts[3] + C - 1]
+    return np.asarray(starts, np.int32), np.asarray(n_valid, np.int32)
