@@ -14,10 +14,13 @@ Phases (any failure exits non-zero before the result line):
      TF32 off for f32 matmuls and convolutions.
   2. builds the four attention kernels from ``src/repro_torch/kernels/
      csrc`` (nvcc, one process a source, in parallel) and prints the build
-     time and ptxas report; counts the tensor-core (HMMA) instructions in
+     time and ptxas report, and the paged decode's registers, shared
+     memory and spills for its pass 1 (the main path's instance on its
+     own) and its combine; counts the tensor-core (HMMA) instructions in
      the flash and chunk libraries' bf16/f16 kernels (cuobjdump -sass),
      which must hold some (64 in each dh=128 flash kernel), and checks
-     that the paged decode library keeps its name (its source hash).
+     that the paged decode library is built anew from its split-K header
+     (not the library of its earlier body).
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -27,9 +30,14 @@ Phases (any failure exits non-zero before the result line):
      576 over a shuffled page table with stale entries; a 64-token chunk
      with scalar and per-sequence start; the speculative verify window at
      C = 1, 2, 4, 5, 8 with ragged fed lengths and an inactive row on the
-     null page; chunks and C=5 windows whose frontiers fall on and beside
-     the chunk kernel's split edges (right-padded chunks); f32, bf16, f16
-     and int8 pools (SDPA on the gathered dense KV).
+     null page; decode at B=16 with seq_lens at 1, the full table and on
+     and beside each edge of the paged decode's split (paged_split);
+     chunks and C=5 windows whose frontiers fall on and beside the chunk
+     kernel's split edges (right-padded chunks); f32, bf16, f16 and int8
+     pools (SDPA on the gathered dense KV). Each decode case also times
+     the chunk kernel's C=1 verify route on the same inputs (the same
+     function; the port never takes it for decode) as a second
+     yardstick.
      Dense decode (split-K) at B=4, H=16, Hkv=2, dh=128, L=545, ragged
      kv_valid, f32, bf16, f16 and int8 (at least 132 pass-1 blocks), with
      kv_valid at 1, L and the split boundaries +-1, at B=32 with Hkv=8
@@ -52,9 +60,10 @@ Phases (any failure exits non-zero before the result line):
      in-vocabulary tokens. The sampler's counter-based draws on the card
      must equal the CPU's, and its tokens follow the filtered softmax.
      Then torch.profiler splits by kernel the time of one fused decode
-     block, one prefill chunk (B=1, C=64 at start 384) and one verify pass
-     (B=8, C=5), and gives the device's busy share of their wall time and
-     the chunk kernel's share of the busy time.
+     block (the paged decode's pass 1 and its combine apart), one prefill
+     chunk (B=1, C=64 at start 384) and one verify pass (B=8, C=5), and
+     gives the device's busy share of their wall time and the chunk
+     kernel's share of the busy time.
   5. serves qwen2.5-3b at full width (bf16, seeded init) through
      ``ServeEngine(scheduler="static", decode_lookahead=8, max_len=640)``:
      serve_bucketed on 4 prompts of 256 and 4 of 512 tokens, 32 new
@@ -96,10 +105,12 @@ PS, MAX_LEN, C = 16, 576, 64
 # (heads, head_dim, kv heads) of the paged kernel cases: llama3.2-1b as the
 # continuous path serves it (group 1), at group 4, and qwen2.5-3b's width
 PAGED_WIDTHS = ((32, 64, 32), (32, 64, 8), (16, 128, 2))
-# the paged decode library (its source, headers and flags unchanged since
-# the port's first slice), and the tensor-core instructions of each dh=128
-# flash kernel on its tensor-core tiles
-PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+# the paged decode library before its redesign (split over pages, a
+# decode body of its own) and the headers the redesign is built from; the
+# tensor-core instructions of each dh=128 flash kernel on its tiles
+OLD_PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+PAGED_DECODE_HEADERS = {"dispatch.cuh", "paged_attention.cuh",
+                        "split_decode.cuh"}
 FLASH_HMMA_DH128 = 64
 VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
 # the static phase: qwen2.5-3b, prompts of 256 and 512 tokens, 32 new
@@ -140,6 +151,47 @@ def median_ms(torch, fn, iters: int = 30) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def ptxas_entries(text: str) -> dict:
+    """{kernel: (registers, smem bytes, spill-store bytes)} of a build's
+    ``-Xptxas -v`` report."""
+    def num(pat, part):
+        m = re.search(pat, part)
+        return int(m.group(1)) if m else 0
+    return {part.split("'", 1)[0]: (num(r"Used (\d+) registers", part),
+                                    num(r"(\d+) bytes smem", part),
+                                    num(r"(\d+) bytes spill stores", part))
+            for part in text.split("Compiling entry function '")[1:]}
+
+
+def paged_ptxas(kbuild) -> dict:
+    """The paged decode library's pass-1 and combine kernels: registers,
+    shared memory and spills, and the main path's pass-1 instance (bf16
+    queries over a bf16 pool, dh=64, one row a block)."""
+    ents = ptxas_entries(kbuild.build_log("paged_decode_attention"))
+    report = {}
+    for label, pick in (("pass 1", lambda n: "combine" not in n),
+                        ("combine", lambda n: "combine" in n)):
+        sel = [v for n, v in ents.items() if pick(n)]
+        report[label] = dict(
+            kernels=len(sel), registers=[min((v[0] for v in sel), default=0),
+                                         max((v[0] for v in sel), default=0)],
+            smem_max=max((v[1] for v in sel), default=0),
+            spill_max=max((v[2] for v in sel), default=0))
+        log(f"ptxas paged decode {label}: {len(sel)} kernels, registers "
+            f"{report[label]['registers'][0]}-{report[label]['registers'][1]}"
+            f", smem max {report[label]['smem_max']} B, spill stores max "
+            f"{report[label]['spill_max']} B")
+    main = [v for n, v in ents.items()
+            if "paged_split_kernelI13__nv_bfloat16S2_Li64ELi1E" in n]
+    if main:
+        report["main_path"] = dict(zip(("registers", "smem", "spill"),
+                                       main[0]))
+        log(f"ptxas paged decode pass 1, main path (bf16/bf16, dh=64, 1 row):"
+            f" {main[0][0]} registers, {main[0][1]} B smem + the split's "
+            f"rows, {main[0][2]} B spill stores")
+    return report
 
 
 def hmma_counts(kbuild, lib: str, kernel: str) -> dict:
@@ -216,23 +268,53 @@ def paged_cases(torch, kern, H, DH, Hkv):
         tol = 1e-4 if pool == "float32" else 2e-2
         kv_row = 2 * Hkv * DH * elem + (8 * Hkv if sc else 0)
 
-        # decode: q (B, H, dh) at the seq_lens above
-        q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
-        dmask = (pos[None] < lens[:, None])[:, None, None]
-        n_keys = int(lens.sum())
-        yield ("paged_decode_attention",
-               f"group={grp} pool={pool}{wide}", ops_type,
-               lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
-                   kern.paged_decode_attention(q, kp, vp, pt, lens, **sc),
-               lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
-                   kern.paged_decode_attention_plain(q, kp, vp, pt, lens,
-                                                     **sc),
-               lambda q=q, k=kdh, v=vdh, m=dmask:
-                   F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                                  attn_mask=m),
-               2 * q.numel() * q.element_size() + pt.numel() * 4
-               + B * 4 + n_keys * kv_row,
-               4 * H * DH * n_keys, tol)
+        def decode(label, pt, lens, gen):
+            # q (B, H, dh) at seq_lens; the yardsticks: SDPA on the
+            # gathered keys, and the chunk kernel's verify route at C=1
+            # (a one-row window at seq_lens - 1 is the same function)
+            Bd = len(lens)
+            q = torch.randn((Bd, H, DH), generator=gen, device=dev).to(qdt)
+            kdd = kern._dequant(kp, pt, sc.get("k_scale")).to(qdt)
+            vdd = kern._dequant(vp, pt, sc.get("v_scale")).to(qdt)
+            dmask = (pos[None] < lens[:, None])[:, None, None]
+            before, ones = lens - 1, torch.ones_like(lens)
+            n_keys = int(lens.sum())
+            return ("paged_decode_attention",
+                    f"group={grp} pool={pool}{label}{wide}", ops_type,
+                    lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
+                        kern.paged_decode_attention(q, kp, vp, pt, lens,
+                                                    **sc),
+                    lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
+                        kern.paged_decode_attention_plain(q, kp, vp, pt,
+                                                          lens, **sc),
+                    lambda q=q, k=kdd.permute(0, 2, 1, 3)
+                    .repeat_interleave(grp, 1),
+                    v=vdd.permute(0, 2, 1, 3).repeat_interleave(grp, 1),
+                    m=dmask: F.scaled_dot_product_attention(
+                        q[:, :, None], k, v, attn_mask=m),
+                    2 * q.numel() * q.element_size() + pt.numel() * 4
+                    + Bd * 4 + n_keys * kv_row,
+                    4 * H * DH * n_keys, tol,
+                    lambda q=q[:, None], kp=kp, vp=vp, pt=pt, sl=before,
+                    nf=ones, sc=sc: kern.spec_verify_attention(
+                        q, kp, vp, pt, sl, nf, **sc)[:, 0])
+
+        yield decode("", pt, lens, g)
+        if hasattr(kern, "paged_split"):
+            # seq_lens at 1, the table and each split edge +-1 (B=16 over
+            # pages drawn at random: shared and stale pages alike), from a
+            # generator of their own (the other cases draw as before)
+            ge = torch.Generator(device=dev).manual_seed(16)
+            Be = 16
+            split = kern.paged_split(Be, Hkv, n_pp * PS, grp, PS,
+                                     kern._sm_count(
+                                         torch.cuda.current_device()))
+            lens_e = torch.tensor(decode_boundaries(Be, n_pp * PS, split),
+                                  dtype=torch.int32, device=dev)
+            pt_e = torch.randint(1, P, (Be, n_pp), generator=ge, device=dev,
+                                 dtype=torch.int32)
+            yield decode(f" B={Be} seq_lens=edges {split}", pt_e, lens_e,
+                         ge)
 
         def chunk(label, starts, reals):
             Bc = len(starts)
@@ -429,9 +511,13 @@ def flash_cases(torch, flash):
 
 
 def check_kernels(torch, kern, flash):
+    """Each case (name, label, dtype name, kernel fn, plain fn, SDPA fn,
+    bytes, ops, tolerance[, a second yardstick fn]) against its plain
+    version, twice (bitwise equal), then timed."""
     rows = []
-    for (name, label, ops_type, fn, plain, sdpa, nbytes, ops,
-         tol) in kernel_cases(torch, kern, flash):
+    for case in kernel_cases(torch, kern, flash):
+        (name, label, ops_type, fn, plain, sdpa, nbytes, ops,
+         tol) = case[:9]
         got = fn()
         again = fn()
         want = plain()
@@ -449,11 +535,17 @@ def check_kernels(torch, kern, flash):
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes=nbytes, ops=ops)
+        extra = ""
+        if len(case) > 9:          # the chunk kernel's C=1 verify route
+            row["chunk_c1_err"] = float(
+                (case[9]().float() - want.float()).abs().max())
+            row["chunk_c1_ms"] = median_ms(torch, case[9])
+            extra = f" chunk_c1={row['chunk_c1_ms']:.4f}ms"
         rows.append(row)
         log(f"{name:24s} {label:38s} err={err:.2e} (tol {tol:g}) "
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
-            f"sdpa={row['library_ms']:.4f}ms bound={row['bound_ms']:.4f}ms "
-            f"({row['bound_by']})")
+            f"sdpa={row['library_ms']:.4f}ms{extra} "
+            f"bound={row['bound_ms']:.4f}ms ({row['bound_by']})")
     return rows
 
 
@@ -659,7 +751,8 @@ def profile_decode_block(torch, tm, cfg, params):
     def block():
         tm.decode_steps_paged(cfg, params, tok, lens, pt, cache, K, opts)
         torch.cuda.synchronize()
-    return profile_block(torch, block, f"decode block K={K} B={B} len=300")
+    return profile_block(torch, block, f"decode block K={K} B={B} len=300",
+                         paged_passes=True)
 
 
 def profile_chunk_block(torch, tm, cfg, params):
@@ -784,11 +877,13 @@ def profile_static_block(torch, tm, cfg, params, cache_dtype=""):
                          f"cache={cache_dtype or 'native'}")
 
 
-def profile_block(torch, block, label, chunk_pass2=False):
+def profile_block(torch, block, label, chunk_pass2=False,
+                  paged_passes=False):
     """Device busy time of one call of ``block`` is the sum of the kernels
     torch.profiler records; the wall time is taken without the profiler
     (median of 5). The port's attention kernels live in the namespace
-    ``repro_paged``."""
+    ``repro_paged``. With ``paged_passes`` (a block whose only attention
+    is the paged decode) its pass 1 and its combine are reported apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     block()
@@ -827,7 +922,19 @@ def profile_block(torch, block, label, chunk_pass2=False):
     for name, k in kernels.items():
         log(f"  attention {k['launches']:4d} x {k['mean_us']:7.2f}us  "
             f"{name[:60]}")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+    passes = {}
+    if paged_passes:
+        for part, pick in (("pass1", lambda n: "combine" not in n),
+                           ("combine", lambda n: "combine" in n)):
+            names = [n for n in by_name if "repro_paged" in n and pick(n)]
+            ms = sum(by_name[n] for n in names)
+            n_launch = sum(count[n] for n in names)
+            passes[part] = dict(ms=ms, launches=n_launch,
+                                mean_us=1e3 * ms / max(n_launch, 1))
+            log(f"  paged decode {part}: {n_launch} x "
+                f"{passes[part]['mean_us']:.2f}us = {ms:.3f}ms "
+                f"({100 * ms / busy_ms:.1f}% of busy)")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, paged=passes,
                 busy_share=busy_ms / wall_ms, attention_ms=attn,
                 chunk_ms=chunk, chunk_share=chunk / busy_ms,
                 top=[dict(name=n, ms=v) for n, v in top],
@@ -1002,7 +1109,7 @@ def _to(tree, device):
 
 
 def kernels_only(torch, args, smi, kern, flash, tm, get_config, built, hmma,
-                 chunk_hmma, t_start):
+                 chunk_hmma, paged_regs, t_start):
     """--kernels-only: every kernel entry against its plain version and
     timed (phase 3), then the paged decode block, the prefill chunk and
     the verify pass profiled on full-width llama3.2-1b (seeded bf16
@@ -1019,7 +1126,8 @@ def kernels_only(torch, args, smi, kern, flash, tm, get_config, built, hmma,
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             gpu=smi, src=args.src, kernel_cases=rows, build_s=built,
-            flash_hmma=hmma, chunk_hmma=chunk_hmma, **blocks), indent=1))
+            flash_hmma=hmma, chunk_hmma=chunk_hmma, paged_ptxas=paged_regs,
+            **blocks), indent=1))
 
 
 # -------------------------------- main ---------------------------------- #
@@ -1098,12 +1206,16 @@ def main() -> None:
                               and all(chunk_hmma.values())),
           f"the chunk library's bf16/f16 kernels lack HMMA: {chunk_hmma}")
     paged_lib = kbuild.lib_path("paged_decode_attention").name
-    check(paged_lib == PAGED_DECODE_LIB,
-          f"the paged decode library changed: {paged_lib}")
+    paged_hdrs = set(kbuild.headers("paged_decode_attention"))
+    check(args.kernels_only or (paged_lib != OLD_PAGED_DECODE_LIB
+                                and paged_hdrs == PAGED_DECODE_HEADERS),
+          f"the paged decode library {paged_lib} is not built from the "
+          f"redesigned source and its headers {sorted(paged_hdrs)}")
+    paged_regs = paged_ptxas(kbuild)
 
     if args.kernels_only:
         kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
-                     hmma, chunk_hmma, t_start)
+                     hmma, chunk_hmma, paged_regs, t_start)
         return
 
     # ---- phase 3 ----
@@ -1193,6 +1305,7 @@ def main() -> None:
             verify_block=verify_block, static_decode_block=static_breakdown,
             f32_logit_err=f32_err, f32_static=f32_static,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
+            paged_ptxas=paged_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,11 @@
-// Shared body of the port's attention kernels (paged decode, chunked
-// prefill, dense-cache decode, flash attention): a tile of query rows of
-// one (sequence, kv head) against the sequence's keys, with an online
-// softmax. Where a key position's K/V row lives is a policy (PagedRows:
-// through the sequence's page table; DenseRows: a dense per-sequence cache).
+// Shared body of the port's FMA attention paths (the chunk kernel's and
+// flash attention's f32 bodies; the dense decode's split pass stages with
+// it): a tile of query rows of one (sequence, kv head) against the
+// sequence's keys, with an online softmax. The paged decode kernel has a
+// body of its own (paged_decode_attention.cu) and takes only the numerics,
+// types and dtype codes below. Where a key position's K/V row lives is a
+// policy (PagedRows: through the sequence's page table; DenseRows: a dense
+// per-sequence cache).
 //
 // Numerics follow the reference kernels' shared step
 // (repro/kernels/decode_attention.py, _online_softmax_step/_finalize):

@@ -1,7 +1,7 @@
 // Split-K (flash-decoding) attention of one query position per sequence
 // against its keys, in two passes, over a key-row policy (DenseRows for a
-// dense cache; PagedRows for the paged pool, which a later decode kernel
-// can adopt unchanged).
+// dense cache). The chunk kernel and the paged decode kernel write the
+// same partials from their own pass-1 bodies and share pass 2.
 //
 // Pass 1 (split_partial): one block per (split, kv head, sequence) takes
 // the GQA group's rows against keys [lo, hi) of its split, where the

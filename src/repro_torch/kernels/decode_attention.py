@@ -22,16 +22,16 @@ For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
 counts its launches in a plain integer attribute (``.launches``).
 
-Measured on the H100 (PERF.md), the paged decode kernel is latency
-bound, not memory bound: its serial walk over key tiles sets its time.
-The chunk kernel (chunk prefill and spec verify) runs bf16/f16 queries on
-tensor-core tiles and splits the page table's keys across blocks; the
-dense decode splits its key walk across blocks too (split-K). Each split
-kernel is two launches a call where there is more than one split, with
-the split size a function of the shapes and the SM count (``chunk_split``,
+The paged decode splits the page table's keys across blocks, whole pages
+a split, with a body of its own for one to a few query rows; the chunk
+kernel (chunk prefill and spec verify) runs bf16/f16 queries on
+tensor-core tiles and splits the page table's keys too; the dense decode
+splits its key walk across blocks (split-K). Each split kernel is two
+launches a call where there is more than one split, with the split size a
+function of the shapes and the SM count (``paged_split``, ``chunk_split``,
 ``decode_split``), so no wrapper reads the device. The source notes in
-``csrc/*.cu`` say what each design does. ``kernels.build`` compiles and
-loads them.
+``csrc/*.cu`` say what each design does and what bounds it (PERF.md has
+their times on the H100). ``kernels.build`` compiles and loads them.
 """
 from __future__ import annotations
 
@@ -55,9 +55,10 @@ _HEAD_DIMS = (64, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # q, k, v, page_table, seq_lens, k_scale, v_scale, out,
-    # B, H, Hkv, dh, ps, n_pp, n_pages, q_dtype, kv_dtype, scale, stream
-    "paged_decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+    # q, k, v, page_table, seq_lens, k_scale, v_scale, part, out,
+    # B, H, Hkv, dh, ps, n_pp, n_pages, split, n_split, q_dtype, kv_dtype,
+    # scale, stream
+    "paged_decode_attention": [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P],
     # q, k, v, page_table, start, start0, n_valid, n_fed, k_scale, v_scale,
     # part, out, B, C, H, Hkv, dh, ps, n_pp, n_pages, split, n_split,
     # q_dtype, kv_dtype, scale, stream
@@ -226,6 +227,49 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
                          _dequant(v_pages, page_table, v_scale), seq_lens,
                          scale=scale)
 
+
+_PAGED_SPLIT_MAX = 128   # keys a split at most, before rounding to pages
+_PAGED_ROWS = 4          # query rows a pass-1 block takes at most
+_PAGED_MAX_SPLIT = 4096  # keys a split the kernel takes (rows in shared memory)
+
+
+def paged_split(B: int, Hkv: int, n_keys: int, group: int, page_size: int,
+                n_sm: int) -> int:
+    """Keys a split of the paged decode kernel
+    (csrc/paged_decode_attention.cu) over a page table of ``n_keys = n_pp
+    * page_size`` keys: a whole number of pages.
+
+    A pure function of the shapes and the card's SM count, never of
+    ``seq_lens`` (which lies on the device: reading it would cost a
+    device-to-host sync a layer). A pass-1 block takes one split of one
+    (sequence, kv head) for up to four of the group's query rows, so the
+    card holds ``B * Hkv * ceil(group / 4)`` units of work a split. The
+    table is cut into the number of splits that brings that nearest to two
+    an SM, and into at least enough that no split exceeds 128 keys; a split
+    is then rounded up to whole pages, and ``ceil(n_keys / split)`` splits
+    cover the table."""
+    units = B * Hkv * -(-group // _PAGED_ROWS)
+    n_keys = max(n_keys, 1)
+    n_split = max(1, (2 * n_sm + units // 2) // units,
+                  -(-n_keys // _PAGED_SPLIT_MAX))
+    split = -(-n_keys // n_split)
+    return -(-split // page_size) * page_size
+
+
+def _paged_split_plain(q, k_pages, v_pages, page_table, seq_lens, split: int,
+                       *, scale: float = None, k_scale=None, v_scale=None):
+    """Plain mirror of the paged decode kernel's two passes, for the tests
+    (the plain version of the function is
+    ``paged_decode_attention_plain``): the dense decode's split mirror
+    (``_decode_split_plain``) over the pages gathered through the table
+    (ids outside ``[0, n_pages)`` read the null page 0), at
+    ``kv_valid = seq_lens``. Returns out (B, H, dh) in q's dtype and the
+    partials (m, l: (B, H, n_split); acc: (B, H, n_split, dh))."""
+    return _decode_split_plain(q, _gather(k_pages, page_table),
+                               _gather(v_pages, page_table), seq_lens, split,
+                               scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                            scale: float = None, k_scale=None, v_scale=None):
     """Decode attention over a page-table-indirected KV pool.
@@ -235,7 +279,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     (B, n_pages_per_seq) int32 physical page ids (entries past a sequence's
     last used page point at the null page 0 and are masked by seq_lens);
     seq_lens: (B,) int32 valid tokens per sequence; k/v_scale: (Hkv,) f32.
-    Returns (B, H, dh) in q's dtype."""
+    Returns (B, H, dh) in q's dtype.
+
+    On the card the page table is cut into splits of ``paged_split(...)``
+    keys (pages up to 4096 keys): pass 1 writes each split's partials into
+    f32 scratch allocated here, pass 2 combines them in split order
+    (bitwise repeatable); with one split, pass 1 writes the output."""
     if not _on_cuda(q):
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, seq_lens, scale=scale,
@@ -247,14 +296,26 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     if page_table.dim() != 2 or page_table.shape[0] != B or seq_lens.shape != (B,):
         raise ValueError("page_table must be (B, n_pp) and seq_lens (B,)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    n_pp = page_table.shape[1]
+    split = paged_split(B, Hkv, n_pp * ps, H // Hkv, ps,
+                        _sm_count(q.device.index))
+    if split > _PAGED_MAX_SPLIT:
+        raise ValueError(f"page_size {ps} exceeds the paged decode kernel's "
+                         f"{_PAGED_MAX_SPLIT}-key split")
+    n_split = max(1, -(-(n_pp * ps) // split))
+    part = None
+    if n_split > 1:
+        # pass 1's partials: acc (B, H, n_split, dh), then m and l
+        part = torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
+                           device=q.device)
     out = torch.empty_like(q)
-    fn = _fn("paged_decode_attention")
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), seq_lens.data_ptr(), _ptr(k_scale),
-            _ptr(v_scale), out.data_ptr(), B, H, Hkv, dh, ps,
-            page_table.shape[1], n_pages, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _fn("paged_decode_attention")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), seq_lens.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), _ptr(part), out.data_ptr(), B, H, Hkv, dh, ps, n_pp,
+        n_pages, split, n_split, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pages.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_attention launch failed (rc={rc})")
     paged_decode_attention.launches += 1

@@ -1,6 +1,7 @@
-"""Serving CLI of the PyTorch port, on the GPU by default: continuous
+"""Serving CLI of the PyTorch port, on the GPU by default: static waves
+over a dense cache (the default, as in the reference CLI), or continuous
 batching over the paged KV pool (greedy or sampled decoding, optionally
-speculative), or static waves over a dense cache.
+speculative).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --scheduler continuous --concurrency 16 --prompt-len 256 \\
@@ -12,12 +13,14 @@ speculative), or static waves over a dense cache.
 
     # a small CPU run (the plain attention path instead of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-        --reduced --concurrency 5 --device cpu
+        --reduced --scheduler continuous --concurrency 5 --device cpu
     # speculative decoding (n-gram draft), then sampling
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-        --reduced --device cpu --spec-mode ngram --spec-k 4 --shared-doc 12
+        --reduced --device cpu --scheduler continuous --spec-mode ngram \\
+        --spec-k 4 --shared-doc 12
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-        --reduced --device cpu --temperature 0.8 --top-p 0.9
+        --reduced --device cpu --scheduler continuous --temperature 0.8 \\
+        --top-p 0.9
 
 The flags and their destinations are the reference CLI's
 (``repro/launch/serve.py``). What the port does not run yet (``--shards``
@@ -50,7 +53,7 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-policy", default="native",
                     choices=["native", "int8"])
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--scheduler", default="continuous",
+    ap.add_argument("--scheduler", default="static",
                     choices=["static", "continuous"])
     ap.add_argument("--concurrency", type=int, default=0,
                     help="number of in-flight ragged requests "

@@ -29,6 +29,24 @@ def module_for(cfg: ArchConfig):
     return mod
 
 
+def forward(cfg: ArchConfig, params, tokens,
+            opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None, *,
+            collect_kv: bool = False):
+    """Full-sequence forward of ``cfg``'s family; ``prefix_emb`` (B, P, d),
+    a stub frontend's output (VLM patches), is prepended to the token
+    embeddings."""
+    return module_for(cfg).forward(cfg, params, tokens, opts, prefix_emb,
+                                   collect_kv=collect_kv)
+
+
+def prefill(cfg: ArchConfig, params, tokens, cache,
+            opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
+    """Run the prompt (after ``prefix_emb`` when given), fill the dense
+    cache and return (last-position logits, cache)."""
+    return module_for(cfg).prefill(cfg, params, tokens, cache, opts,
+                                   prefix_emb=prefix_emb)
+
+
 def decode_steps(cfg: ArchConfig, params, token, pos: int, cache,
                  n_steps: int, opts: RuntimeOptions = RuntimeOptions(), *,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,

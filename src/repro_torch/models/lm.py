@@ -149,11 +149,16 @@ def _logits(cfg, params, x):
     return cm.dense(params["lm_head"], x)
 
 
-def _embed_tokens(cfg, params, tokens):
+def _embed_tokens(cfg, params, tokens, prefix_emb=None):
+    """Token embeddings (B, S, d), with ``prefix_emb`` (B, P, d), a stub
+    frontend's output (VLM patches), prepended in the embeddings' dtype."""
     x = params["embed"]["emb"][tokens.long()]
     # gemma-style scale, rounded to the activation dtype first as the
     # reference does (a host scalar: no host-to-device copy per step)
-    return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    if prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(x.device, x.dtype), x], dim=1)
+    return x
 
 
 # ---------------------------- paged serving ----------------------------- #
@@ -598,14 +603,14 @@ def _block(lp, x, cfg: ArchConfig, rope):
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg), kv
 
 
-def _hidden(cfg: ArchConfig, params, tokens):
-    """The final residual stream (B, S, d) of a full-prompt forward and
-    every layer's (k, v)."""
+def _hidden(cfg: ArchConfig, params, tokens, prefix_emb=None):
+    """The final residual stream (B, P + S, d) of a full-prompt forward
+    (``prefix_emb`` (B, P, d) prepended) and every layer's (k, v)."""
     reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
-    B, S = tokens.shape
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, prefix_emb)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     kvs = []
@@ -616,13 +621,15 @@ def _hidden(cfg: ArchConfig, params, tokens):
 
 
 def forward(cfg: ArchConfig, params, tokens,
-            opts: RuntimeOptions = RuntimeOptions(), *,
+            opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None, *,
             collect_kv: bool = False):
-    """Full-sequence causal forward. tokens: (B, S) int32. Returns logits
-    (B, S, vocab), or (logits, kvs) with ``collect_kv``: one (k, v) pair of
-    (B, S, Hkv, dh) per layer, k rotated (the reference returns the same
-    pairs stacked on a leading layer axis)."""
-    x, kvs = _hidden(cfg, params, tokens)
+    """Full-sequence causal forward. tokens: (B, S) int32; prefix_emb:
+    (B, P, d) stub frontend output (VLM patches), prepended, or None.
+    Returns logits (B, P + S, vocab), or (logits, kvs) with
+    ``collect_kv``: one (k, v) pair of (B, P + S, Hkv, dh) per layer, k
+    rotated (the reference returns the same pairs stacked on a leading
+    layer axis)."""
+    x, kvs = _hidden(cfg, params, tokens, prefix_emb)
     logits = _logits(cfg, params, x)
     return (logits, kvs) if collect_kv else logits
 
@@ -651,12 +658,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ArchConfig, params, tokens, cache,
-            opts: RuntimeOptions = RuntimeOptions()):
-    """Run the prompt (B, S), write every layer's KV at positions [0, S) of
-    the dense cache in place (int8: quantized with fresh per-layer scales
-    from this prompt), and return (last-position logits (B, vocab),
-    cache)."""
-    x, kvs = _hidden(cfg, params, tokens)
+            opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
+    """Run the prompt (B, S) after ``prefix_emb`` (B, P, d) when given,
+    write every layer's KV at positions [0, P + S) of the dense cache in
+    place (int8: quantized with fresh per-layer scales from this prompt),
+    and return (last-position logits (B, vocab), cache)."""
+    x, kvs = _hidden(cfg, params, tokens, prefix_emb)
     st = cache["stack"]
     for i, (k, v) in enumerate(kvs):
         if "k_scale" in st:

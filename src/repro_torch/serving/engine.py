@@ -356,9 +356,12 @@ class ServeEngine:
                                      self._dev(emitted))
 
     # ------------------------------------------------------------------ #
-    def generate(self, prompts, max_new_tokens: int, *, greedy: bool = True,
-                 seed: int = 0, noise=None) -> List[List[int]]:
-        """One static wave. prompts: (B, S) int array (equal lengths).
+    def generate(self, prompts, max_new_tokens: int, *, prefix_emb=None,
+                 greedy: bool = True, seed: int = 0,
+                 noise=None) -> List[List[int]]:
+        """One static wave. prompts: (B, S) int array (equal lengths);
+        prefix_emb: (B, P, d) stub frontend output (VLM patches) prepended
+        to every prompt's embeddings, or None (it counts toward max_len).
 
         Greedy decode runs in fused K-step blocks (``models.decode_steps``,
         K = ``decode_lookahead``): the host pulls one (B, K) token block a
@@ -375,18 +378,25 @@ class ServeEngine:
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                   device=self.device)
         B, S = prompts.shape
-        if S + max_new_tokens > self.max_len:
-            raise ValueError(f"prompt({S}) + new({max_new_tokens}) exceeds "
+        pfx = prefix_emb.shape[1] if prefix_emb is not None else 0
+        total = S + pfx + max_new_tokens
+        if total > self.max_len:
+            raise ValueError(f"prompt({S}) + prefix({pfx}) + new("
+                             f"{max_new_tokens}) = {total} exceeds "
                              f"max_len={self.max_len}")
+        if prefix_emb is not None and not torch.is_tensor(prefix_emb):
+            prefix_emb = torch.as_tensor(np.asarray(prefix_emb))
         cfg, params, opts = self.cfg, self.params, self.opts
         K = self.decode_lookahead if greedy else 1
         n_blocks = -(-max(max_new_tokens - 1, 0) // K)
         # the last fused block may overrun the token budget: headroom keeps
         # its (discarded) writes inside the cache
-        cache = init_cache(cfg, B, S + 1 + n_blocks * K, opts, self.device)
+        cache = init_cache(cfg, B, S + pfx + 1 + n_blocks * K, opts,
+                           self.device)
 
         t0 = time.perf_counter()
-        logits, cache = prefill(cfg, params, prompts, cache, opts)
+        logits, cache = prefill(cfg, params, prompts, cache, opts,
+                                prefix_emb=prefix_emb)
         _sync(self.device)
         self.stats.host_syncs += 1
         self.stats.prefill_s += time.perf_counter() - t0
@@ -417,8 +427,8 @@ class ServeEngine:
                 k_eff = min(K, _next_pow2(max_new_tokens - len(out)))
                 self._decode_shapes.add(("dense", B, k_eff))
                 pending, cache = decode_steps(cfg, params, tok,
-                                              S + n_sent - 1, cache, k_eff,
-                                              opts)
+                                              S + pfx + n_sent - 1, cache,
+                                              k_eff, opts)
                 tok = pending[:, -1]
                 n_sent += k_eff
                 launched += k_eff
@@ -440,8 +450,8 @@ class ServeEngine:
                     if done.all():
                         break
                 if i + 1 < max_new_tokens:
-                    logits, cache = decode_step(cfg, params, tok, S + i,
-                                                cache, opts)
+                    logits, cache = decode_step(cfg, params, tok,
+                                                S + pfx + i, cache, opts)
                     launched += 1
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.new_tokens += len(out) * B

@@ -77,7 +77,8 @@ def test_spilled_run_token_identical_to_reference(models, kv_policy):
 def test_serve_cli_runs_on_cpu(capsys, tmp_path):
     trace = tmp_path / "trace.json"
     tserve.main(["--arch", "llama3.2-1b", "--reduced", "--d-model", "64",
-                 "--device", "cpu", "--concurrency", "3", "--prompt-len",
+                 "--device", "cpu", "--scheduler", "continuous",
+                 "--concurrency", "3", "--prompt-len",
                  "12", "--new-tokens", "5", "--shared-doc", "8",
                  "--page-size", "4", "--prefill-chunk", "8",
                  "--kv-policy", "int8", "--trace-out", str(trace),
@@ -90,7 +91,8 @@ def test_serve_cli_runs_on_cpu(capsys, tmp_path):
 
 def test_serve_cli_offload_flags(capsys):
     tserve.main(["--arch", "llama3.2-1b", "--reduced", "--d-model", "64",
-                 "--device", "cpu", "--concurrency", "3", "--prompt-len",
+                 "--device", "cpu", "--scheduler", "continuous",
+                 "--concurrency", "3", "--prompt-len",
                  "16", "--new-tokens", "4", "--page-size", "4",
                  "--prefill-chunk", "8", "--kv-fast-mb", "0.004",
                  "--hbs-gbps", "0.01"])
@@ -101,9 +103,12 @@ def test_serve_cli_offload_flags(capsys):
                                     "gemma3-1b"],
                                    ["--scheduler", "static", "--arch",
                                     "paligemma-3b"],
-                                   ["--arch", "deepseek-v2-236b"],
-                                   ["--arch", "arctic-480b"],
-                                   ["--shards", "2"]])
+                                   ["--scheduler", "continuous", "--arch",
+                                    "deepseek-v2-236b"],
+                                   ["--scheduler", "continuous", "--arch",
+                                    "arctic-480b"],
+                                   ["--scheduler", "continuous", "--shards",
+                                    "2"]])
 def test_serve_cli_rejects_off_path_flags(flags):
     with pytest.raises(NotImplementedError):
         tserve.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",

@@ -18,7 +18,8 @@ import repro_torch.kernels.decode_attention as tk
 import repro_torch.kernels.flash_attention as tkf
 from repro_torch.kernels import build as kbuild
 from torch_kernel_inputs import CHUNK_HEADERS
-from torch_kernel_inputs import PAGED_DECODE_LIB
+from torch_kernel_inputs import OLD_PAGED_DECODE_LIB
+from torch_kernel_inputs import PAGED_DECODE_HEADERS
 from torch_kernel_inputs import chunk_edges
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
@@ -288,8 +289,8 @@ def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
 
 @pytest.mark.cuda
 def test_cuda_paged_libraries_unchanged(cuda_device):
-    """Paged decode launches from the library it was built into before the
-    redesigns of the dense decode, flash and chunk kernels; the chunk
+    """Paged decode launches from its library built anew from the split-K
+    header, not from the library of its earlier row-tile body; the chunk
     launches from its library built from the tensor-core header."""
     q = torch.randn((2, 4, 64), device=cuda_device)
     kp = torch.randn((5, 16, 4, 64), device=cuda_device)
@@ -299,7 +300,8 @@ def test_cuda_paged_libraries_unchanged(cuda_device):
     tk.chunk_prefill_attention(q[:, None], kp, kp, pt, 2, lens)
     torch.cuda.synchronize()
     path = kbuild.lib_path("paged_decode_attention")
-    assert path.name == PAGED_DECODE_LIB and path.exists()
+    assert path.name != OLD_PAGED_DECODE_LIB and path.exists()
+    assert set(kbuild.headers("paged_decode_attention")) == PAGED_DECODE_HEADERS
     assert kbuild.lib_path("chunk_prefill_attention").exists()
     assert set(kbuild.headers("chunk_prefill_attention")) == CHUNK_HEADERS
 
@@ -410,3 +412,76 @@ def test_cuda_verify_split_edges_match_plain(cuda_device, H, Hkv, dh, pool,
     err = float((got.float() - want.float()).abs().max())
     assert err <= PAGED_TC_TOL[pool], err
     assert torch.equal(got, again)
+
+
+def _stale_tails(pt, seq_lens, ps, n_pages):
+    """Table entries wholly past each sequence's length keep their (now
+    stale) pages, except every third, which gets an id outside the pool
+    (read as the null page 0 if it were read)."""
+    pt = pt.copy()
+    for b, n in enumerate(seq_lens):
+        for i in range(-(-int(n) // ps), pt.shape[1]):
+            if i % 3 == 0:
+                pt[b, i] = n_pages + i if i % 2 else -1 - i
+    return pt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
+def test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                   pool):
+    """The paged decode split over pages, at groups 1, 4 and 8 and head_dim
+    64 and 128: seq_lens at 1, the full table and every split edge +-1
+    (B=16 sequences a call, the edges over as many calls as they need);
+    stale table entries and the keys past each sequence poisoned (NaN;
+    int8: extreme values); bitwise repeatable; one launch counted a call."""
+    rng = np.random.default_rng(H + dh + len(pool))
+    B, ps, npp = 16, 16, 36
+    n_keys = npp * ps
+    split = tk.paged_split(B, Hkv, n_keys, H // Hkv, ps,
+                           tk._sm_count(torch.cuda.current_device()))
+    assert split % ps == 0
+    edges = split_edges(n_keys, split)
+    q3, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
+                                       npp, 1, pool)
+    q = q3[:, 0].contiguous()
+    for i in range(0, len(edges), B):
+        lens = np.asarray([edges[i:][j % len(edges[i:])] for j in range(B)],
+                          np.int32)
+        ptt = _t(pt).to(cuda_device)
+        lt = _t(lens).to(cuda_device)
+        want = tk.paged_decode_attention_plain(q, kp, vp, ptt, lt, **kw)
+        kpp, vpp = kp.clone(), vp.clone()
+        _poison_past(kpp, vpp, pt, lens, ps, pool == "int8")
+        stale = _t(_stale_tails(pt, lens, ps, kp.shape[0])).to(cuda_device)
+        n = tk.paged_decode_attention.launches
+        got = tk.paged_decode_attention(q, kpp, vpp, stale, lt, **kw)
+        again = tk.paged_decode_attention(q, kpp, vpp, stale, lt, **kw)
+        torch.cuda.synchronize()
+        assert tk.paged_decode_attention.launches == n + 2
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= PAGED_TC_TOL[pool], (lens.tolist(), err)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [1, 5, 64, 256])
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_cuda_paged_decode_page_sizes(cuda_device, pool, ps):
+    """Page sizes from one key to a 256-key page (a split is a whole number
+    of pages, so a large page is a split of its own), a group of 2 and
+    ragged lengths with one sequence at the full table."""
+    rng = np.random.default_rng(ps)
+    B, H, Hkv, dh = 3, 8, 4, 64
+    npp = -(-300 // ps)
+    q3, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
+                                       npp, 1, pool)
+    q = q3[:, 0].contiguous()
+    lens = rng.integers(1, npp * ps + 1, size=B).astype(np.int32)
+    lens[0] = npp * ps
+    ptt, lt = _t(pt).to(cuda_device), _t(lens).to(cuda_device)
+    want = tk.paged_decode_attention_plain(q, kp, vp, ptt, lt, **kw)
+    got = tk.paged_decode_attention(q, kp, vp, ptt, lt, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2

@@ -372,7 +372,8 @@ def test_spec_flag_validation(models):
 def test_serve_cli_spec_and_sampling(capsys, flags, line):
     from repro_torch.launch import serve as tserve
     tserve.main(["--arch", "llama3.2-1b", "--reduced", "--d-model", "64",
-                 "--device", "cpu", "--concurrency", "3", "--prompt-len",
+                 "--device", "cpu", "--scheduler", "continuous",
+                 "--concurrency", "3", "--prompt-len",
                  "16", "--new-tokens", "6", *flags])
     out = capsys.readouterr().out
     assert line in out

@@ -22,7 +22,8 @@ import repro_torch.kernels.decode_attention as tk
 from repro_torch.kernels import build as kbuild
 from torch_kernel_inputs import CHUNK_HEADERS
 from torch_kernel_inputs import OLD_CHUNK_LIB
-from torch_kernel_inputs import PAGED_DECODE_LIB
+from torch_kernel_inputs import OLD_PAGED_DECODE_LIB
+from torch_kernel_inputs import PAGED_DECODE_HEADERS
 from torch_kernel_inputs import quantize as _quantize
 from torch_kernel_inputs import split_edges
 from torch_kernel_inputs import t as _t
@@ -128,15 +129,14 @@ def test_decode_split_is_a_function_of_the_shapes():
 @pytest.mark.parametrize("name", ["chunk_prefill_attention",
                                   "paged_decode_attention"])
 def test_paged_libraries_unchanged(name):
-    """The paged decode's source, headers and flags hash as before the
-    dense decode, flash and chunk redesigns, so its library is the same;
-    the chunk's library is built anew from the tensor-core header it
-    shares with flash and the split-K header it shares with the dense
-    decode."""
+    """Both paged libraries are built anew from their redesigned sources:
+    the paged decode from the split-K header whose combine it shares with
+    the dense decode (no tensor-core header: it runs no mma), the chunk
+    from the tensor-core header it shares with flash and the split-K
+    header."""
     if name == "paged_decode_attention":
-        assert kbuild.lib_path(name).name == PAGED_DECODE_LIB
-        assert "split_decode.cuh" not in kbuild.headers(name)
-        assert "mma_tile.cuh" not in kbuild.headers(name)
+        assert set(kbuild.headers(name)) == PAGED_DECODE_HEADERS
+        assert kbuild.lib_path(name).name != OLD_PAGED_DECODE_LIB
     else:
         assert set(kbuild.headers(name)) == CHUNK_HEADERS
         assert kbuild.lib_path(name).name != OLD_CHUNK_LIB

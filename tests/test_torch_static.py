@@ -204,6 +204,7 @@ def test_builds_every_source_from_one_place():
                                    "chunk_prefill_attention",
                                    "decode_attention", "flash_attention"}
     extra = {"decode_attention": {"split_decode.cuh"},
+             "paged_decode_attention": {"split_decode.cuh"},
              "flash_attention": {"mma_tile.cuh"},
              "chunk_prefill_attention": {"mma_tile.cuh", "split_decode.cuh"}}
     for name in kbuild.SOURCES:

@@ -3,10 +3,14 @@ the card-only tests can use them on a machine without it)."""
 import numpy as np
 import torch
 
-# the paged decode library (kernels.build.lib_path) as built before the
-# dense decode, flash and chunk kernels were redesigned: the redesigns leave
-# its source, headers and compiler flags as they were
-PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+# the paged decode library (kernels.build.lib_path) before its redesign
+# (split over pages, a decode body of its own)
+OLD_PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
+# the headers the redesigned paged decode is built from: the shared dtype
+# codes and numerics, and the split-K combine it shares with the dense
+# decode and the chunk kernel
+PAGED_DECODE_HEADERS = {"dispatch.cuh", "paged_attention.cuh",
+                        "split_decode.cuh"}
 # the chunk library before its redesign on tensor-core tiles
 OLD_CHUNK_LIB = "chunk_prefill_attention_724d3abe02686b42.so"
 # the headers the redesigned chunk kernel is built from: the tensor-core
