@@ -45,8 +45,13 @@ Phases (any failure exits non-zero before the result line):
      case (SDPA with a length mask).
      Flash attention at B=4, H=16, Hkv 2 and 16, dh=128, causal and full:
      bf16 and f16 (tensor-core tiles) at S = 1, 17, 64, 256, 300 and 512,
-     f32 at 256, 300 and 512 (SDPA with enable_gqa). Every kernel entry
-     must give bitwise the same result on a second call.
+     f32 at 256, 300 and 512 (SDPA with enable_gqa). At arctic-480b's
+     width (H=56, Hkv=8, dh=128, GQA group 7), bf16 and int8: paged
+     decode (B=8 ragged, B=16 on the split edges), the chunk at a scalar
+     and a per-sequence start, the C=5 verify window, dense decode (B=4
+     ragged, B=12 on the split edges), and flash (bf16) at S = 17, 300 and
+     512, causal and full. Every kernel entry must give bitwise the same
+     result on a second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -80,13 +85,32 @@ Phases (any failure exits non-zero before the result line):
      path: prefill and decode logits against the CPU, static K=8 == K=1,
      and static == continuous on phase 5's requests (the same near-tie
      allowance).
-Then prints the per-kernel JSON line and, last, the device JSON line.
+  7. frees the earlier models and serves arctic-480b (MoE: 128 experts
+     top-2 and a dense residual FFN a layer, GQA group 7) at full width
+     cut to 2 of its 35 layers (bf16, the port's seeded init, about 55 GB)
+     through the continuous engine (8 requests of 64-448 prompt tokens, 4
+     sharing a 128-token document, 32 new tokens, streams serialized):
+     native, int8 and n-gram spec k=4; and through the static engine
+     (serve_bucketed on phase 5's prompts, 16 new tokens), native and
+     int8. Each run is made twice and must emit the same tokens both
+     times, launch each kernel of its path exactly n_layers times a
+     micro-step, prefill chunk, verify pass or wave, call no plain
+     version, reconcile its trace and free its pages. Then the MoE FFN on
+     the card: ragged == capacity at capacity_factor = E at one full-width
+     layer (two bf16 ulps), no host sync in the capacity path (sync debug
+     mode "error"), the reduced twin in f32 == the CPU; and one K=8 decode
+     block profiled (the expert products' and the attention kernels'
+     shares of busy time), then run again with no host sync inside it.
+Then prints the per-kernel JSON line (each kernel at its main-path case
+and at arctic-480b's group 7, with that path's launches) and, last, the
+device JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -115,6 +139,12 @@ FLASH_HMMA_DH128 = 64
 VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
 # the static phase: qwen2.5-3b, prompts of 256 and 512 tokens, 32 new
 QWEN_PROMPTS, QWEN_NEW, QWEN_MAX_LEN = (256, 512), 32, 640
+# arctic-480b's attention width (heads, head_dim, kv heads): GQA group 7
+ARCTIC_WIDTH = (56, 128, 8)
+# the MoE phase: arctic-480b at full width cut to 2 of its 35 layers; 8
+# requests and 32 new tokens on the continuous engine, the static waves'
+# prompts with 16 new tokens on the static one
+ARCTIC_LAYERS, ARCTIC_REQS, ARCTIC_NEW, ARCTIC_STATIC_NEW = 2, 8, 32, 16
 
 
 def log(msg: str) -> None:
@@ -231,15 +261,22 @@ def kernel_cases(torch, kern, flash):
     name, kernel fn, plain fn, sdpa fn, bytes, ops, tolerance)."""
     for width in PAGED_WIDTHS:
         yield from paged_cases(torch, kern, *width)
+    # arctic-480b's width (group 7): bf16 and int8 pools, the C=5 window
+    yield from paged_cases(torch, kern, *ARCTIC_WIDTH,
+                           pools=("bfloat16", "int8"), verify_c=(5,),
+                           chunk_edges=False)
     yield from dense_decode_cases(torch, kern)
     yield from flash_cases(torch, flash)
 
 
-def paged_cases(torch, kern, H, DH, Hkv):
-    """The paged entries at one width: decode, the chunk at a scalar and a
-    per-sequence start, the verify windows, and (where the chunk kernel
-    splits its keys) chunks and windows whose frontiers fall on and beside
-    its split edges."""
+def paged_cases(torch, kern, H, DH, Hkv,
+                pools=("float32", "bfloat16", "float16", "int8"),
+                verify_c=VERIFY_C, chunk_edges=True):
+    """The paged entries at one width and over ``pools``: decode, the chunk
+    at a scalar and a per-sequence start, the verify windows of
+    ``verify_c``, and (with ``chunk_edges``, where the chunk kernel splits
+    its keys) chunks and windows whose frontiers fall on and beside its
+    split edges."""
     import torch.nn.functional as F
     dev = "cuda"
     B = 8
@@ -249,7 +286,7 @@ def paged_cases(torch, kern, H, DH, Hkv):
     wide = "" if DH == 64 else f" dh={DH}"
     grp = H // Hkv
     pos = torch.arange(n_pp * PS, device=dev)
-    for pool in ("float32", "bfloat16", "float16", "int8"):
+    for pool in pools:
         qdt = torch.bfloat16 if pool == "int8" else getattr(torch, pool)
         ops_type = pool if pool != "int8" else "bfloat16"
         kp, vp, sc = _pools(torch, g, (P, PS, Hkv, DH), pool, qdt)
@@ -378,14 +415,14 @@ def paged_cases(torch, kern, H, DH, Hkv):
         yield chunk("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])
         # speculative verify: the windows of spec_k 4 and 7; ragged landed
         # lengths with room for the window, 1..C fed tokens
-        for Cv in VERIFY_C:
+        for Cv in verify_c:
             sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
                                device=dev).to(torch.int32)
             nf = torch.randint(1, Cv + 1, (B,), generator=g,
                                device=dev).to(torch.int32)
             sl[1], nf[1] = MAX_LEN - Cv, Cv
             yield verify(f"C={Cv}", Cv, sl, nf)
-        if not hasattr(kern, "chunk_split"):   # a kernel that does not split
+        if not chunk_edges or not hasattr(kern, "chunk_split"):
             continue
         n_sm = kern._sm_count(torch.cuda.current_device())
         for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * PS, n_sm),
@@ -420,9 +457,11 @@ def dense_decode_cases(torch, kern):
     dh=128, the 545-position cache of a 512-token wave, ragged kv_valid
     1..545) in f32, bf16, f16 and an int8 cache with bf16 queries; the same
     width with kv_valid at the split boundaries (B=12) and at B=32 with
-    Hkv=8 (where only the 128-key cap splits the cache); and a dh=64
-    group-1 case. The SDPA yardstick runs on the dense cache (dequantized
-    beforehand when int8) with a length mask."""
+    Hkv=8 (where only the 128-key cap splits the cache); a dh=64 group-1
+    case; and arctic-480b's width (H=56, Hkv=8, group 7) in bf16 and int8,
+    ragged (B=4) and at the split boundaries (B=12). The SDPA yardstick
+    runs on the dense cache (dequantized beforehand when int8) with a
+    length mask."""
     import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
@@ -432,7 +471,9 @@ def dense_decode_cases(torch, kern):
              False),
             (12, 16, 128, 2, ("float32", "bfloat16", "int8"), True),
             (32, 64, 128, 8, ("bfloat16",), True),
-            (4, 32, 64, 32, ("bfloat16",), False)):
+            (4, 32, 64, 32, ("bfloat16",), False),
+            (4, *ARCTIC_WIDTH, ("bfloat16", "int8"), False),
+            (12, *ARCTIC_WIDTH, ("bfloat16", "int8"), True)):
         split = kern.decode_split(B, Hkv, L, H // Hkv, kern._sm_count(
             torch.cuda.current_device()))
         for pool in pools:
@@ -475,39 +516,42 @@ def flash_cases(torch, flash):
     """The static engine's prefill attention at qwen2.5-3b's width (B=4,
     H=16, dh=128; Hkv 2 and 16), causal and full: bf16 and f16 (the
     tensor-core tiles) for prompts of 1, 17, 64, 256, 512 and 300 tokens,
-    f32 (the FMA body) for 256, 512 and 300. SDPA (enable_gqa) is the
+    f32 (the FMA body) for 256, 512 and 300; then arctic-480b's width (H=56,
+    Hkv=8, group 7) in bf16 at 512, 300 and 17. SDPA (enable_gqa) is the
     yardstick."""
     import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, DH = 4, 16, 128
-    for S in (256, 512, 300, 1, 17, 64):
-        for Hkv in (2, 16):
-            for dt in (("float32",) if S >= 256 else ()) + ("bfloat16",
-                                                            "float16"):
-                tdt = getattr(torch, dt)
-                q, k, v = (torch.randn((B, S, h, DH), generator=g,
-                                       device=dev).to(tdt)
-                           for h in (H, Hkv, Hkv))
-                for causal in (True, False):
-                    pairs = S * (S + 1) // 2 if causal else S * S
-                    yield ("flash_attention",
-                           f"group={H // Hkv} {dt} S={S} "
-                           f"{'causal' if causal else 'full'}",
-                           dt,
-                           lambda q=q, k=k, v=v, c=causal:
-                               flash.flash_attention(q, k, v, causal=c),
-                           lambda q=q, k=k, v=v, c=causal:
-                               flash.flash_attention_plain(q, k, v,
-                                                           causal=c),
-                           lambda q=q, k=k, v=v, c=causal:
-                               F.scaled_dot_product_attention(
-                                   q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), is_causal=c,
-                                   enable_gqa=True),
-                           (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                           4 * B * H * DH * pairs,
-                           1e-4 if dt == "float32" else 2e-2)
+    widths = [(S, H, Hkv, dt) for S in (256, 512, 300, 1, 17, 64)
+              for Hkv in (2, 16)
+              for dt in (("float32",) if S >= 256 else ()) + ("bfloat16",
+                                                              "float16")]
+    widths += [(S, ARCTIC_WIDTH[0], ARCTIC_WIDTH[2], "bfloat16")
+               for S in (512, 300, 17)]
+    for S, H, Hkv, dt in widths:
+        tdt = getattr(torch, dt)
+        q, k, v = (torch.randn((B, S, h, DH), generator=g,
+                               device=dev).to(tdt)
+                   for h in (H, Hkv, Hkv))
+        for causal in (True, False):
+            pairs = S * (S + 1) // 2 if causal else S * S
+            yield ("flash_attention",
+                   f"group={H // Hkv} {dt} S={S} "
+                   f"{'causal' if causal else 'full'}",
+                   dt,
+                   lambda q=q, k=k, v=v, c=causal:
+                       flash.flash_attention(q, k, v, causal=c),
+                   lambda q=q, k=k, v=v, c=causal:
+                       flash.flash_attention_plain(q, k, v, causal=c),
+                   lambda q=q, k=k, v=v, c=causal:
+                       F.scaled_dot_product_attention(
+                           q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), is_causal=c,
+                           enable_gqa=True),
+                   (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                   4 * B * H * DH * pairs,
+                   1e-4 if dt == "float32" else 2e-2)
 
 
 def check_kernels(torch, kern, flash):
@@ -551,14 +595,14 @@ def check_kernels(torch, kern, flash):
 
 # ------------------------------ phase 4 --------------------------------- #
 
-def requests(vocab: int):
-    """16 prompts of 64-448 tokens from a fixed seed; 8 of them open with
-    one shared 128-token document."""
+def requests(vocab: int, n_reqs: int = 16):
+    """``n_reqs`` prompts of 64-448 tokens from a fixed seed; every other
+    one opens with one shared 128-token document."""
     import numpy as np
     rng = np.random.default_rng(0)
     doc = rng.integers(1, vocab, size=128).tolist()
     reqs = []
-    for i in range(16):
+    for i in range(n_reqs):
         if i % 2 == 0:
             n = int(rng.integers(160, 449))
             reqs.append(doc + rng.integers(1, vocab, size=n - 128).tolist())
@@ -736,9 +780,12 @@ def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
     return runs, counts
 
 
-def profile_decode_block(torch, tm, cfg, params):
+def profile_decode_block(torch, tm, cfg, params, name="decode block",
+                         ops=(), no_sync=False):
     """Where a fused paged decode block's time goes: one K=8 block over 8
-    slots holding 300 cached tokens each, at full width."""
+    slots holding 300 cached tokens each, at full width; the device time of
+    the PyTorch ops in ``ops``. With ``no_sync`` the block then runs once
+    more under sync debug mode "error": no host sync inside it."""
     opts = tm.RuntimeOptions(dtype="bfloat16")
     B, K = 8, 8
     n_pp = -(-MAX_LEN // PS)
@@ -751,8 +798,17 @@ def profile_decode_block(torch, tm, cfg, params):
     def block():
         tm.decode_steps_paged(cfg, params, tok, lens, pt, cache, K, opts)
         torch.cuda.synchronize()
-    return profile_block(torch, block, f"decode block K={K} B={B} len=300",
-                         paged_passes=True)
+    res = profile_block(torch, block, f"{name} K={K} B={B} len=300",
+                        paged_passes=True, ops=ops)
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tm.decode_steps_paged(cfg, params, tok, lens, pt, cache, K, opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"{name} K={K}: no host sync inside it")
+    return res
 
 
 def profile_chunk_block(torch, tm, cfg, params):
@@ -878,12 +934,14 @@ def profile_static_block(torch, tm, cfg, params, cache_dtype=""):
 
 
 def profile_block(torch, block, label, chunk_pass2=False,
-                  paged_passes=False):
+                  paged_passes=False, ops=()):
     """Device busy time of one call of ``block`` is the sum of the kernels
     torch.profiler records; the wall time is taken without the profiler
     (median of 5). The port's attention kernels live in the namespace
     ``repro_paged``. With ``paged_passes`` (a block whose only attention
-    is the paged decode) its pass 1 and its combine are reported apart."""
+    is the paged decode) its pass 1 and its combine are reported apart.
+    For each PyTorch op named in ``ops`` (e.g. ``aten::bmm``), the device
+    time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     block()
@@ -934,7 +992,15 @@ def profile_block(torch, block, label, chunk_pass2=False,
             log(f"  paged decode {part}: {n_launch} x "
                 f"{passes[part]['mean_us']:.2f}us = {ms:.3f}ms "
                 f"({100 * ms / busy_ms:.1f}% of busy)")
+    op_ms = {}
+    for name in ops:
+        op_ms[name] = sum(k.duration for e in prof.events()
+                          if e.device_type == DeviceType.CPU
+                          and e.name == name for k in e.kernels) / 1e3
+        log(f"  {name}: {op_ms[name]:.3f}ms "
+            f"({100 * op_ms[name] / busy_ms:.1f}% of busy)")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, paged=passes,
+                op_ms=op_ms,
                 busy_share=busy_ms / wall_ms, attention_ms=attn,
                 chunk_ms=chunk, chunk_share=chunk / busy_ms,
                 top=[dict(name=n, ms=v) for n, v in top],
@@ -1102,6 +1168,225 @@ def tie_free_prefix(torch, tm, cfg, params, opts, prompt, out, gap=1e-4):
     return int(near[0, 0]) if len(near) else len(out)
 
 
+# ------------------------------ phase 7 --------------------------------- #
+
+def n_prefill_chunks(eng) -> int:
+    """Prefill chunks the continuous engine ran in its last serve (its
+    trace records one span each)."""
+    return sum(e.get("name") == "prefill_chunk"
+               for e in eng.trace.to_chrome()["traceEvents"])
+
+
+def arctic_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
+               label, scheduler, new, **kw):
+    """One full-width bf16 serve of ``reqs`` on arctic-480b, twice: the two
+    runs must emit the same tokens. The continuous engine runs its streams
+    serialized (``overlap=False``): overlapped, a decode block's slots
+    depend on measured wall times, and under capacity routing the tokens
+    a step holds decide which replicas drop. Each run must launch its
+    path's kernels exactly n_layers times a micro-step, prefill chunk,
+    verify pass or static wave (counts set to 0 just before it), call no
+    plain version, reconcile its trace (continuous), free every page and
+    emit in-vocabulary tokens. Returns (launches of the first run, the
+    runs' rows)."""
+    from repro_torch.kernels import flash_attention as flash
+    L = cfg.n_layers
+    outs, runs = [], []
+    for _ in range(2):
+        if scheduler == "static":
+            eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
+                              device="cuda", scheduler="static",
+                              decode_lookahead=8, max_len=QWEN_MAX_LEN, **kw)
+        else:
+            eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
+                              device="cuda", scheduler="continuous",
+                              page_size=PS, max_batch=8, prefill_chunk=C,
+                              decode_lookahead=8, max_len=MAX_LEN,
+                              overlap=False, **kw)
+        zero_counts(kern)
+        with count_plain(kern, flash) as plain:
+            t0 = time.perf_counter()
+            out = eng.serve([r[:] for r in reqs], new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = read_counts(kern)
+        s = eng.stats
+        if scheduler == "static":
+            waves = len({len(r) for r in reqs})
+            check(s.decode_steps == waves * new, f"{label}: "
+                  f"{s.decode_steps} micro-steps, not {new} a wave")
+            want = dict(paged_decode_attention=0, chunk_prefill_attention=0,
+                        spec_verify_attention=0,
+                        decode_attention=L * s.decode_steps,
+                        flash_attention=L * waves)
+        else:
+            check(eng.trace_report["ok"], f"{label}: trace did not reconcile")
+            check(eng.kv_manager.n_used == 0, f"{label}: pages leaked")
+            want = dict(paged_decode_attention=L * (s.decode_steps
+                                                    - s.spec_blocks),
+                        chunk_prefill_attention=L * n_prefill_chunks(eng),
+                        spec_verify_attention=L * s.spec_blocks,
+                        decode_attention=0, flash_attention=0)
+        check(n == want, f"{label}: launches {n} != {want}")
+        check(not plain, f"{label}: plain versions called on the card: "
+              f"{plain}")
+        check(all(len(o) == new and all(0 <= t < cfg.vocab for t in o)
+                  for o in out), f"{label}: malformed outputs")
+        outs.append(out)
+        runs.append(dict(
+            tokens_per_s=s.tps, ttft_p50_ms=s.ttft_p50 * 1e3,
+            ttft_p95_ms=s.ttft_p95 * 1e3, itl_p50_ms=s.itl_p50 * 1e3,
+            itl_p95_ms=s.itl_p95 * 1e3, prefill_s=s.prefill_s,
+            decode_s=s.decode_s, host_syncs=s.host_syncs,
+            decode_steps=s.decode_steps, spec_blocks=s.spec_blocks,
+            acceptance=s.acceptance_rate, decode_compiles=s.decode_compiles,
+            prefill_tokens_saved=s.cached_prefix_tokens, wall_s=wall,
+            launches=n))
+        log(f"arctic {label:16s} tokens/s={s.tps:.1f} "
+            f"ttft p50={s.ttft_p50*1e3:.1f}ms itl p50={s.itl_p50*1e3:.2f}ms "
+            f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
+            f"host_syncs={s.host_syncs} decode_steps={s.decode_steps} "
+            f"verify={s.spec_blocks} accept={s.acceptance_rate:.3f} "
+            f"saved={s.cached_prefix_tokens} launches "
+            + " ".join(f"{k.split('_')[0]}={v}" for k, v in n.items())
+            + f" wall={wall:.1f}s")
+    check(outs[0] == outs[1], f"{label}: a repeated run emitted other "
+          f"tokens")
+    return runs[0]["launches"], dict(runs=runs)
+
+
+def moe_on_card(torch, tm, cfg, params):
+    """The MoE FFN on the card: at one full-width layer and a decode step's
+    T=8 tokens, the ragged path against the capacity path at
+    capacity_factor = E (nothing drops) in bf16; the capacity path at T=8
+    and T=64 with no host sync (sync debug mode "error"); and on the
+    reduced twin in f32 against the same function on the CPU (same expert
+    ids, outputs within 1e-5). Returns the measurements."""
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.models import moe as tmoe
+    p = _layer(params["stack"], 0)["moe"]
+    E, d = cfg.moe.n_experts, cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x8 = torch.randn((1, 8, d), generator=g, device="cuda").bfloat16()
+    cap, _ = tmoe.moe_ffn(p, x8, cfg, capacity_factor=float(E))
+    rag, _ = tmoe.moe_ffn(p, x8, cfg, impl="ragged")
+    rag_err = float((cap.float() - rag.float()).abs().max())
+    scale = float(rag.float().abs().max())
+    # two bf16 ulps at the output's largest magnitude: the two paths round
+    # the same products to bf16 after summing them in other orders
+    rag_tol = 2 * 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+    check(rag_err <= rag_tol, f"MoE ragged vs capacity (cf=E) at T=8: "
+          f"{rag_err:.3g} > {rag_tol:.3g}")
+    ms = {}
+    for T in (8, 64):
+        x = torch.randn((1, T, d), generator=g, device="cuda").bfloat16()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = tmoe.moe_ffn(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(y).all()), f"MoE output at T={T} is not "
+              f"finite")
+        ms[T] = median_ms(torch, lambda p=p, x=x: tmoe.moe_ffn(p, x, cfg),
+                          iters=10)
+    # the bytes one layer's capacity dispatch must read: every expert's
+    # weights (C >= 1 for each of the E experts), the router and the
+    # dense residual
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(p))
+    log(f"MoE ffn full width: ragged vs capacity (cf=E) T=8 max err "
+        f"{rag_err:.3g} (tol {rag_tol:.3g}, |out| max {scale:.3g}); no host "
+        f"sync at T=8, 64; one layer {ms[8]:.3f}ms (T=8), {ms[64]:.3f}ms "
+        f"(T=64) for {w_bytes / 1e9:.2f} GB of weights "
+        f"(bound {w_bytes / HBM_BYTES_PER_S * 1e3:.3f}ms)")
+
+    small = reduced(cfg, d_model=64)
+    sp = tm.init_params(small, torch.Generator().manual_seed(0), "float32",
+                        "cpu")
+    p32 = _layer(sp["stack"], 0)["moe"]
+    x = torch.randn((1, 64, 64), generator=torch.Generator().manual_seed(1))
+    x = x + torch.randn((64,), generator=torch.Generator().manual_seed(2))
+    outs, ids = {}, {}
+    for dev in ("cpu", "cuda"):
+        pd, xd = _to(p32, dev), x.to(dev)
+        ids[dev] = tmoe._route(pd, xd.reshape(64, 64), small.moe.top_k)[-1]
+        outs[dev] = tmoe.moe_ffn(pd, xd, small)[0].cpu()
+    check(torch.equal(ids["cuda"].cpu(), ids["cpu"]),
+          "MoE routing differs card vs CPU (reduced twin, f32)")
+    cpu_err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    check(cpu_err <= 1e-5, f"MoE card vs CPU (reduced twin, f32): "
+          f"{cpu_err:.3g} > 1e-5")
+    log(f"MoE ffn reduced twin f32: card == CPU routing, max err "
+        f"{cpu_err:.2e} (tol 1e-5)")
+    return dict(ragged_vs_capacity_err=rag_err, ragged_tol=rag_tol,
+                out_max=scale, layer_ms_t8=ms[8], layer_ms_t64=ms[64],
+                layer_weight_bytes=w_bytes, cpu_err=cpu_err)
+
+
+def serve_arctic(torch, kern, tm, ServeEngine, get_config):
+    """arctic-480b at full width but 2 of 35 layers (the only cut), bf16,
+    the port's seeded init: the continuous engine (native, int8, n-gram
+    k=4) and the static engine (native, int8); the MoE FFN on the card;
+    one decode block profiled."""
+    full = get_config("arctic-480b")
+    cfg = dataclasses.replace(full, n_layers=ARCTIC_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "bfloat16", "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    per_layer = sum(t[0].numel() for t in _leaves(params["stack"]))
+    log(f"arctic-480b: depth cut {full.n_layers} -> {cfg.n_layers} layers, "
+        f"width as published (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff_expert "
+        f"{cfg.moe.d_ff_expert}, dense residual {cfg.moe.d_ff_dense}, vocab "
+        f"{cfg.vocab}): {per_layer / 1e9:.2f} B parameters a layer, "
+        f"{n_params / 1e9:.2f} B in all, "
+        f"{(torch.cuda.memory_allocated() - before) / 1e9:.1f} GB on the "
+        f"card ({before / 1e9:.2f} GB held before), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    reqs = requests(cfg.vocab, ARCTIC_REQS)
+    static_reqs = qwen_requests(cfg.vocab)
+    runs, launches = {}, {}
+    for label, sched, new, kw in (
+            ("native", "continuous", ARCTIC_NEW, {}),
+            ("int8", "continuous", ARCTIC_NEW, dict(kv_policy="int8")),
+            ("ngram", "continuous", ARCTIC_NEW,
+             dict(spec_mode="ngram", spec_k=4)),
+            ("static native", "static", ARCTIC_STATIC_NEW, {}),
+            ("static int8", "static", ARCTIC_STATIC_NEW,
+             dict(kv_policy="int8"))):
+        launches[label], runs[label] = arctic_run(
+            torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
+            static_reqs if sched == "static" else reqs, label, sched, new,
+            **kw)
+    moe = moe_on_card(torch, tm, cfg, params)
+    # the expert products are the block's only batched matmuls
+    block = profile_decode_block(torch, tm, cfg, params, "arctic decode block",
+                                 ops=("aten::bmm",), no_sync=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, moe=moe, decode_block=block,
+                n_layers=cfg.n_layers, params=n_params), launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _layer(tree, i):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1255,6 +1540,10 @@ def main() -> None:
     f32_err = f32_checks(torch, tm, ServeEngine, cfg)
     f32_static = f32_static_checks(torch, tm, ServeEngine, qwen)
 
+    # ---- phase 7: arctic-480b (MoE, group 7) on both engines ----
+    arctic, arctic_launches = serve_arctic(torch, kern, tm, ServeEngine,
+                                           get_config)
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -1262,12 +1551,24 @@ def main() -> None:
     # wave. Launches: the spec-off path's for the first two, the
     # speculative path's for the verify entry, the static path's for the
     # last two.
+    # arctic-480b's path adds each kernel at group 7, with the launches of
+    # its own runs (native continuous, n-gram, static native)
     head = {"paged_decode_attention": "group=1 pool=bfloat16",
             "chunk_prefill_attention":
                 "group=1 pool=bfloat16 start=scalar",
             "spec_verify_attention": "group=1 pool=bfloat16 C=5",
             "decode_attention": "group=8 pool=bfloat16 L=545 dh=128",
             "flash_attention": "group=8 bfloat16 S=512 causal"}
+    arctic_head = {
+        "paged_decode_attention": ("group=7 pool=bfloat16 dh=128", "native"),
+        "chunk_prefill_attention":
+            ("group=7 pool=bfloat16 start=scalar dh=128", "native"),
+        "spec_verify_attention": ("group=7 pool=bfloat16 C=5 dh=128",
+                                  "ngram"),
+        "decode_attention": ("group=7 pool=bfloat16 L=545 dh=128",
+                             "static native"),
+        "flash_attention": ("group=7 bfloat16 S=512 causal",
+                            "static native")}
     replaces = {"paged_decode_attention":
                     "src/repro/kernels/decode_attention.py:180",
                 "chunk_prefill_attention":
@@ -1285,15 +1586,19 @@ def main() -> None:
                   spec_verify_attention=kbuild.SOURCES[
                       "chunk_prefill_attention"])
     kernels = []
-    for name, case in head.items():
+    entries = [(name, case, launches[name], "llama3.2-1b/qwen2.5-3b")
+               for name, case in head.items()]
+    entries += [(name, case, arctic_launches[run][name], "arctic-480b")
+                for name, (case, run) in arctic_head.items()]
+    for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source[name]}",
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=n_launch,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], case=case, model=model))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1303,7 +1608,8 @@ def main() -> None:
             static_path_launches=static_launches,
             decode_block=breakdown, chunk_block=chunk_block,
             verify_block=verify_block, static_decode_block=static_breakdown,
-            f32_logit_err=f32_err, f32_static=f32_static,
+            f32_logit_err=f32_err, f32_static=f32_static, arctic=arctic,
+            arctic_launches=arctic_launches,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

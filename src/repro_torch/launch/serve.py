@@ -22,10 +22,14 @@ speculative).
         --reduced --device cpu --scheduler continuous --temperature 0.8 \\
         --top-p 0.9
 
+    # a mixture-of-experts decoder, on either engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \\
+        --reduced --device cpu [--scheduler continuous]
+
 The flags and their destinations are the reference CLI's
 (``repro/launch/serve.py``). What the port does not run yet (``--shards``
-> 1, families and attention masks other than dense causal GQA/MHA) is
-rejected by the engine with ``NotImplementedError``.
+> 1, families and attention masks other than the dense and MoE causal
+GQA/MHA decoders) is rejected by the engine with ``NotImplementedError``.
 """
 from __future__ import annotations
 

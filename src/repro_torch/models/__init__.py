@@ -1,6 +1,6 @@
-"""The port's dense decoder-only LM (PyTorch): the model surfaces of the
-continuous engine (paged KV pool) and of the static engine (dense
-cache)."""
+"""The port's decoder-only LM, dense or mixture-of-experts (PyTorch):
+the model surfaces of the continuous engine (paged KV pool) and of the
+static engine (dense cache)."""
 from repro_torch.models.api import decode_steps, forward, module_for, prefill
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.lm import (RuntimeOptions, copy_pages, decode_step,

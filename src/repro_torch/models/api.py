@@ -2,8 +2,9 @@
 the fused K-step decode over the dense cache (the reference is
 ``repro/models/api.py``).
 
-Only the dense decoder family (``models/lm.py``) is ported; ``module_for``
-raises for the others, naming the ROADMAP.md item that will port them.
+The dense and the mixture-of-experts decoder families run
+(``models/lm.py``); ``module_for`` raises for the others, naming the
+ROADMAP.md item that will port them.
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ from repro_torch.models import lm
 from repro_torch.models import sampling
 from repro_torch.models.lm import RuntimeOptions
 
-_MODS = {"dense": lm}
-_ITEMS = {"moe": 7}         # ROADMAP.md queue A item per unported family
+_MODS = {"dense": lm, "moe": lm}
 
 
 def module_for(cfg: ArchConfig):
@@ -25,7 +25,7 @@ def module_for(cfg: ArchConfig):
     if mod is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A, "
-            f"item {_ITEMS.get(cfg.family, 10)})")
+            f"item 10)")
     return mod
 
 

@@ -3,9 +3,11 @@ engine's chunked prefill, fused K-step decode, speculative verify and
 copy-on-write) and over a dense per-sequence cache (the static engine's
 full-prompt prefill and decode).
 
-The reference is ``repro/models/lm.py`` (its dense GQA/MHA subset).
-Parameters keep its layout: ``params["stack"]`` carries a leading
-``n_layers`` axis and the layer loop indexes it. Unlike the reference, the
+The reference is ``repro/models/lm.py`` (its dense GQA/MHA decoders and
+its mixture-of-experts stacks, whose layers hold a ``moe`` subtree in
+place of ``mlp``: ``models/moe.py``). Parameters keep its layout:
+``params["stack"]`` carries a leading ``n_layers`` axis and the layer
+loop indexes it. Unlike the reference, the
 caches are updated in place: a prefill or decode step writes its KV into
 the cache tensors it was given and returns the same cache dict.
 
@@ -65,7 +67,9 @@ def torch_dtype(name) -> torch.dtype:
 @dataclass(frozen=True)
 class RuntimeOptions:
     dtype: str = "bfloat16"
+    moe_impl: str = "capacity"      # capacity | ragged
     cache_dtype: str = ""           # "" -> same as dtype; "int8" -> quantized
+    capacity_factor: float = 1.25
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -85,18 +89,23 @@ def resolve_device(device) -> torch.device:
 # ------------------------------- params --------------------------------- #
 
 def _init_layer(generator, cfg: ArchConfig, dtype, device):
+    """One layer's norms and attention, and its dense FFN unless the stack
+    is MoE (``init_params`` adds the stacked ``moe`` subtree then)."""
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     b = cfg.qkv_bias
 
     def lin(d_in, d_out, bias=False):
         return cm.dense_init(generator, d_in, d_out, dtype, device, bias=bias)
-    return {
+    p = {
         "ln1": torch.zeros((d,), dtype=dtype, device=device),
         "ln2": torch.zeros((d,), dtype=dtype, device=device),
         "attn": {"wq": lin(d, H * hd, b), "wk": lin(d, Hkv * hd, b),
                  "wv": lin(d, Hkv * hd, b), "wo": lin(H * hd, d)},
-        "mlp": moe_mod.init_dense_ffn(generator, cfg, cfg.d_ff, dtype, device),
     }
+    if cfg.moe is None:
+        p["mlp"] = moe_mod.init_dense_ffn(generator, cfg, cfg.d_ff, dtype,
+                                          device)
+    return p
 
 
 def _stack(trees):
@@ -122,6 +131,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
                                         device=device)}
     params["stack"] = _stack([_init_layer(generator, cfg, dtype, device)
                               for _ in range(cfg.n_layers)])
+    if cfg.moe is not None:
+        params["stack"]["moe"] = moe_mod.init_moe(generator, cfg,
+                                                  cfg.n_layers, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(generator, cfg.d_model, cfg.vocab,
                                           dtype, device,
@@ -138,7 +150,12 @@ def _layer(tree, i: int):
 
 # ------------------------------- layers --------------------------------- #
 
-def _ffn_apply(p, x, cfg: ArchConfig):
+def _ffn_apply(p, x, cfg: ArchConfig, opts: RuntimeOptions):
+    """The layer's FFN: the MoE FFN (its aux losses dropped: serving has
+    no use for them) or the dense one."""
+    if "moe" in p:
+        return moe_mod.moe_ffn(p["moe"], x, cfg, impl=opts.moe_impl,
+                               capacity_factor=opts.capacity_factor)[0]
     return moe_mod.dense_ffn(p["mlp"], x, cfg.gated_mlp)
 
 
@@ -168,16 +185,19 @@ def _embed_tokens(cfg, params, tokens, prefix_emb=None):
 
 
 def _family_supported(cfg: ArchConfig) -> Optional[str]:
-    """None for a dense GQA/MHA decoder; else why not, naming the
-    ROADMAP.md item that will port it."""
+    """None for a dense or MoE GQA/MHA decoder whose layers all share one
+    shape; else why not, naming the ROADMAP.md item that will port it."""
     if cfg.mla is not None:
         return ("MLA latent caches are not ported yet (ROADMAP.md queue A, "
                 "item 10)")
-    if cfg.moe is not None or cfg.family == "moe":
-        return "the MoE FFN is not ported yet (ROADMAP.md queue A, item 7)"
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         return (f"family {cfg.family!r} is not ported yet (ROADMAP.md queue "
                 f"A, item 10)")
+    if cfg.moe is not None and cfg.moe.first_dense:
+        # the reference's paged path refuses its unscanned prefix layers
+        # too; only deepseek-v2 has them, and it is MLA
+        return ("dense prefix layers before the MoE stack (moe.first_dense) "
+                "are not ported yet (ROADMAP.md queue A, item 10)")
     return None
 
 
@@ -245,13 +265,38 @@ def _quantize_with(val, scale):
                        -127, 127)
 
 
-def _write_kv(pool, flat, vals):
-    """In-place scatter of ``vals`` (N, Hkv, dh) into pool rows ``flat``
-    (N,) of the (P * ps, Hkv, dh) view — the reference's ``.at[].set``
-    on a donated buffer. Duplicate indices only ever target the null
-    page, which nobody reads unmasked."""
-    P, ps = pool.shape[:2]
-    pool.view(P * ps, *pool.shape[2:]).index_copy_(0, flat.long(), vals)
+def _kv_rows(page_table, positions, page_size: int):
+    """Where a step writes its KV, the same for every layer: pool rows
+    ``flat`` (B*C,) of the (P * ps) view for absolute ``positions`` (B, C)
+    through ``page_table`` (positions past the table land on the null page,
+    clipped explicitly: a gather past the table's end must not read out of
+    bounds), and for each write the index of the last write to its row.
+
+    Duplicate rows only ever lie on the null page, which no real row reads
+    unmasked; but a step's padding rows (inactive and latched slots, pad
+    positions) do read it, and under MoE capacity routing they compete
+    with the real rows for expert slots. So each duplicate writes the
+    value of its last occurrence, as a sequential scatter leaves it, and
+    the pool is the same after every run, on the card too (a parallel
+    scatter leaves an arbitrary writer)."""
+    n_pp = page_table.shape[1]
+    blk = positions // page_size
+    pid = torch.gather(page_table, 1, blk.clamp(max=n_pp - 1).long())
+    pid = torch.where(blk < n_pp, pid, 0)
+    flat = (pid * page_size + positions % page_size).reshape(-1).long()
+    idx = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.where(flat[:, None] == flat[None, :], idx, -1).amax(dim=1)
+    return flat, last
+
+
+def _write_kv(kp, vp, rows, k, v):
+    """In-place scatter of ``k`` and ``v`` (N, Hkv, dh) into the pool rows
+    ``rows`` of ``_kv_rows`` — the reference's ``.at[].set`` on a donated
+    buffer."""
+    flat, last = rows
+    P, ps = kp.shape[:2]
+    for pool, vals in ((kp, k), (vp, v)):
+        pool.view(P * ps, *pool.shape[2:]).index_copy_(0, flat, vals[last])
 
 
 def _project_qkv(p, x, cfg: ArchConfig, rope):
@@ -265,11 +310,12 @@ def _project_qkv(p, x, cfg: ArchConfig, rope):
 
 
 def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
-                      page_table, start, n_valid, *, calibrate: bool,
+                      page_table, rows, start, n_valid, *, calibrate: bool,
                       n_fed=None):
     """Chunk attention against pooled KV pages. x: (B, C, d).
 
-    Scatters the chunk's KV into the pages covering ``positions`` first,
+    Scatters the chunk's KV into the pool rows ``rows`` (``_kv_rows`` of
+    ``positions``) first,
     then attends causally (by absolute position) across every page the
     sequence owns — previously cached prefix pages included. ``n_fed``
     (B,) marks a speculative verify window (``start`` = seq_lens) and
@@ -280,8 +326,6 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
     q, k, v = _project_qkv(p, x, cfg, rope)
     quant = "k_scale" in cache_layer
     kp, vp = cache_layer["k"], cache_layer["v"]
-    ps = kp.shape[1]
-    n_pp = page_table.shape[1]
 
     if quant:
         if calibrate:
@@ -299,15 +343,9 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
         ksc = vsc = None
         k_store, v_store = k.to(kp.dtype), v.to(vp.dtype)
 
-    # scatter the chunk's KV at absolute positions [start, start + C); pad
-    # positions past the table land on the null page (clipped explicitly:
-    # a gather past the table's end must not read out of bounds)
-    blk = positions // ps
-    pid = torch.gather(page_table, 1, blk.clamp(max=n_pp - 1).long())
-    pid = torch.where(blk < n_pp, pid, 0)                          # (B, C)
-    flat = (pid * ps + positions % ps).reshape(-1)
-    _write_kv(kp, flat, k_store.reshape(B * C, *k_store.shape[2:]))
-    _write_kv(vp, flat, v_store.reshape(B * C, *v_store.shape[2:]))
+    # scatter the chunk's KV at absolute positions [start, start + C)
+    _write_kv(kp, vp, rows, k_store.reshape(B * C, *k_store.shape[2:]),
+              v_store.reshape(B * C, *v_store.shape[2:]))
 
     if n_fed is not None:
         out = kern.spec_verify_attention(q, kp, vp, page_table, start, n_fed,
@@ -340,12 +378,13 @@ def prefill_paged_chunk(cfg: ArchConfig, params, tokens, cache, page_table,
     start_b = torch.full((B,), start, dtype=torch.int32, device=x.device)
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     st = cache["stack"]
+    rows = _kv_rows(page_table, positions, st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                  cl, positions, rope, page_table, start_b,
-                                  n_valid, calibrate=calibrate)
-        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+                                  cl, positions, rope, page_table, rows,
+                                  start_b, n_valid, calibrate=calibrate)
+        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
     return _logits(cfg, params, x), cache
 
 
@@ -364,15 +403,16 @@ def copy_pages(cache, pairs):
 
 
 def _paged_decode_attn(p, x, cfg: ArchConfig, cache_layer, seq_lens, rope,
-                       page_table):
-    """Single-token attention against pooled KV pages. x: (B, 1, d)."""
+                       page_table, rows):
+    """Single-token attention against pooled KV pages. x: (B, 1, d); the
+    new token's KV lands in the pool rows ``rows`` (``_kv_rows`` at
+    ``seq_lens``: page ``page_table[b, len // ps]``, offset ``len % ps``;
+    the null page for inactive slots, whose table rows are 0)."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
     quant = "k_scale" in cache_layer
     kp, vp = cache_layer["k"], cache_layer["v"]
-    ps = kp.shape[1]
-    n_pp = page_table.shape[1]
 
     if quant:
         ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
@@ -382,14 +422,7 @@ def _paged_decode_attn(p, x, cfg: ArchConfig, cache_layer, seq_lens, rope,
         ksc = vsc = None
         k_store, v_store = k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype)
 
-    # write the new token's KV at (page_table[b, len // ps], len % ps); the
-    # flat index collapses to the null page for inactive slots (pt == 0)
-    blk = (seq_lens // ps)[:, None]
-    pid = torch.gather(page_table, 1, blk.clamp(max=n_pp - 1).long())[:, 0]
-    pid = torch.where(blk[:, 0] < n_pp, pid, 0)
-    flat = pid * ps + seq_lens % ps                                 # (B,)
-    _write_kv(kp, flat, k_store)
-    _write_kv(vp, flat, v_store)
+    _write_kv(kp, vp, rows, k_store, v_store)
 
     out = kern.paged_decode_attention(q[:, 0], kp, vp, page_table,
                                       seq_lens + 1, scale=hd ** -0.5,
@@ -409,11 +442,12 @@ def decode_step_paged(cfg: ArchConfig, params, token, seq_lens, page_table,
     x = _embed_tokens(cfg, params, token[:, None])
     rope = cm.rope_cos_sin(seq_lens[:, None], cfg.head_dim)
     st = cache["stack"]
+    rows = _kv_rows(page_table, seq_lens[:, None], st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                   cl, seq_lens, rope, page_table)
-        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+                                   cl, seq_lens, rope, page_table, rows)
+        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
     return _logits(cfg, params, x)[:, 0], cache
 
 
@@ -517,12 +551,14 @@ def decode_verify_paged(cfg: ArchConfig, params, tokens, seq_lens, n_fed,
                                                  device=x.device)
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     st = cache["stack"]
+    rows = _kv_rows(page_table, positions, st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                  cl, positions, rope, page_table, seq_lens,
-                                  n_valid, calibrate=False, n_fed=n_fed)
-        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+                                  cl, positions, rope, page_table, rows,
+                                  seq_lens, n_valid, calibrate=False,
+                                  n_fed=n_fed)
+        x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
     return _logits(cfg, params, x), cache
 
 
@@ -597,13 +633,14 @@ def _attn_apply(p, x, cfg: ArchConfig, rope):
     return cm.dense(p["wo"], out.reshape(B, S, H * hd)), (k, v)
 
 
-def _block(lp, x, cfg: ArchConfig, rope):
+def _block(lp, x, cfg: ArchConfig, rope, opts: RuntimeOptions):
     h, kv = _attn_apply(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg, rope)
     x = x + h
-    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg), kv
+    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts), kv
 
 
-def _hidden(cfg: ArchConfig, params, tokens, prefix_emb=None):
+def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
+            prefix_emb=None):
     """The final residual stream (B, P + S, d) of a full-prompt forward
     (``prefix_emb`` (B, P, d) prepended) and every layer's (k, v)."""
     reason = static_supported(cfg)
@@ -615,7 +652,7 @@ def _hidden(cfg: ArchConfig, params, tokens, prefix_emb=None):
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     kvs = []
     for i in range(cfg.n_layers):
-        x, kv = _block(_layer(params["stack"], i), x, cfg, rope)
+        x, kv = _block(_layer(params["stack"], i), x, cfg, rope, opts)
         kvs.append(kv)
     return x, kvs
 
@@ -629,7 +666,7 @@ def forward(cfg: ArchConfig, params, tokens,
     ``collect_kv``: one (k, v) pair of (B, P + S, Hkv, dh) per layer, k
     rotated (the reference returns the same pairs stacked on a leading
     layer axis)."""
-    x, kvs = _hidden(cfg, params, tokens, prefix_emb)
+    x, kvs = _hidden(cfg, params, tokens, opts, prefix_emb)
     logits = _logits(cfg, params, x)
     return (logits, kvs) if collect_kv else logits
 
@@ -663,7 +700,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     write every layer's KV at positions [0, P + S) of the dense cache in
     place (int8: quantized with fresh per-layer scales from this prompt),
     and return (last-position logits (B, vocab), cache)."""
-    x, kvs = _hidden(cfg, params, tokens, prefix_emb)
+    x, kvs = _hidden(cfg, params, tokens, opts, prefix_emb)
     st = cache["stack"]
     for i, (k, v) in enumerate(kvs):
         if "k_scale" in st:
@@ -696,10 +733,10 @@ def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
 
 
 def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
-                  kv_valid):
+                  kv_valid, opts: RuntimeOptions):
     x = x + _decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
                          cache_layer, pos, rope, kv_valid)
-    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg)
+    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
 
 
 def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
@@ -715,5 +752,5 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
     st = cache["stack"]
     for i in range(cfg.n_layers):
         x = _decode_block(_layer(params["stack"], i), x, cfg, _layer(st, i),
-                          pos, rope, kv_valid)
+                          pos, rope, kv_valid, opts)
     return _logits(cfg, params, x)[:, 0], cache

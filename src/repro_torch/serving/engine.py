@@ -28,9 +28,12 @@ CUDA work is asynchronous, so each timed bracket closes after the host
 pull (or a ``torch.cuda.synchronize()``) that ends it: ``prefill_s``,
 ``decode_s`` and the virtual clock measure kernel time, not launch time.
 
-Not ported yet, and rejected with ``NotImplementedError``: head-sharded
-serving (ROADMAP.md A9) and families or attention masks other than dense
-causal GQA/MHA (A7, A10).
+Both engines serve the dense and the mixture-of-experts decoders (causal
+GQA/MHA attention; the MoE FFN's dispatch is ``RuntimeOptions.moe_impl``,
+capacity-dropped by default as in the reference). Not ported yet, and
+rejected with ``NotImplementedError``: head-sharded serving (ROADMAP.md
+A9) and other families or attention masks, MLA and dense prefix layers
+included (A10).
 """
 from __future__ import annotations
 

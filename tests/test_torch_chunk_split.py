@@ -60,7 +60,7 @@ SPLITS = [8, 16, 24, 40, L, L + 8]
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 @pytest.mark.parametrize("split", SPLITS)
 def test_chunk_split_plain_matches_pallas(split, group, quant):
     rng = np.random.default_rng(split + group)
@@ -81,7 +81,7 @@ def test_chunk_split_plain_matches_pallas(split, group, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 @pytest.mark.parametrize("split", [8, 16])
 def test_verify_split_plain_matches_pallas(split, group, quant):
     """The verify window: per-sequence start, fewer fed tokens than rows,

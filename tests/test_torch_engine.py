@@ -182,7 +182,8 @@ def test_off_path_options_raise(models, arch, kw, item):
 
 
 def test_off_path_families_raise():
-    for arch in ("arctic-480b", "deepseek-v2-236b", "mamba2-130m"):
+    # arctic-480b (MoE) is served since the MoE FFN was ported
+    for arch in ("deepseek-v2-236b", "mamba2-130m"):
         cfg = treduced(tget(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(cfg, device="cpu")

@@ -106,7 +106,7 @@ def test_serve_cli_offload_flags(capsys):
                                    ["--scheduler", "continuous", "--arch",
                                     "deepseek-v2-236b"],
                                    ["--scheduler", "continuous", "--arch",
-                                    "arctic-480b"],
+                                    "mamba2-130m"],
                                    ["--scheduler", "continuous", "--shards",
                                     "2"]])
 def test_serve_cli_rejects_off_path_flags(flags):

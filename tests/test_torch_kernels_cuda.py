@@ -17,6 +17,11 @@ import torch
 import repro_torch.kernels.decode_attention as tk
 import repro_torch.kernels.flash_attention as tkf
 from repro_torch.kernels import build as kbuild
+from repro_torch.configs import get_config
+from repro_torch.configs.reduce import reduced
+from repro_torch.models import moe as tmoe
+from repro_torch.models.lm import init_params
+from torch_kernel_inputs import ARCTIC_WIDTH
 from torch_kernel_inputs import CHUNK_HEADERS
 from torch_kernel_inputs import OLD_PAGED_DECODE_LIB
 from torch_kernel_inputs import PAGED_DECODE_HEADERS
@@ -131,15 +136,17 @@ def test_cuda_launch_counts_and_rejects(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
-                                          (3, 8, 8, 64, 300)])
+                                          (3, 8, 8, 64, 300),
+                                          (4, *ARCTIC_WIDTH, 545)])
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
                                          (torch.bfloat16, False),
                                          (torch.bfloat16, True)])
 def test_cuda_dense_decode_matches_plain(cuda_device, dtype, quant, B, H,
                                          Hkv, dh, L):
-    """The static engine's decode at qwen2.5-3b's width (group 8) and a
-    dh=64 group-1 case: ragged kv_valid from 1 to L, an L that is not a
-    multiple of any tile, keys past kv_valid poisoned."""
+    """The static engine's decode at qwen2.5-3b's width (group 8), at
+    arctic-480b's (group 7) and a dh=64 group-1 case: ragged kv_valid
+    from 1 to L, an L that is not a multiple of any tile, keys past
+    kv_valid poisoned."""
     rng = np.random.default_rng(L)
     dev = dict(device=cuda_device)
     kc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
@@ -220,7 +227,8 @@ def test_cuda_paged_kernels_at_qwen_width(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
                                           (32, 64, 8, 128, 545),
-                                          (7, 8, 8, 64, 300)])
+                                          (7, 8, 8, 64, 300),
+                                          (12, *ARCTIC_WIDTH, 545)])
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
                                          (torch.bfloat16, False),
                                          (torch.float16, False),
@@ -230,7 +238,8 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
     """The split-K decode with kv_valid at 1, L and its splits' boundaries
     +-1: the static path's shape (many splits), B=32 with Hkv=8 (B * Hkv
     alone fills the card: only the 128-key cap splits the cache), a dh=64
-    group-1 case. Keys past kv_valid are poisoned; two calls are bitwise
+    group-1 case, arctic-480b's group 7. Keys past kv_valid are poisoned;
+    two calls are bitwise
     equal."""
     split = tk.decode_split(B, Hkv, L, H // Hkv,
                             tk._sm_count(torch.cuda.current_device()))
@@ -264,13 +273,14 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 17, 64, 300])
-@pytest.mark.parametrize("H,Hkv,dh", [(16, 2, 128), (8, 8, 64), (12, 4, 64)])
+@pytest.mark.parametrize("H,Hkv,dh", [(16, 2, 128), (8, 8, 64), (12, 4, 64),
+                                      ARCTIC_WIDTH])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
                                                   H, Hkv, dh, S):
-    """The tensor-core flash tiles at both head widths and groups 8, 1 and
-    3, at prompt lengths shorter than a tile, one tile, and not a multiple
+    """The tensor-core flash tiles at both head widths and groups 8, 1, 3
+    and 7, at prompt lengths shorter than a tile, one tile, and not a multiple
     of either the 64-row or the 64-key tile; causal and full; bitwise
     repeatable."""
     rng = np.random.default_rng(S + H + dh)
@@ -339,7 +349,8 @@ def _poison_past(kp, vp, pt, limits, ps, quant):
             vp[page, off] = -127 if quant else float("nan")
 
 
-PAGED_TC_WIDTHS = [(32, 32, 64), (8, 2, 64), (16, 2, 128)]   # groups 1, 4, 8
+# groups 1, 4, 8 and 7
+PAGED_TC_WIDTHS = [(32, 32, 64), (8, 2, 64), (16, 2, 128), ARCTIC_WIDTH]
 # bf16/f16 round P to the input dtype for the tensor-core value product
 # (the plain version keeps it in f32): one ulp of the output; f32 runs the
 # FMA body in f32
@@ -352,7 +363,7 @@ PAGED_TC_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2,
 @pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
 def test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool):
     """The chunk on its tensor-core tiles (bf16/f16/int8 pools; f32 on the
-    FMA body) at groups 1, 4 and 8 and head_dim 64 and 128: the last row's
+    FMA body) at groups 1, 4, 8 and 7 and head_dim 64 and 128: the last row's
     frontier one key before, on and past a split edge, right-padded
     chunks, keys past each chunk's frontier poisoned; bitwise repeatable."""
     rng = np.random.default_rng(H + dh)
@@ -431,7 +442,7 @@ def _stale_tails(pt, seq_lens, ps, n_pages):
 @pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
 def test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
                                                    pool):
-    """The paged decode split over pages, at groups 1, 4 and 8 and head_dim
+    """The paged decode split over pages, at groups 1, 4, 8 and 7 and head_dim
     64 and 128: seq_lens at 1, the full table and every split edge +-1
     (B=16 sequences a call, the edges over as many calls as they need);
     stale table entries and the keys past each sequence poisoned (NaN;
@@ -485,3 +496,38 @@ def test_cuda_paged_decode_page_sizes(cuda_device, pool, ps):
     got = tk.paged_decode_attention(q, kp, vp, ptt, lt, **kw)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 64])
+def test_cuda_moe_ffn_has_no_host_sync(cuda_device, T):
+    """The capacity dispatch of the MoE FFN (reduced arctic-480b, f32)
+    reads nothing back to the host at a decode step's and a prefill
+    chunk's token count, and agrees with the CPU."""
+    cfg = reduced(get_config("arctic-480b"), d_model=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "float32",
+                         "cpu")
+    p = _layer0(params["stack"]["moe"])
+    x = torch.randn((1, T, 64), generator=torch.Generator().manual_seed(T))
+    want, _ = tmoe.moe_ffn(p, x, cfg)
+    pc, xc = _to(p, cuda_device), x.to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = tmoe.moe_ffn(pc, xc, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert all(bool(torch.isfinite(v)) for v in aux.values())
+
+
+def _layer0(tree):
+    if isinstance(tree, dict):
+        return {k: _layer0(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

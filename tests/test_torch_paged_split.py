@@ -73,7 +73,8 @@ def test_paged_split_is_a_function_of_the_shapes():
 
 
 SHAPES = [(8, 32, 576, 1), (8, 2, 576, 8), (1, 1, 16, 1), (1, 2, 576, 8),
-          (64, 8, 4096, 4), (3, 4, 300, 2), (16, 8, 640, 3), (2, 1, 17, 64)]
+          (64, 8, 4096, 4), (3, 4, 300, 2), (16, 8, 640, 3), (2, 1, 17, 64),
+          (8, 8, 576, 7)]                           # arctic-480b: group 7
 
 
 @pytest.mark.parametrize("ps", [1, 5, 16, 256])
@@ -97,7 +98,7 @@ def test_paged_split_whole_pages_cover_the_table(B, Hkv, n_pp_keys, group,
 
 
 @pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
 @pytest.mark.parametrize("quant", [False, True])
 def test_paged_split_plain_matches_pallas_and_plain(quant, group, dh):
     """At every split size of SPLITS, with seq_lens at 1, the full table

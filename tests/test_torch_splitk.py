@@ -92,7 +92,8 @@ def test_splits_past_kv_valid_contribute_exactly_zero(split, quant):
 
 
 SHAPES = [(4, 2, 545, 8), (32, 8, 545, 8), (1, 1, 1, 1), (8, 32, 576, 1),
-          (2, 1, 17, 64), (64, 8, 4096, 4), (3, 4, 300, 2), (16, 2, 640, 8)]
+          (2, 1, 17, 64), (64, 8, 4096, 4), (3, 4, 300, 2), (16, 2, 640, 8),
+          (4, 8, 545, 7)]                           # arctic-480b: group 7
 
 
 @pytest.mark.parametrize("B,Hkv,Lc,group", SHAPES)

@@ -35,6 +35,7 @@ import repro_torch.kernels.decode_attention as tk
 import repro_torch.kernels.flash_attention as tkf
 import repro_torch.launch.serve as tserve
 import repro_torch.models as tm
+import repro_torch.models.lm as tlm
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.reduce import reduced as treduced
 from repro_torch.kernels import build as kbuild
@@ -250,13 +251,14 @@ def _assert_cache(tcache, jcache):
 def test_static_supported_names_roadmap_items():
     assert tm.static_supported(tget("qwen2.5-3b")) is None
     assert tm.static_supported(tget("llama3.2-1b")) is None
+    assert tm.static_supported(tget("arctic-480b")) is None      # MoE
     for arch, item in [("gemma3-1b", "10"), ("paligemma-3b", "10"),
-                       ("deepseek-v2-236b", "10"), ("arctic-480b", "7"),
-                       ("mamba2-130m", "10")]:
+                       ("deepseek-v2-236b", "10"), ("mamba2-130m", "10")]:
         reason = tm.static_supported(tget(arch))
         assert reason and f"item {item}" in reason, (arch, reason)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.module_for(tget("arctic-480b"))
+    assert tm.module_for(tget("arctic-480b")) is tlm
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tm.module_for(tget("mamba2-130m"))
     assert tm.module_for(tget("qwen2.5-3b")).static_supported is \
         tm.static_supported
 

@@ -20,6 +20,12 @@ CHUNK_HEADERS = {"dispatch.cuh", "paged_attention.cuh", "mma_tile.cuh",
                  "split_decode.cuh"}
 
 
+# arctic-480b's attention width (H, Hkv, dh): 56 query heads over 8 KV
+# heads, GQA group 7 (odd and no power of two: the paged decode tiles a
+# group's rows 4 + 3, the tensor-core tiles hold 16 // 7 positions)
+ARCTIC_WIDTH = (56, 8, 128)
+
+
 def t(a):
     """numpy -> a torch tensor that owns a copy of the data."""
     return torch.from_numpy(np.array(a, copy=True))
