@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the result line):
      the flash and chunk libraries' bf16/f16 kernels (cuobjdump -sass),
      which must hold some (64 in each dh=128 flash kernel), and checks
      that the paged decode library is built anew from its split-K header
-     (not the library of its earlier body).
+     (not the library of its earlier body); prints the dense decode's
+     head-width-256 instances (pass 1 and combine: registers, shared
+     memory, spills), which must exist.
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -50,8 +52,13 @@ Phases (any failure exits non-zero before the result line):
      decode (B=8 ragged, B=16 on the split edges), the chunk at a scalar
      and a per-sequence start, the C=5 verify window, dense decode (B=4
      ragged, B=12 on the split edges), and flash (bf16) at S = 17, 300 and
-     512, causal and full. Every kernel entry must give bitwise the same
-     result on a second call.
+     512, causal and full. At the VLM widths: dense decode at
+     llava15-13b's (B=4, H = Hkv = 40, L=1,121, fp16 and int8; B=1 over
+     a 32,256-position cache) and paligemma-3b's (B=4, H=8, Hkv=1,
+     dh=256, L=545, f32/bf16/f16/int8, ragged and at B=12 on the split
+     edges); flash at llava's (B=4, S=1,088, group 1, fp16, causal and
+     full). Every kernel entry must give bitwise the same result on a
+     second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -101,9 +108,31 @@ Phases (any failure exits non-zero before the result line):
      mode "error"), the reduced twin in f32 == the CPU; and one K=8 decode
      block profiled (the expert products' and the attention kernels'
      shares of busy time), then run again with no host sync inside it.
+  8. frees arctic and serves llava15-13b at full width and all 40 layers
+     (fp16, 12.9 B parameters, 25.8 GB) through the static engine's
+     ``generate`` with 576 seeded-normal patch rows before the prompts:
+     (a) B=4 x 512 prompt tokens, 32 new; (b) B=1 x 31,616 prompt tokens
+     (32,192 positions), 64 new; native and int8, each run twice (the
+     same tokens both times), with exactly 40 flash launches a wave, 40
+     dense decode launches a micro-step, no plain version and no masked
+     attention; prints tokens/s, prefill_s, decode_s, peak allocated
+     memory and the decode micro-step against its byte bound; then
+     profiles one K=8 decode block over (b)'s cache, native and int8.
+  9. paligemma-3b at full width (18 layers, bf16): ``generate`` on 4 x
+     (256 patch rows + 256 prompt tokens), 32 new, native and int8, each
+     twice: the masked attention 18 times a wave (prefix-LM), the dense
+     decode at head width 256 18 times a micro-step, flash never.
+  10. gemma3-1b at full width (26 layers, bf16): ``serve_bucketed`` on 4
+     prompts of 1,024 and 4 of 2,048 tokens, 32 new, native and int8,
+     each twice: every attention is the masked attention (soft-capped;
+     26 calls a wave and a micro-step), no kernel launch.
+  11. in f32 at full width cut in depth (llava and paligemma 4 layers,
+     gemma3 6): prefill and decode logits on the card against the CPU,
+     and static K=8 == K=1.
 Then prints the per-kernel JSON line (each kernel at its main-path case
-and at arctic-480b's group 7, with that path's launches) and, last, the
-device JSON line.
+and at arctic-480b's group 7, with that path's launches; the dense
+decode at llava's long context and at paligemma's head width 256, and
+flash at llava's group 1) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -145,6 +174,20 @@ ARCTIC_WIDTH = (56, 128, 8)
 # requests and 32 new tokens on the continuous engine, the static waves'
 # prompts with 16 new tokens on the static one
 ARCTIC_LAYERS, ARCTIC_REQS, ARCTIC_NEW, ARCTIC_STATIC_NEW = 2, 8, 32, 16
+# llava15-13b's attention width (heads, head_dim, kv heads): MHA, group 1;
+# paligemma-3b's: 8 heads over 1 KV head at head width 256
+LLAVA_WIDTH, PALIGEMMA_WIDTH = (40, 128, 40), (8, 256, 1)
+# the VLM phase: llava15-13b at full width and depth, fp16; (a) a wave of 4
+# with 576 patch rows and 512 prompt tokens, 32 new; (b) the paper's long
+# context, one sequence of 576 patch rows and 31,616 prompt tokens (32,192
+# positions), 64 new
+LLAVA_PATCHES = 576
+LLAVA_RUNS = {"a": (4, 512, 32), "b": (1, 31616, 64)}
+# paligemma-3b at full width: 4 x (256 patch rows + 256 prompt tokens), 32
+# new; gemma3-1b at full width: serve_bucketed on 4 prompts of 1,024 and 4
+# of 2,048 tokens (past its 512-token window), 32 new
+PALIGEMMA_RUN = (4, 256, 256, 32)
+GEMMA_PROMPTS, GEMMA_NEW = (1024, 2048), 32
 
 
 def log(msg: str) -> None:
@@ -195,24 +238,31 @@ def ptxas_entries(text: str) -> dict:
             for part in text.split("Compiling entry function '")[1:]}
 
 
+def pass_ptxas(ents: dict, label: str, keep=lambda name: True) -> dict:
+    """Registers, shared memory and spills of the split kernels' pass 1 and
+    combine among the ptxas entries ``ents`` whose names pass ``keep``."""
+    report = {}
+    for part, pick in (("pass 1", lambda n: "combine" not in n),
+                       ("combine", lambda n: "combine" in n)):
+        sel = [v for n, v in ents.items() if keep(n) and pick(n)]
+        report[part] = dict(
+            kernels=len(sel), registers=[min((v[0] for v in sel), default=0),
+                                         max((v[0] for v in sel), default=0)],
+            smem_max=max((v[1] for v in sel), default=0),
+            spill_max=max((v[2] for v in sel), default=0))
+        log(f"ptxas {label} {part}: {len(sel)} kernels, registers "
+            f"{report[part]['registers'][0]}-{report[part]['registers'][1]}"
+            f", smem max {report[part]['smem_max']} B, spill stores max "
+            f"{report[part]['spill_max']} B")
+    return report
+
+
 def paged_ptxas(kbuild) -> dict:
     """The paged decode library's pass-1 and combine kernels: registers,
     shared memory and spills, and the main path's pass-1 instance (bf16
     queries over a bf16 pool, dh=64, one row a block)."""
     ents = ptxas_entries(kbuild.build_log("paged_decode_attention"))
-    report = {}
-    for label, pick in (("pass 1", lambda n: "combine" not in n),
-                        ("combine", lambda n: "combine" in n)):
-        sel = [v for n, v in ents.items() if pick(n)]
-        report[label] = dict(
-            kernels=len(sel), registers=[min((v[0] for v in sel), default=0),
-                                         max((v[0] for v in sel), default=0)],
-            smem_max=max((v[1] for v in sel), default=0),
-            spill_max=max((v[2] for v in sel), default=0))
-        log(f"ptxas paged decode {label}: {len(sel)} kernels, registers "
-            f"{report[label]['registers'][0]}-{report[label]['registers'][1]}"
-            f", smem max {report[label]['smem_max']} B, spill stores max "
-            f"{report[label]['spill_max']} B")
+    report = pass_ptxas(ents, "paged decode")
     main = [v for n, v in ents.items()
             if "paged_split_kernelI13__nv_bfloat16S2_Li64ELi1E" in n]
     if main:
@@ -221,6 +271,16 @@ def paged_ptxas(kbuild) -> dict:
         log(f"ptxas paged decode pass 1, main path (bf16/bf16, dh=64, 1 row):"
             f" {main[0][0]} registers, {main[0][1]} B smem + the split's "
             f"rows, {main[0][2]} B spill stores")
+    return report
+
+
+def dense_ptxas(kbuild) -> dict:
+    """The dense decode library's instances at head width 256 (pass 1 and
+    its combine), which must exist."""
+    report = pass_ptxas(ptxas_entries(kbuild.build_log("decode_attention")),
+                        "dense decode dh=256", lambda n: "Li256E" in n)
+    check(report["pass 1"]["kernels"] and report["combine"]["kernels"],
+          "the dense decode library has no head-width-256 instances")
     return report
 
 
@@ -267,6 +327,7 @@ def kernel_cases(torch, kern, flash):
                            chunk_edges=False)
     yield from dense_decode_cases(torch, kern)
     yield from flash_cases(torch, flash)
+    yield from vlm_kernel_cases(torch, kern, flash)
 
 
 def paged_cases(torch, kern, H, DH, Hkv,
@@ -452,6 +513,45 @@ def decode_boundaries(B, L, split):
     return [vals[i % len(vals)] for i in range(B)]
 
 
+def _dense_decode_case(torch, kern, g, B, H, DH, Hkv, L, pool, qdt,
+                       valid=None, label="", tol=None):
+    """One dense decode case (the tuple check_kernels takes): random q and
+    caches in ``pool`` (int8 with scales), ``valid`` kv_valid (default
+    ragged 1..L with L and 1 first), SDPA with a length mask as the
+    yardstick; ``tol`` (default 1e-4 for f32, else 2e-2) bounds the max
+    abs error against the plain version."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    kc, vc, sc = _pools(torch, g, (B, L, Hkv, DH), pool, qdt)
+    if valid is None:
+        valid = torch.randint(1, L + 1, (B,), generator=g,
+                              device=dev).to(torch.int32)
+        valid[0] = L
+        if B > 1:
+            valid[1] = 1
+    q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
+    kd = kern._dequant_dense(kc, sc.get("k_scale")).to(qdt)
+    vd = kern._dequant_dense(vc, sc.get("v_scale")).to(qdt)
+    mask = (torch.arange(L, device=dev)[None]
+            < valid[:, None])[:, None, None]                     # (B,1,1,L)
+    n_keys = int(valid.sum())
+    kv_row = 2 * Hkv * DH * kc.element_size()
+    return ("decode_attention",
+            f"group={H // Hkv} pool={pool} L={L} dh={DH}{label}",
+            str(qdt).split(".")[-1],
+            lambda q=q, k=kc, v=vc, n=valid, sc=sc:
+                kern.decode_attention(q, k, v, n, **sc),
+            lambda q=q, k=kc, v=vc, n=valid, sc=sc:
+                kern.decode_attention_plain(q, k, v, n, **sc),
+            lambda q=q, k=kd.transpose(1, 2), v=vd.transpose(1, 2), m=mask:
+                F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                               attn_mask=m, enable_gqa=True),
+            2 * q.numel() * q.element_size() + 4 * B + n_keys * kv_row
+            + (8 * Hkv if sc else 0),
+            4 * H * DH * n_keys,
+            tol or (1e-4 if pool == "float32" else 2e-2))
+
+
 def dense_decode_cases(torch, kern):
     """The static engine's decode at qwen2.5-3b's width (B=4, H=16, Hkv=2,
     dh=128, the 545-position cache of a 512-token wave, ragged kv_valid
@@ -462,9 +562,7 @@ def dense_decode_cases(torch, kern):
     ragged (B=4) and at the split boundaries (B=12). The SDPA yardstick
     runs on the dense cache (dequantized beforehand when int8) with a
     length mask."""
-    import torch.nn.functional as F
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(1)
     L = 545
     for B, H, DH, Hkv, pools, edges in (
             (4, 16, 128, 2, ("float32", "bfloat16", "float16", "int8"),
@@ -474,42 +572,74 @@ def dense_decode_cases(torch, kern):
             (4, 32, 64, 32, ("bfloat16",), False),
             (4, *ARCTIC_WIDTH, ("bfloat16", "int8"), False),
             (12, *ARCTIC_WIDTH, ("bfloat16", "int8"), True)):
-        split = kern.decode_split(B, Hkv, L, H // Hkv, kern._sm_count(
-            torch.cuda.current_device()))
-        for pool in pools:
-            qdt = (torch.bfloat16 if pool == "int8"
-                   else getattr(torch, pool))
-            kc, vc, sc = _pools(torch, g, (B, L, Hkv, DH), pool, qdt)
-            if edges:
-                valid = torch.tensor(decode_boundaries(B, L, split),
-                                     dtype=torch.int32, device=dev)
-            else:
-                valid = torch.randint(1, L + 1, (B,), generator=g,
-                                      device=dev).to(torch.int32)
-                valid[0], valid[1] = L, 1
-            q = torch.randn((B, H, DH), generator=g, device=dev).to(qdt)
-            kd = kern._dequant_dense(kc, sc.get("k_scale")).to(qdt)
-            vd = kern._dequant_dense(vc, sc.get("v_scale")).to(qdt)
-            mask = (torch.arange(L, device=dev)[None]
-                    < valid[:, None])[:, None, None]              # (B,1,1,L)
-            n_keys = int(valid.sum())
-            kv_row = 2 * Hkv * DH * kc.element_size()
-            label = (f"group={H // Hkv} pool={pool} L={L} dh={DH}"
-                     + (f" B={B} split={split} kv_valid=edges"
-                        if edges else ""))
-            yield ("decode_attention", label,
-                   pool if pool != "int8" else "bfloat16",
-                   lambda q=q, k=kc, v=vc, n=valid, sc=sc:
-                       kern.decode_attention(q, k, v, n, **sc),
-                   lambda q=q, k=kc, v=vc, n=valid, sc=sc:
-                       kern.decode_attention_plain(q, k, v, n, **sc),
-                   lambda q=q, k=kd.transpose(1, 2), v=vd.transpose(1, 2),
-                   m=mask: F.scaled_dot_product_attention(
-                       q[:, :, None], k, v, attn_mask=m, enable_gqa=True),
-                   2 * q.numel() * q.element_size() + 4 * B
-                   + n_keys * kv_row + (8 * Hkv if sc else 0),
-                   4 * H * DH * n_keys,
-                   1e-4 if pool == "float32" else 2e-2)
+        yield from _dense_decode_pools(torch, kern, g, B, H, DH, Hkv, L,
+                                       pools, edges)
+
+
+def _dense_decode_pools(torch, kern, g, B, H, DH, Hkv, L, pools, edges,
+                        qdt_16=None):
+    """The dense decode cases of one width over ``pools`` (queries of the
+    pool's type, or ``qdt_16`` (default bf16) over an int8 cache): ragged
+    kv_valid, or with ``edges`` kv_valid at 1, L and the split edges
+    +-1."""
+    split = kern.decode_split(B, Hkv, L, H // Hkv, kern._sm_count(
+        torch.cuda.current_device()))
+    for pool in pools:
+        qdt = ((qdt_16 or torch.bfloat16) if pool == "int8"
+               else getattr(torch, pool))
+        valid = (torch.tensor(decode_boundaries(B, L, split),
+                              dtype=torch.int32, device="cuda")
+                 if edges else None)
+        yield _dense_decode_case(
+            torch, kern, g, B, H, DH, Hkv, L, pool, qdt, valid,
+            f" B={B} split={split} kv_valid=edges" if edges else "")
+
+
+def vlm_kernel_cases(torch, kern, flash):
+    """The widths the VLM and masked-attention slice adds: the dense decode
+    at llava15-13b's width (B=4, H = Hkv = 40, dh=128, the 1,121-position
+    cache of a 576 + 512-token wave, fp16 and an int8 cache with fp16
+    queries; and B=1 over a 32,256-position cache, every key valid: the
+    long-context step, 661 MB a layer) and at paligemma-3b's (B=4, H=8,
+    Hkv=1, dh=256, L=545, f32/bf16/f16/int8, ragged and on its split
+    edges); flash at llava's width (B=4, S=1,088, H = Hkv = 40, fp16,
+    causal and full)."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    H, DH, Hkv = LLAVA_WIDTH
+    yield from _dense_decode_pools(torch, kern, g, 4, H, DH, Hkv, 1121,
+                                   ("float16", "int8"), False,
+                                   torch.float16)
+    # the long step averages 32k unit-normal values: outputs of a few
+    # hundredths (std about sqrt(e / L) = 0.009), so 2e-2 would pass a
+    # kernel that dropped splits; 1e-4 is about six f16 ulps at 0.03
+    L = LLAVA_PATCHES + LLAVA_RUNS["b"][1] + LLAVA_RUNS["b"][2]
+    yield _dense_decode_case(
+        torch, kern, g, 1, H, DH, Hkv, L, "float16", torch.float16,
+        torch.tensor([L], dtype=torch.int32, device=dev), " B=1", 1e-4)
+    for B, edges in ((4, False), (12, True)):
+        yield from _dense_decode_pools(
+            torch, kern, g, B, *PALIGEMMA_WIDTH, 545,
+            ("float32", "bfloat16", "float16", "int8"), edges)
+    B, S = 4, LLAVA_PATCHES + LLAVA_RUNS["a"][1]
+    q, k, v = (torch.randn((B, S, H, DH), generator=g, device=dev).half()
+               for _ in range(3))
+    for causal in (True, False):
+        pairs = S * (S + 1) // 2 if causal else S * S
+        yield ("flash_attention",
+               f"group=1 float16 S={S} {'causal' if causal else 'full'}",
+               "float16",
+               lambda q=q, k=k, v=v, c=causal:
+                   flash.flash_attention(q, k, v, causal=c),
+               lambda q=q, k=k, v=v, c=causal:
+                   flash.flash_attention_plain(q, k, v, causal=c),
+               lambda q=q, k=k, v=v, c=causal:
+                   F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), is_causal=c),
+               (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+               4 * B * H * DH * pairs, 2e-2)
 
 
 def flash_cases(torch, flash):
@@ -916,21 +1046,24 @@ def serve_static(torch, kern, ServeEngine, RuntimeOptions, cfg):
     return results, read_counts(kern), params
 
 
-def profile_static_block(torch, tm, cfg, params, cache_dtype=""):
+def profile_static_block(torch, tm, cfg, params, cache_dtype="", B=4,
+                         S=max(QWEN_PROMPTS), dtype="bfloat16"):
     """Where a fused static decode block's time goes: one K=8 block of a
-    4-sequence wave whose dense caches hold a 512-token prompt, at full
+    B-sequence wave whose dense caches hold an S-token prompt, at full
     width, with a native ("") or int8 cache."""
-    opts = tm.RuntimeOptions(dtype="bfloat16", cache_dtype=cache_dtype)
-    B, K, S = 4, 8, max(QWEN_PROMPTS)
+    opts = tm.RuntimeOptions(dtype=dtype, cache_dtype=cache_dtype)
+    K = 8
     cache = tm.init_cache(cfg, B, S + 1 + QWEN_NEW, opts, "cuda")
     tok = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
 
     def block():
         tm.decode_steps(cfg, params, tok, S, cache, K, opts)
         torch.cuda.synchronize()
-    return profile_block(torch, block,
-                         f"static decode block K={K} B={B} pos={S} "
-                         f"cache={cache_dtype or 'native'}")
+    res = profile_block(torch, block,
+                        f"{cfg.name} static decode block K={K} B={B} "
+                        f"pos={S} cache={cache_dtype or 'native'}")
+    del cache
+    return res
 
 
 def profile_block(torch, block, label, chunk_pass2=False,
@@ -1375,6 +1508,283 @@ def serve_arctic(torch, kern, tm, ServeEngine, get_config):
                 n_layers=cfg.n_layers, params=n_params), launches
 
 
+# ------------------------ phases 8-10: the VLMs ------------------------ #
+
+def _param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _init_on_card(torch, tm, cfg, dtype, seed=0):
+    """The port's seeded init of ``cfg`` on the card, logged with its size
+    and time."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(seed), dtype, "cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {dtype}: {n / 1e9:.3f} B "
+        f"parameters, {_param_bytes(params) / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def static_vlm_run(torch, kern, cm, eng, label, run, new, want, n_masked):
+    """One static-engine run ``run()`` -> outputs, made twice: the runs must
+    emit the same in-vocabulary tokens, launch exactly ``want(stats)``
+    kernels (counts set to 0 just before each), call the masked attention
+    exactly ``n_masked(stats)`` times and no plain version. Returns the
+    first run's row (its launches, masked calls and peak memory)."""
+    from repro_torch.kernels import flash_attention as flash
+    cfg = eng.cfg
+    outs, rows = [], []
+    for _ in range(2):
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kern)
+        cm.attention.calls = 0
+        with count_plain(kern, flash) as plain:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = read_counts(kern)
+        masked = cm.attention.calls
+        s = eng.stats
+        check(n == want(s), f"{label}: launches {n} != {want(s)}")
+        check(masked == n_masked(s), f"{label}: masked-attention calls "
+              f"{masked} != {n_masked(s)}")
+        check(not plain, f"{label}: plain versions called on the card: "
+              f"{plain}")
+        check(all(len(o) == new and all(0 <= t < cfg.vocab for t in o)
+                  for o in out), f"{label}: malformed outputs")
+        outs.append(out)
+        rows.append(dict(
+            tokens_per_s=s.tps, prefill_s=s.prefill_s, decode_s=s.decode_s,
+            host_syncs=s.host_syncs, decode_steps=s.decode_steps,
+            decode_compiles=s.decode_compiles, new_tokens=s.new_tokens,
+            step_ms=1e3 * s.decode_s / max(s.decode_steps, 1),
+            peak_bytes=torch.cuda.max_memory_allocated(), wall_s=wall,
+            launches=n, masked_calls=masked))
+        log(f"{label:22s} tokens/s={s.tps:.1f} prefill_s={s.prefill_s:.3f} "
+            f"decode_s={s.decode_s:.3f} micro-step={rows[-1]['step_ms']:.2f}"
+            f"ms host_syncs={s.host_syncs} decode_steps={s.decode_steps} "
+            f"peak={rows[-1]['peak_bytes'] / 1e9:.2f}GB launches flash="
+            f"{n['flash_attention']} decode={n['decode_attention']} "
+            f"masked={masked} wall={wall:.1f}s")
+    check(outs[0] == outs[1], f"{label}: a repeated run emitted other "
+          f"tokens")
+    return dict(rows[0], repeat=rows[1])
+
+
+def serve_llava(torch, kern, tm, cm, ServeEngine, get_config):
+    """llava15-13b at full width and all 40 layers, fp16, the port's seeded
+    init, through the static engine's ``generate`` with seeded-normal patch
+    rows (the stub frontend) before the prompts: (a) a wave of 4, (b) the
+    long context, each native and int8, each twice. Every layer's prompt
+    attention launches flash and every decode layer the dense decode;
+    no masked attention. Prints each run's decode micro-step against its
+    byte bound: the weights a step reads (all but the embedding table, of
+    which it reads B rows) plus the KV of the valid positions, over
+    3.35 TB/s."""
+    import numpy as np
+    cfg = get_config("llava15-13b")
+    params = _init_on_card(torch, tm, cfg, "float16")
+    L = cfg.n_layers
+    w_bytes = _param_bytes(params) - _param_bytes(params["embed"])
+    kv_pos_bytes = 2 * L * cfg.n_kv_heads * cfg.head_dim   # a position, x1 B
+    runs = {}
+    for key, (B, S, new) in LLAVA_RUNS.items():
+        P = LLAVA_PATCHES
+        rng = np.random.default_rng(18)
+        prompts = rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)
+        patches = torch.randn((B, P, cfg.d_model),
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(18), device="cuda").half()
+        for policy in ("native", "int8"):
+            eng = ServeEngine(cfg, params, tm.RuntimeOptions(dtype="float16"),
+                              device="cuda", scheduler="static",
+                              kv_policy=policy, decode_lookahead=8,
+                              max_len=P + S + new)
+            label = f"llava ({key}) {policy}"
+            row = static_vlm_run(
+                torch, kern, cm, eng, label,
+                lambda eng=eng, prompts=prompts, patches=patches, new=new:
+                    eng.generate(prompts, new, prefix_emb=patches),
+                new,
+                lambda s: dict(paged_decode_attention=0,
+                               chunk_prefill_attention=0,
+                               spec_verify_attention=0,
+                               decode_attention=L * s.decode_steps,
+                               flash_attention=L),
+                lambda s: 0)
+            # the decode steps write at P + S .. P + S + steps - 1 and read
+            # every position up to it: their mean valid length
+            elem = 1 if policy == "int8" else 2
+            mean_valid = P + S + (row["decode_steps"] + 1) / 2
+            bound_ms = ((w_bytes + B * cfg.d_model * 2
+                         + B * mean_valid * kv_pos_bytes * elem)
+                        / HBM_BYTES_PER_S * 1e3)
+            row.update(B=B, positions=P + S, bound_ms=bound_ms,
+                       weight_bytes=w_bytes,
+                       kv_bytes=B * mean_valid * kv_pos_bytes * elem)
+            log(f"{label}: {P} patches + {S} prompt tokens x B={B}; decode "
+                f"micro-step {row['step_ms']:.2f}ms (host clock, mean of "
+                f"{row['decode_steps']}) against its byte bound "
+                f"{bound_ms:.2f}ms ({w_bytes / 1e9:.2f} GB weights + "
+                f"{row['kv_bytes'] / 1e9:.2f} GB KV); peak "
+                f"{row['peak_bytes'] / 1e9:.2f} GB allocated")
+            runs[f"{key} {policy}"] = row
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    # where (b)'s decode step goes: one K=8 block over the long cache
+    blocks = {policy: profile_static_block(
+        torch, tm, cfg, params, cache_dtype, B=1,
+        S=LLAVA_PATCHES + LLAVA_RUNS["b"][1], dtype="float16")
+        for policy, cache_dtype in (("native", ""), ("int8", "int8"))}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, n_layers=L, decode_block=blocks)
+
+
+def serve_paligemma(torch, kern, tm, cm, ServeEngine, get_config):
+    """paligemma-3b at full width (18 layers, bf16): ``generate`` on 4
+    prompts after 256 seeded-normal patch rows, native and int8, each
+    twice. The prompt attention is prefix-LM (the masked attention, once a
+    layer); every decode layer launches the dense decode at head width
+    256; flash never."""
+    import numpy as np
+    cfg = get_config("paligemma-3b")
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    L = cfg.n_layers
+    B, P, S, new = PALIGEMMA_RUN
+    prompts = np.random.default_rng(19).integers(
+        1, cfg.vocab, size=(B, S)).astype(np.int32)
+    patches = torch.randn((B, P, cfg.d_model),
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(19), device="cuda").bfloat16()
+    runs = {}
+    for policy in ("native", "int8"):
+        eng = ServeEngine(cfg, params, tm.RuntimeOptions(dtype="bfloat16"),
+                          device="cuda", scheduler="static", kv_policy=policy,
+                          decode_lookahead=8, max_len=P + S + new)
+        runs[policy] = static_vlm_run(
+            torch, kern, cm, eng, f"paligemma {policy}",
+            lambda eng=eng: eng.generate(prompts, new, prefix_emb=patches),
+            new,
+            lambda s: dict(paged_decode_attention=0,
+                           chunk_prefill_attention=0,
+                           spec_verify_attention=0,
+                           decode_attention=L * s.decode_steps,
+                           flash_attention=0),
+            lambda s: L)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, n_layers=L)
+
+
+def serve_gemma3(torch, kern, tm, cm, ServeEngine, get_config):
+    """gemma3-1b at full width (26 layers, bf16): serve_bucketed on 4
+    prompts of 1,024 and 4 of 2,048 tokens (its 512-token window cuts in),
+    native and int8, each twice. Every layer is soft-capped, so every
+    prompt and decode attention is the masked attention (26 calls a wave
+    and a micro-step), as the reference attends gemma3 through XLA; no
+    kernel launches."""
+    import numpy as np
+    cfg = get_config("gemma3-1b")
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    L = cfg.n_layers
+    rng = np.random.default_rng(20)
+    reqs = [rng.integers(1, cfg.vocab, size=n).tolist()
+            for n in GEMMA_PROMPTS for _ in range(4)]
+    waves = len(GEMMA_PROMPTS)
+    runs = {}
+    for policy in ("native", "int8"):
+        eng = ServeEngine(cfg, params, tm.RuntimeOptions(dtype="bfloat16"),
+                          device="cuda", scheduler="static", kv_policy=policy,
+                          decode_lookahead=8,
+                          max_len=max(GEMMA_PROMPTS) + GEMMA_NEW)
+        runs[policy] = static_vlm_run(
+            torch, kern, cm, eng, f"gemma3 {policy}",
+            lambda eng=eng: eng.serve([r[:] for r in reqs], GEMMA_NEW),
+            GEMMA_NEW, lambda s: {k: 0 for k in KERNELS},
+            lambda s: L * (waves + s.decode_steps))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, n_layers=L)
+
+
+def f32_masked_checks(torch, tm, ServeEngine, get_config):
+    """The three new families in f32 at full width, cut in depth (llava
+    and paligemma to 4 layers, gemma3 to 6, which keeps its first global
+    layer): prefill (the VLMs after seeded patch rows) and decode logits
+    on the card against the CPU, and static K=8 == K=1 on the card. The
+    gemma3 prompt (1,500 tokens) takes the masked attention's blocked
+    branch and its decode runs past the window."""
+    import numpy as np
+    res = {}
+    for arch, n_layers, B, P, S in (("llava15-13b", 4, 2, 64, 64),
+                                    ("paligemma-3b", 4, 2, 256, 32),
+                                    ("gemma3-1b", 6, 1, 0, 1500)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        params = tm.init_params(cfg, gen, "float32", "cuda")
+        opts = tm.RuntimeOptions(dtype="float32")
+        rng = np.random.default_rng(4)
+        n_dec = 4
+        toks = rng.integers(1, cfg.vocab, size=(B, S + n_dec)).astype(
+            np.int32)
+        pfx = (rng.standard_normal((B, P, cfg.d_model), dtype=np.float32)
+               if P else None)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            p = params if dev == "cuda" else _to(params, "cpu")
+            cache = tm.init_cache(cfg, B, P + S + n_dec, opts, dev)
+            lg, cache = tm.prefill(
+                cfg, p, torch.as_tensor(toks[:, :S], device=dev), cache,
+                opts, None if pfx is None else torch.as_tensor(pfx,
+                                                               device=dev))
+            rows = [lg.float().cpu()]
+            for j in range(n_dec):
+                lg, cache = tm.decode_step(
+                    cfg, p, torch.as_tensor(toks[:, S + j], device=dev),
+                    P + S + j, cache, opts)
+                rows.append(lg.float().cpu())
+            logits[dev] = torch.stack(rows)
+            del p, cache
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        check(err <= 2e-3 * max(scale, 1.0),
+              f"f32 {arch} ({n_layers} layers): card and CPU logits "
+              f"disagree by {err:.3g}")
+        outs = {}
+        for k in (1, 8):
+            eng = ServeEngine(cfg, params, opts, device="cuda",
+                              scheduler="static", decode_lookahead=k,
+                              max_len=P + S + 16)
+            outs[k] = eng.generate(toks[:, :S], 16, prefix_emb=(
+                None if pfx is None else torch.as_tensor(pfx,
+                                                         device="cuda")))
+        check(outs[1] == outs[8], f"f32 {arch}: static K=8 diverged from "
+              f"K=1")
+        log(f"f32 {arch} ({n_layers} layers, full width): card vs CPU max "
+            f"|logit diff| = {err:.2e} (max |logit| {scale:.2f}); static "
+            f"K=8 == K=1 on {B} x 16 tokens")
+        res[arch] = dict(logit_err=err, logit_max=scale, n_layers=n_layers)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1502,6 +1912,7 @@ def main() -> None:
         kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
                      hmma, chunk_hmma, paged_regs, t_start)
         return
+    dense_regs = dense_ptxas(kbuild)
 
     # ---- phase 3 ----
     n_sm = kern._sm_count(torch.cuda.current_device())
@@ -1543,6 +1954,13 @@ def main() -> None:
     # ---- phase 7: arctic-480b (MoE, group 7) on both engines ----
     arctic, arctic_launches = serve_arctic(torch, kern, tm, ServeEngine,
                                            get_config)
+
+    # ---- phases 8-11: the VLMs and the masked attention ----
+    from repro_torch.models import common as cm
+    llava = serve_llava(torch, kern, tm, cm, ServeEngine, get_config)
+    paligemma = serve_paligemma(torch, kern, tm, cm, ServeEngine, get_config)
+    gemma3 = serve_gemma3(torch, kern, tm, cm, ServeEngine, get_config)
+    f32_masked = f32_masked_checks(torch, tm, ServeEngine, get_config)
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -1590,6 +2008,21 @@ def main() -> None:
                for name, case in head.items()]
     entries += [(name, case, arctic_launches[run][name], "arctic-480b")
                 for name, (case, run) in arctic_head.items()]
+    # the VLM paths: the dense decode at llava15-13b's long context (its
+    # (b) native run) and at paligemma-3b's head width 256, flash at
+    # llava's group 1 (its (a) native run)
+    L_b = LLAVA_PATCHES + LLAVA_RUNS["b"][1] + LLAVA_RUNS["b"][2]
+    S_a = LLAVA_PATCHES + LLAVA_RUNS["a"][1]
+    entries += [
+        ("decode_attention", f"group=1 pool=float16 L={L_b} dh=128 B=1",
+         llava["runs"]["b native"]["launches"]["decode_attention"],
+         "llava15-13b"),
+        ("decode_attention", "group=8 pool=bfloat16 L=545 dh=256",
+         paligemma["runs"]["native"]["launches"]["decode_attention"],
+         "paligemma-3b"),
+        ("flash_attention", f"group=1 float16 S={S_a} causal",
+         llava["runs"]["a native"]["launches"]["flash_attention"],
+         "llava15-13b")]
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
@@ -1609,9 +2042,10 @@ def main() -> None:
             decode_block=breakdown, chunk_block=chunk_block,
             verify_block=verify_block, static_decode_block=static_breakdown,
             f32_logit_err=f32_err, f32_static=f32_static, arctic=arctic,
-            arctic_launches=arctic_launches,
+            arctic_launches=arctic_launches, llava=llava,
+            paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
-            paged_ptxas=paged_regs,
+            paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,6 +25,12 @@
 // reads the device. The dots stay f32 FMA for every dtype: a group of 8
 // rows against a split is a few FLOP a byte. Any L is taken, as in the
 // earlier design.
+//
+// Head widths 64, 128 and 256 (paligemma-3b's, gemma3-1b's). The 256
+// instances have a dispatch of their own, so the kernels that share
+// dispatch.cuh are not built at 256; at 256 a pass-1 block stages 16-key
+// tiles and takes 8 query rows at a time (split_decode.cuh, SplitRows),
+// and the combine runs 256 threads a block.
 #include "dispatch.cuh"
 #include "split_decode.cuh"
 
@@ -68,7 +74,7 @@ struct DenseDecodeLaunch {
 }  // namespace repro_paged
 
 // q, out: (B, H, dh); k/v caches: (B, L, Hkv, dh); kv_valid: (B,) int32;
-// k/v scales: (Hkv,) f32 or null; part: f32 scratch of
+// dh: 64, 128 or 256; k/v scales: (Hkv,) f32 or null; part: f32 scratch of
 // B * H * n_split * (dh + 2) elements; split: keys a split (>= 1), n_split:
 // ceil(L / split) (>= 1). Returns cudaGetLastError() after the two
 // launches (the second is not made if the first is refused), or -1 for an
@@ -78,7 +84,13 @@ extern "C" int decode_attention(const void* q, const void* k_cache, const void* 
                                 const void* v_scale, void* part, void* out, int B, int H,
                                 int Hkv, int dh, int L, int split, int n_split, int q_dtype,
                                 int kv_dtype, float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dh == 256)
+    return repro_paged::launch_status(
+        repro_paged::by_query<repro_paged::DenseDecodeLaunch, 256>(
+            q_dtype, kv_dtype, q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out, B,
+            H, Hkv, L, split, n_split, scale, st));
   return repro_paged::dispatch<repro_paged::DenseDecodeLaunch>(
       dh, q_dtype, kv_dtype, q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out, B, H,
-      Hkv, L, split, n_split, scale, static_cast<cudaStream_t>(stream));
+      Hkv, L, split, n_split, scale, st);
 }

@@ -92,23 +92,25 @@ struct Tile {
   static constexpr int KSTRIDE = DH + 1; // padded K row: conflict-free dots
 };
 
-template <int DH>
+// ROWS query rows against a K and a V tile. Static shared memory stops at
+// 48 KB: at DH = 256 that holds 8 rows (41.6 KB), not 16 (50.4 KB).
+template <int DH, int ROWS = MAX_ROWS>
 struct Smem {
   float k[Tile<DH>::TK * Tile<DH>::KSTRIDE];
   float v[Tile<DH>::TK * DH];
-  float q[MAX_ROWS * DH];
-  float p[MAX_ROWS * Tile<DH>::TK];
-  float m[MAX_ROWS];
-  float l[MAX_ROWS];
-  float corr[MAX_ROWS];
+  float q[ROWS * DH];
+  float p[ROWS * Tile<DH>::TK];
+  float m[ROWS];
+  float l[ROWS];
+  float corr[ROWS];
 };
 
 // Stage key positions [base, base + TK) of kv head h into shared memory as
 // f32 (scaled when int8). Positions >= limit, or that rows_at places
 // outside the storage, are zero-filled. 16-byte vector loads: VEC elements
 // of KV each.
-template <typename KV, int DH, typename Rows>
-__device__ __forceinline__ void stage_kv(Smem<DH>& sm, const KV* __restrict__ kp,
+template <typename KV, int DH, typename Rows, int ROWS>
+__device__ __forceinline__ void stage_kv(Smem<DH, ROWS>& sm, const KV* __restrict__ kp,
                                          const KV* __restrict__ vp, const Rows& rows_at,
                                          int Hkv, int h, int base, int limit, float ksc,
                                          float vsc) {

@@ -27,9 +27,17 @@
 
 namespace repro_paged {
 
+// Query rows a pass-1 block takes at a time: MAX_ROWS, and 8 at head width
+// 256, where 16 f32 rows beside a K and a V tile would pass the 48 KB of
+// static shared memory (Smem). The accumulator stays at 16 f32 a thread.
+template <int DH>
+struct SplitRows {
+  static constexpr int value = DH >= 256 ? 8 : MAX_ROWS;
+};
+
 // Pass 1 for sequence b, kv head h, split `split` of n_split: the group's
 // query rows (query heads h * group + r of q (B, H, DH)) against keys
-// [lo, hi). Rows are taken MAX_ROWS at a time.
+// [lo, hi). Rows are taken SplitRows<DH> at a time.
 template <typename T, typename KV, int DH, typename Rows>
 __device__ void split_partial(const T* __restrict__ q, const KV* __restrict__ kp,
                               const KV* __restrict__ vp, const Rows& rows_at,
@@ -39,8 +47,9 @@ __device__ void split_partial(const T* __restrict__ q, const KV* __restrict__ kp
                               int H, int Hkv, int lo, int hi, float scale) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int KS = Tile<DH>::KSTRIDE;
-  constexpr int APT = MAX_ROWS * DH / NT;   // accumulator elements per thread
-  __shared__ Smem<DH> sm;
+  constexpr int ROWS = SplitRows<DH>::value;
+  constexpr int APT = ROWS * DH / NT;       // accumulator elements per thread
+  __shared__ Smem<DH, ROWS> sm;
   const int group = H / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -64,11 +73,11 @@ __device__ void split_partial(const T* __restrict__ q, const KV* __restrict__ kp
   const float ksc = ksc_p ? ksc_p[h] : 1.f;
   const float vsc = vsc_p ? vsc_p[h] : 1.f;
 
-  for (int r0 = 0; r0 < group; r0 += MAX_ROWS) {
-    const int nrows = min(MAX_ROWS, group - r0);
+  for (int r0 = 0; r0 < group; r0 += ROWS) {
+    const int nrows = min(ROWS, group - r0);
     for (int i = tid; i < nrows * DH; i += NT)
       sm.q[i] = to_f32(q[(static_cast<size_t>(b) * H + h * group + r0 + i / DH) * DH + i % DH]);
-    if (tid < MAX_ROWS) {
+    if (tid < ROWS) {
       sm.m[tid] = NEG_INF;
       sm.l[tid] = 0.f;
     }

@@ -25,11 +25,17 @@ speculative).
     # a mixture-of-experts decoder, on either engine
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \\
         --reduced --device cpu [--scheduler continuous]
+    # a VLM decoder (no patches on the CLI: the first prefix_len prompt
+    # tokens attend bidirectionally) or local:global layers, static only
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava15-13b \\
+        --reduced --device cpu
 
 The flags and their destinations are the reference CLI's
 (``repro/launch/serve.py``). What the port does not run yet (``--shards``
-> 1, families and attention masks other than the dense and MoE causal
-GQA/MHA decoders) is rejected by the engine with ``NotImplementedError``.
+> 1, the MLA, SSM, hybrid and encoder-decoder families) and what the
+reference's paged path refuses too (VLM, sliding-window and soft-capped
+configs under ``--scheduler continuous``) is rejected by the engine with
+``NotImplementedError``.
 """
 from __future__ import annotations
 

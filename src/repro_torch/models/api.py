@@ -2,9 +2,10 @@
 the fused K-step decode over the dense cache (the reference is
 ``repro/models/api.py``).
 
-The dense and the mixture-of-experts decoder families run
-(``models/lm.py``); ``module_for`` raises for the others, naming the
-ROADMAP.md item that will port them.
+The dense, mixture-of-experts and VLM decoder families run
+(``models/lm.py``; a VLM is its decoder with a stub frontend's
+``prefix_emb`` prepended, on the static engine); ``module_for`` raises
+for the others, naming the ROADMAP.md item that will port them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.models import lm
 from repro_torch.models import sampling
 from repro_torch.models.lm import RuntimeOptions
 
-_MODS = {"dense": lm, "moe": lm}
+_MODS = {"dense": lm, "moe": lm, "vlm": lm}
 
 
 def module_for(cfg: ArchConfig):

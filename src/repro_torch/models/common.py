@@ -1,6 +1,7 @@
 """Shared PyTorch building blocks of the serving paths: dense layers,
-RMSNorm, rotary embeddings, the SwiGLU activation and the dense-cache
-write.
+RMSNorm, rotary embeddings, the SwiGLU activation, the dense-cache write
+and the general masked attention (lazy causal, sliding-window, prefix-LM
+and full masks, soft-capping, a query offset and a valid length).
 
 Parameters are plain dicts of tensors in the reference package's layout
 (``dense`` weights are ``(d_in, d_out)`` and apply as ``x @ w``), so weights
@@ -8,8 +9,14 @@ move between the two packages unchanged (``models.convert``).
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+# the CPU vector exp guard of the kernels' plain versions (see ``_exp``)
+from repro_torch.kernels.decode_attention import _cpu_exp_ready
 
 NEG_INF = -1e30
 
@@ -85,3 +92,151 @@ def update_cache(cache_k, cache_v, k_new, v_new, pos: int):
     cache_k[:, pos:pos + S] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + S] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+# ------------------------------ masks ----------------------------------- #
+# The reference's masks (repro/models/common.py), (S, L) True where query i
+# may attend key j. ``attention`` builds its masks per block from the same
+# rules (``_block_mask``) and never materializes a full (S, L) mask.
+
+def causal_mask(S: int, L: int, q_offset: int = 0):
+    qpos = torch.arange(S)[:, None] + q_offset
+    return torch.arange(L)[None, :] <= qpos
+
+
+def sliding_mask(S: int, L: int, window: int, q_offset: int = 0):
+    qpos = torch.arange(S)[:, None] + q_offset
+    kpos = torch.arange(L)[None, :]
+    return (kpos <= qpos) & (kpos > qpos - window)
+
+
+def prefix_lm_mask(S: int, L: int, prefix_len: int, q_offset: int = 0):
+    """Bidirectional over the first ``prefix_len`` positions, causal after."""
+    qpos = torch.arange(S)[:, None] + q_offset
+    kpos = torch.arange(L)[None, :]
+    return (kpos <= qpos) | (kpos < prefix_len)
+
+
+def length_mask(L: int, valid_len):
+    return torch.arange(L)[None, :] < valid_len
+
+
+# -------------------------- masked attention ---------------------------- #
+
+def _block_mask(kind: str, qpos, kpos, *, window: int = 0,
+                prefix_len: int = 0, kv_valid=None):
+    """(bq, bkv) mask of query positions ``qpos`` against key positions
+    ``kpos``, or (B, bq, bkv) with a (B,) ``kv_valid``."""
+    q = qpos[:, None]
+    kk = kpos[None, :]
+    if kind == "causal":
+        m = kk <= q
+    elif kind == "sliding":
+        m = (kk <= q) & (kk > q - window)
+    elif kind == "prefix":
+        m = (kk <= q) | (kk < prefix_len)
+    elif kind == "full":
+        m = torch.ones((q.shape[0], kk.shape[1]), dtype=torch.bool,
+                       device=qpos.device)
+    else:
+        raise ValueError(kind)
+    if kv_valid is not None:
+        m = m[None] & (kk[None] < kv_valid[:, None, None])
+    return m
+
+
+def _scores_block(qg, kb, scale, softcap):
+    """f32 scores (B, S, Hkv, g, L) of grouped queries against a key block,
+    times ``scale``, then soft-capped ``tanh(s / cap) * cap``."""
+    s = torch.einsum("bshgd,blhd->bshgl", qg.float(), kb.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    return s
+
+
+def _values(p, v):
+    """f32 p (B, S, Hkv, g, L) rounded to V's dtype, times v (B, L, Hkv,
+    dv), summed in f32."""
+    return torch.einsum("bshgl,blhd->bshgd", p.to(v.dtype).float(), v.float())
+
+
+def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
+              prefix_len: int = 0, q_offset: int = 0, kv_valid=None,
+              scale: Optional[float] = None, softcap: float = 0.0,
+              block_q: int = 512, block_kv: int = 1024):
+    """GQA attention with lazy masks: the reference's XLA path
+    (``repro.models.common.attention``), in plain PyTorch on any device.
+
+    q: (B, S, H, dh) at positions ``q_offset + [0, S)``; k, v: (B, L, Hkv,
+    dh) at positions [0, L); kv_valid: optional (B,) valid key length;
+    mask_kind: causal | sliding (``window``) | prefix (``prefix_len``
+    bidirectional positions) | full. Scores are f32, scaled, then
+    soft-capped when ``softcap``. Counts its calls in ``attention.calls``.
+
+    With ``S * L <= 1 << 21`` one block: a softmax over the masked scores,
+    so a fully masked row gets the mean of V. Larger: the blocked online
+    softmax over (``block_q``, ``block_kv``) tiles with an f32 accumulator,
+    where a masked score contributes 0 and a fully masked row gives 0."""
+    attention.calls += 1
+    B, S, H, dh = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    group = H // Hkv
+    dev = q.device
+    qg = q.reshape(B, S, Hkv, group, dh)
+    if kv_valid is not None:
+        kv_valid = kv_valid.to(dev)
+    if dev.type == "cpu":
+        _cpu_exp_ready()
+
+    if S * L <= 1 << 21:           # small: one block
+        s = _scores_block(qg, k, scale, softcap)            # (B,S,Hkv,g,L)
+        m = _block_mask(mask_kind, torch.arange(S, device=dev) + q_offset,
+                        torch.arange(L, device=dev), window=window,
+                        prefix_len=prefix_len, kv_valid=kv_valid)
+        m = m[:, :, None, None, :] if m.dim() == 3 else m[None, :, None, None]
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+        out = _values(torch.softmax(s, dim=-1), v)
+        return out.reshape(B, S, H, dv).to(q.dtype)
+
+    # blocked online softmax: peak live block (B, bq, Hkv, g, bkv)
+    nq, nkv = -(-S // block_q), -(-L // block_kv)
+    qp = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, nq * block_q - S))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nkv * block_kv - L))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nkv * block_kv - L))
+    valid = (kv_valid if kv_valid is not None
+             else torch.full((B,), L, dtype=torch.int32, device=dev))
+    blocks = []
+    for i in range(nq):
+        qblk = qp[:, i * block_q:(i + 1) * block_q]
+        qpos = i * block_q + torch.arange(block_q, device=dev) + q_offset
+        m_i = torch.full((B, block_q, Hkv, group), NEG_INF, device=dev)
+        l_i = torch.zeros((B, block_q, Hkv, group), device=dev)
+        acc = torch.zeros((B, block_q, Hkv, group, dv), device=dev)
+        for j in range(nkv):
+            kblk = kp[:, j * block_kv:(j + 1) * block_kv]
+            vblk = vp[:, j * block_kv:(j + 1) * block_kv]
+            s = _scores_block(qblk, kblk, scale, softcap)
+            msk = _block_mask(mask_kind, qpos,
+                              j * block_kv + torch.arange(block_kv,
+                                                          device=dev),
+                              window=window, prefix_len=prefix_len,
+                              kv_valid=valid)
+            s = torch.where(msk[:, :, None, None, :], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m_i, s.amax(dim=-1))
+            # a fully masked block: s == m_new == NEG_INF would give exp(0)
+            p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                            torch.exp(s - m_new[..., None]))
+            corr = torch.exp(torch.clamp_max(m_i - m_new, 0.0))
+            l_i = l_i * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _values(p, vblk)
+            m_i = m_new
+        blocks.append((acc / torch.clamp_min(l_i, 1e-30)[..., None])
+                      .to(q.dtype))
+    out = torch.cat(blocks, dim=1)[:, :S]
+    return out.reshape(B, S, H, dv)
+
+
+attention.calls = 0

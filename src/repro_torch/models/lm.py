@@ -3,8 +3,9 @@ engine's chunked prefill, fused K-step decode, speculative verify and
 copy-on-write) and over a dense per-sequence cache (the static engine's
 full-prompt prefill and decode).
 
-The reference is ``repro/models/lm.py`` (its dense GQA/MHA decoders and
-its mixture-of-experts stacks, whose layers hold a ``moe`` subtree in
+The reference is ``repro/models/lm.py`` (its dense GQA/MHA decoders,
+with local:global and prefix-LM masking, its VLM stream and its
+mixture-of-experts stacks, whose layers hold a ``moe`` subtree in
 place of ``mlp``: ``models/moe.py``). Parameters keep its layout:
 ``params["stack"]`` carries a leading ``n_layers`` axis and the layer
 loop indexes it. Unlike the reference, the
@@ -13,7 +14,10 @@ the cache tensors it was given and returns the same cache dict.
 
 Attention runs through ``kernels.decode_attention`` and
 ``kernels.flash_attention``: on a CUDA tensor the hand-written kernels, on
-a CPU tensor their plain versions.
+a CPU tensor their plain versions. On the static path, the layers the
+reference attends through its XLA masked attention (prefix-LM prompts,
+sliding-window and soft-capped layers) take ``common.attention`` instead,
+on any device.
 
 Public surface:
     init_params(cfg, generator, dtype, device)          -> params
@@ -185,12 +189,13 @@ def _embed_tokens(cfg, params, tokens, prefix_emb=None):
 
 
 def _family_supported(cfg: ArchConfig) -> Optional[str]:
-    """None for a dense or MoE GQA/MHA decoder whose layers all share one
-    shape; else why not, naming the ROADMAP.md item that will port it."""
+    """None for a dense, MoE or VLM GQA/MHA decoder whose layers all share
+    one shape; else why not, naming the ROADMAP.md item that will port
+    it."""
     if cfg.mla is not None:
         return ("MLA latent caches are not ported yet (ROADMAP.md queue A, "
                 "item 10)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         return (f"family {cfg.family!r} is not ported yet (ROADMAP.md queue "
                 f"A, item 10)")
     if cfg.moe is not None and cfg.moe.first_dense:
@@ -207,6 +212,9 @@ def paged_supported(cfg: ArchConfig) -> Optional[str]:
     reason = _family_supported(cfg)
     if reason:
         return reason
+    if cfg.family not in ("dense", "moe"):
+        # the reference's rule: its VLM stream runs on the dense cache only
+        return f"family {cfg.family!r} is not covered by the paged KV path"
     if cfg.sliding_window:
         return ("sliding-window layers need windowed page masking, which the "
                 "reference's paged path lacks too")
@@ -596,53 +604,74 @@ def spec_decode_verify(cfg: ArchConfig, params, tokens, draft_len, seq_lens,
 
 # ------------------------- static dense-cache serving ------------------- #
 # The static engine's path: one prefill of a whole equal-length prompt wave
-# (flash attention over the prompt, every layer's KV written to a dense
-# per-sequence cache), then decode steps that all write and read at one
-# shared position ``pos`` (dense decode attention at kv_valid = pos + 1,
-# which is the reference's causal attention at q_offset = pos).
+# (every layer's KV written to a dense per-sequence cache as the layer
+# finishes), then decode steps that all write and read at one shared
+# position ``pos``. The attention of each layer follows the reference's
+# routes: the flash kernel for a causal prompt without soft-capping and
+# the dense decode kernel (kv_valid = pos + 1, the reference's causal
+# attention at q_offset = pos) for a layer with neither a window nor a
+# soft-cap; the general masked attention (``common.attention``) for the
+# rest (prefix-LM prompts, sliding-window and soft-capped layers).
 
 
-def static_supported(cfg: ArchConfig) -> Optional[str]:
-    """None when the port's static dense-cache path runs ``cfg``; else why
-    not, naming the ROADMAP.md item that will port it. The path attends
-    causally (prefill) or by valid length (decode) only: the reference's
-    general masked attention (sliding window, prefix-LM, soft-capping) is
-    not ported yet."""
-    reason = _family_supported(cfg)
-    if reason:
-        return reason
-    masked = {"sliding-window attention": cfg.sliding_window,
-              "prefix-LM masking": cfg.prefix_bidirectional and cfg.prefix_len,
-              "logit soft-capping": cfg.logit_softcap}
-    for what, on in masked.items():
-        if on:
-            return (f"{what} needs the general masked attention, which is "
-                    f"not ported yet (ROADMAP.md queue A, item 10)")
-    return None
+# None when the static dense-cache path runs ``cfg``; else why not
+static_supported = _family_supported
 
 
-def _attn_apply(p, x, cfg: ArchConfig, rope):
-    """Causal attention over the whole prompt x (B, S, d) through the flash
-    kernel. Returns the block output and this layer's (k, v) (B, S, Hkv,
-    dh), k rotated."""
+def _kind_array(cfg: ArchConfig, start: int, n: int):
+    """Per-layer attention kind of layers [start, start + n): 0 global
+    (causal, or the prompt's prefix-LM mask), 1 local (sliding window;
+    gemma3's layer i is global when i % 6 == 5)."""
+    return [1 if cfg.attention_kind(start + i) == "local" else 0
+            for i in range(n)]
+
+
+def _prompt_mask(cfg: ArchConfig, kind: int):
+    """(mask kind, window, prefix_len) of a layer's prompt attention: a
+    local layer's sliding window, else the prefix-LM mask over the first
+    ``prefix_len`` positions when the config has one (with or without a
+    ``prefix_emb``: without one, those are the first text tokens), else
+    causal."""
+    if kind:
+        return "sliding", cfg.sliding_window, 0
+    if cfg.prefix_bidirectional and cfg.prefix_len:
+        return "prefix", 0, cfg.prefix_len
+    return "causal", 0, 0
+
+
+def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int):
+    """Attention over the whole prompt x (B, S, d): the flash kernel where
+    the reference's ``try_flash_attention`` would take its Pallas kernel
+    (a causal mask, no soft-cap), else the general masked attention.
+    Returns the block output and this layer's (k, v) (B, S, Hkv, dh), k
+    rotated."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
-    out = flash.flash_attention(q, k, v, causal=True,
-                                scale=1.0 / math.sqrt(hd))
+    mask, window, prefix_len = _prompt_mask(cfg, kind)
+    if mask == "causal" and not cfg.logit_softcap:
+        out = flash.flash_attention(q, k, v, causal=True,
+                                    scale=1.0 / math.sqrt(hd))
+    else:
+        out = cm.attention(q, k, v, mask_kind=mask, window=window,
+                           prefix_len=prefix_len, softcap=cfg.logit_softcap,
+                           scale=1.0 / math.sqrt(hd))
     return cm.dense(p["wo"], out.reshape(B, S, H * hd)), (k, v)
 
 
-def _block(lp, x, cfg: ArchConfig, rope, opts: RuntimeOptions):
-    h, kv = _attn_apply(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg, rope)
+def _block(lp, x, cfg: ArchConfig, rope, opts: RuntimeOptions, kind: int):
+    h, kv = _attn_apply(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg, rope,
+                        kind)
     x = x + h
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts), kv
 
 
 def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
-            prefix_emb=None):
+            prefix_emb=None, on_kv=None):
     """The final residual stream (B, P + S, d) of a full-prompt forward
-    (``prefix_emb`` (B, P, d) prepended) and every layer's (k, v)."""
+    (``prefix_emb`` (B, P, d) prepended). Each layer's (k, v) goes to
+    ``on_kv(i, k, v)`` as the layer finishes, so no more than one layer's
+    KV is held beside the cache."""
     reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
@@ -650,23 +679,25 @@ def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
-    kvs = []
-    for i in range(cfg.n_layers):
-        x, kv = _block(_layer(params["stack"], i), x, cfg, rope, opts)
-        kvs.append(kv)
-    return x, kvs
+    for i, kind in enumerate(_kind_array(cfg, 0, cfg.n_layers)):
+        x, (k, v) = _block(_layer(params["stack"], i), x, cfg, rope, opts,
+                           kind)
+        if on_kv is not None:
+            on_kv(i, k, v)
+    return x
 
 
 def forward(cfg: ArchConfig, params, tokens,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None, *,
             collect_kv: bool = False):
-    """Full-sequence causal forward. tokens: (B, S) int32; prefix_emb:
-    (B, P, d) stub frontend output (VLM patches), prepended, or None.
-    Returns logits (B, P + S, vocab), or (logits, kvs) with
-    ``collect_kv``: one (k, v) pair of (B, P + S, Hkv, dh) per layer, k
-    rotated (the reference returns the same pairs stacked on a leading
-    layer axis)."""
-    x, kvs = _hidden(cfg, params, tokens, opts, prefix_emb)
+    """Full-sequence forward. tokens: (B, S) int32; prefix_emb: (B, P, d)
+    stub frontend output (VLM patches), prepended, or None. Returns logits
+    (B, P + S, vocab), or (logits, kvs) with ``collect_kv``: one (k, v)
+    pair of (B, P + S, Hkv, dh) per layer, k rotated (the reference
+    returns the same pairs stacked on a leading layer axis)."""
+    kvs = []
+    x = _hidden(cfg, params, tokens, opts, prefix_emb,
+                (lambda i, k, v: kvs.append((k, v))) if collect_kv else None)
     logits = _logits(cfg, params, x)
     return (logits, kvs) if collect_kv else logits
 
@@ -697,27 +728,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(cfg: ArchConfig, params, tokens, cache,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
     """Run the prompt (B, S) after ``prefix_emb`` (B, P, d) when given,
-    write every layer's KV at positions [0, P + S) of the dense cache in
-    place (int8: quantized with fresh per-layer scales from this prompt),
-    and return (last-position logits (B, vocab), cache)."""
-    x, kvs = _hidden(cfg, params, tokens, opts, prefix_emb)
+    write each layer's KV at positions [0, P + S) of the dense cache in
+    place as the layer finishes (int8: quantized with fresh per-layer
+    scales from this prompt), and return (last-position logits (B,
+    vocab), cache)."""
     st = cache["stack"]
-    for i, (k, v) in enumerate(kvs):
+
+    def write(i, k, v):
         if "k_scale" in st:
             ksc, vsc = _amax_scale(k, (0, 1, 3)), _amax_scale(v, (0, 1, 3))
             st["k_scale"][i].copy_(ksc)
             st["v_scale"][i].copy_(vsc)
             k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
         cm.update_cache(st["k"][i], st["v"][i], k, v, 0)
+    x = _hidden(cfg, params, tokens, opts, prefix_emb, write)
     return _logits(cfg, params, x[:, -1]), cache
 
 
 def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
-                 kv_valid):
+                 kv_valid, kind: int):
     """Single-token attention against the dense cache. x: (B, 1, d). The
     new KV lands at ``pos`` first (int8: quantized with the prefill's
-    scales); the dense decode kernel then reads positions < kv_valid
-    (= pos + 1), dequantizing int8 itself."""
+    scales). A layer with neither a window nor a soft-cap takes the dense
+    decode kernel, which reads positions < kv_valid (= pos + 1) and
+    dequantizes int8 itself; a sliding or soft-capped layer takes the
+    general masked attention at q_offset = pos over the cache dequantized
+    in q's dtype, as the reference attends every layer."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
@@ -726,16 +762,27 @@ def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
         ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
         k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
     ck, cv = cm.update_cache(cache_layer["k"], cache_layer["v"], k, v, pos)
-    out = kern.decode_attention(q[:, 0], ck, cv, kv_valid,
-                                scale=1.0 / math.sqrt(hd), k_scale=ksc,
-                                v_scale=vsc)
+    window = cfg.sliding_window if kind else 0
+    if not window and not cfg.logit_softcap:
+        out = kern.decode_attention(q[:, 0], ck, cv, kv_valid,
+                                    scale=1.0 / math.sqrt(hd), k_scale=ksc,
+                                    v_scale=vsc)
+    else:
+        ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+        if ksc is not None:
+            ck = ck * ksc[None, None, :, None].to(q.dtype)
+            cv = cv * vsc[None, None, :, None].to(q.dtype)
+        out = cm.attention(q, ck, cv, mask_kind="sliding" if window
+                           else "causal", window=window, q_offset=pos,
+                           softcap=cfg.logit_softcap,
+                           scale=1.0 / math.sqrt(hd))
     return cm.dense(p["wo"], out.reshape(B, 1, H * hd))
 
 
 def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
-                  kv_valid, opts: RuntimeOptions):
+                  kv_valid, opts: RuntimeOptions, kind: int):
     x = x + _decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                         cache_layer, pos, rope, kv_valid)
+                         cache_layer, pos, rope, kv_valid, kind)
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
 
 
@@ -750,7 +797,7 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     kv_valid = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     st = cache["stack"]
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(_kind_array(cfg, 0, cfg.n_layers)):
         x = _decode_block(_layer(params["stack"], i), x, cfg, _layer(st, i),
-                          pos, rope, kv_valid, opts)
+                          pos, rope, kv_valid, opts, kind)
     return _logits(cfg, params, x)[:, 0], cache

@@ -169,8 +169,11 @@ def test_default_device_needs_cuda(models):
 
 
 @pytest.mark.parametrize("arch,kw,item", [
-    ("gemma3-1b", dict(scheduler="static"), "item 10"),     # sliding window
-    ("paligemma-3b", dict(scheduler="static"), "item 10"),  # prefix-LM
+    # the static engine serves both; the paged path refuses them, as the
+    # reference's does
+    ("gemma3-1b", dict(scheduler="continuous"), "windowed page masking"),
+    ("paligemma-3b", dict(scheduler="continuous"),
+     "family 'vlm' is not covered by the paged KV path"),
     (None, dict(shards=2), "item 9"),
 ])
 def test_off_path_options_raise(models, arch, kw, item):

@@ -99,9 +99,9 @@ def test_serve_cli_offload_flags(capsys):
     assert "[serve] offload: stall=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--scheduler", "static", "--arch",
+@pytest.mark.parametrize("flags", [["--scheduler", "continuous", "--arch",
                                     "gemma3-1b"],
-                                   ["--scheduler", "static", "--arch",
+                                   ["--scheduler", "continuous", "--arch",
                                     "paligemma-3b"],
                                    ["--scheduler", "continuous", "--arch",
                                     "deepseek-v2-236b"],

@@ -23,8 +23,10 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.lm import init_params
 from torch_kernel_inputs import ARCTIC_WIDTH
 from torch_kernel_inputs import CHUNK_HEADERS
+from torch_kernel_inputs import LLAVA_WIDTH
 from torch_kernel_inputs import OLD_PAGED_DECODE_LIB
 from torch_kernel_inputs import PAGED_DECODE_HEADERS
+from torch_kernel_inputs import PALIGEMMA_WIDTH
 from torch_kernel_inputs import chunk_edges
 from torch_kernel_inputs import pool as _pool
 from torch_kernel_inputs import quantize as _quantize
@@ -137,14 +139,18 @@ def test_cuda_launch_counts_and_rejects(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
                                           (3, 8, 8, 64, 300),
-                                          (4, *ARCTIC_WIDTH, 545)])
+                                          (4, *ARCTIC_WIDTH, 545),
+                                          (4, *LLAVA_WIDTH, 1121),
+                                          (4, *PALIGEMMA_WIDTH, 545)])
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
                                          (torch.bfloat16, False),
                                          (torch.bfloat16, True)])
 def test_cuda_dense_decode_matches_plain(cuda_device, dtype, quant, B, H,
                                          Hkv, dh, L):
     """The static engine's decode at qwen2.5-3b's width (group 8), at
-    arctic-480b's (group 7) and a dh=64 group-1 case: ragged kv_valid
+    arctic-480b's (group 7), llava15-13b's (group 1, a 1,121-position
+    cache), paligemma-3b's (head width 256) and a dh=64 group-1 case:
+    ragged kv_valid
     from 1 to L, an L that is not a multiple of any tile, keys past
     kv_valid poisoned."""
     rng = np.random.default_rng(L)
@@ -202,6 +208,43 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, causal, Hkv, S):
 
 
 @pytest.mark.cuda
+def test_cuda_head_width_256_is_the_dense_decode_s_only(cuda_device):
+    """At head width 256 the dense decode launches; flash, the paged
+    decode, the chunk and the verify window raise on the card (they are
+    not built for it) instead of falling back."""
+    rng = np.random.default_rng(25)
+    dev = dict(device=cuda_device)
+    H, Hkv, dh = PALIGEMMA_WIDTH
+    B, L, ps, npp = 2, 40, 16, 3
+
+    def rand(*shape):
+        return _t(rng.standard_normal(shape, dtype=np.float32)).to(**dev)
+    q = rand(B, H, dh)
+    kc = rand(B, L, Hkv, dh)
+    valid = torch.tensor([L, 7], dtype=torch.int32, **dev)
+    n = tk.decode_attention.launches
+    got = tk.decode_attention(q, kc, kc, valid)
+    torch.cuda.synchronize()
+    assert tk.decode_attention.launches == n + 1
+    assert float((got - tk.decode_attention_plain(q, kc, kc, valid))
+                 .abs().max()) <= 1e-4
+    kp = rand(B * npp + 1, ps, Hkv, dh)
+    pt = torch.arange(1, B * npp + 1, dtype=torch.int32, **dev).reshape(
+        B, npp)
+    qs = rand(B, 4, H, dh)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tkf.flash_attention(qs, qs[:, :, :Hkv].contiguous(),
+                            qs[:, :, :Hkv].contiguous())
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tk.paged_decode_attention(q, kp, kp, pt, valid)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tk.chunk_prefill_attention(qs, kp, kp, pt, 0, valid)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tk.spec_verify_attention(qs, kp, kp, pt, valid - 4,
+                                 torch.full_like(valid, 4))
+
+
+@pytest.mark.cuda
 def test_cuda_paged_kernels_at_qwen_width(cuda_device):
     """The paged kernels at head_dim 128 and group 8 (qwen2.5-3b), which
     the continuous path serves at that width."""
@@ -228,7 +271,10 @@ def test_cuda_paged_kernels_at_qwen_width(cuda_device):
 @pytest.mark.parametrize("B,H,Hkv,dh,L", [(4, 16, 2, 128, 545),
                                           (32, 64, 8, 128, 545),
                                           (7, 8, 8, 64, 300),
-                                          (12, *ARCTIC_WIDTH, 545)])
+                                          (12, *ARCTIC_WIDTH, 545),
+                                          (4, *LLAVA_WIDTH, 1121),
+                                          (2, *LLAVA_WIDTH, 32256),
+                                          (12, *PALIGEMMA_WIDTH, 545)])
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
                                          (torch.bfloat16, False),
                                          (torch.float16, False),
@@ -238,9 +284,12 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
     """The split-K decode with kv_valid at 1, L and its splits' boundaries
     +-1: the static path's shape (many splits), B=32 with Hkv=8 (B * Hkv
     alone fills the card: only the 128-key cap splits the cache), a dh=64
-    group-1 case, arctic-480b's group 7. Keys past kv_valid are poisoned;
-    two calls are bitwise
-    equal."""
+    group-1 case, arctic-480b's group 7, llava15-13b's group 1 (also over
+    its 32,256-position cache: 252 splits, kv_valid at L and the last
+    boundary - 1) and paligemma-3b's head width 256. Keys past kv_valid
+    are poisoned; two calls are bitwise equal. A row over thousands of
+    keys averages them down to a few hundredths, so the long case holds
+    16-bit outputs to four ulps of the largest value instead of 2e-2."""
     split = tk.decode_split(B, Hkv, L, H // Hkv,
                             tk._sm_count(torch.cuda.current_device()))
     rng = np.random.default_rng(B + L)
@@ -248,6 +297,9 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
     kc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
     vc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
     edges = split_edges(L, split)
+    long_ctx = L >= 8192
+    if long_ctx:                            # the top edges: every row long
+        edges = edges[::-1]
     valid = np.asarray([edges[i % len(edges)] for i in range(B)], np.int32)
     kw = {}
     if quant:
@@ -259,8 +311,13 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
     q = _t(rng.standard_normal((B, H, dh), dtype=np.float32)).to(
         dtype=dtype, **dev)
     kv_valid = _t(valid).to(**dev)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
     want = tk.decode_attention_plain(q, kct, vct, kv_valid, **kw)
+    if dtype == torch.float32:
+        tol = 1e-4
+    elif long_ctx:
+        tol = 4 * torch.finfo(dtype).eps * float(want.float().abs().max())
+    else:
+        tol = 2e-2
     for b in range(B):                      # never read past kv_valid
         kct[b, valid[b]:] = 100 if quant else 1e4
         vct[b, valid[b]:] = -100 if quant else -1e4
@@ -274,13 +331,13 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 17, 64, 300])
 @pytest.mark.parametrize("H,Hkv,dh", [(16, 2, 128), (8, 8, 64), (12, 4, 64),
-                                      ARCTIC_WIDTH])
+                                      ARCTIC_WIDTH, LLAVA_WIDTH])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
                                                   H, Hkv, dh, S):
     """The tensor-core flash tiles at both head widths and groups 8, 1, 3
-    and 7, at prompt lengths shorter than a tile, one tile, and not a multiple
+    and 7, and llava15-13b's 40 heads at group 1, at prompt lengths shorter than a tile, one tile, and not a multiple
     of either the 64-row or the 64-key tile; causal and full; bitwise
     repeatable."""
     rng = np.random.default_rng(S + H + dh)

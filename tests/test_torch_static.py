@@ -252,7 +252,10 @@ def test_static_supported_names_roadmap_items():
     assert tm.static_supported(tget("qwen2.5-3b")) is None
     assert tm.static_supported(tget("llama3.2-1b")) is None
     assert tm.static_supported(tget("arctic-480b")) is None      # MoE
-    for arch, item in [("gemma3-1b", "10"), ("paligemma-3b", "10"),
+    # the VLMs, prefix-LM, local:global and soft-capped configs
+    for arch in ("llava15-13b", "paligemma-3b", "gemma3-1b"):
+        assert tm.static_supported(tget(arch)) is None, arch
+    for arch, item in [("whisper-medium", "10"), ("zamba2-2.7b", "10"),
                        ("deepseek-v2-236b", "10"), ("mamba2-130m", "10")]:
         reason = tm.static_supported(tget(arch))
         assert reason and f"item {item}" in reason, (arch, reason)

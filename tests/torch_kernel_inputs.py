@@ -24,6 +24,11 @@ CHUNK_HEADERS = {"dispatch.cuh", "paged_attention.cuh", "mma_tile.cuh",
 # heads, GQA group 7 (odd and no power of two: the paged decode tiles a
 # group's rows 4 + 3, the tensor-core tiles hold 16 // 7 positions)
 ARCTIC_WIDTH = (56, 8, 128)
+# llava15-13b's (MHA: 40 query heads over 40 KV heads, group 1) and
+# paligemma-3b's (8 query heads over 1 KV head, head width 256: only the
+# dense decode is built for it)
+LLAVA_WIDTH = (40, 40, 128)
+PALIGEMMA_WIDTH = (8, 1, 256)
 
 
 def t(a):
