@@ -129,6 +129,33 @@ Phases (any failure exits non-zero before the result line):
   11. in f32 at full width cut in depth (llava and paligemma 4 layers,
      gemma3 6): prefill and decode logits on the card against the CPU,
      and static K=8 == K=1.
+  12. deepseek-v2-236b (MLA, a dense first layer, 160 experts top-6 and
+     2 shared) at full width cut to its dense layer and 4 of its 59 MoE
+     layers (bf16, about 35 GB) through the static engine's ``generate``:
+     (a) B=4 x 512 prompt tokens, 32 new, native and int8 (the latent
+     cache stays native: the same tokens); (b) B=1 x 32,128 prompt tokens
+     (32,192 positions), 64 new. Prints the latent cache's bytes at
+     32,192 positions beside llava15-13b's KV there.
+  13. mamba2-130m at full width and all 24 layers: (a) 4 x 512, (b) 1 x
+     32,768 prompt tokens, 32 new; the state a sequence must be the same
+     size in both.
+  14. zamba2-2.7b at full width, all 54 blocks and 9 shared-attention
+     sites: serve_bucketed on 4 prompts of 512 and 4 of 1,024 tokens, 32
+     new (the masked attention 9 times a wave and a micro-step).
+  15. whisper-medium at full width, 24 + 24 layers: ``generate`` with
+     1,500 seeded-normal frame rows before 4 x 32 prompt tokens, 64 new
+     (the masked attention 72 times a wave, 48 a micro-step).
+     In 12-15 every run is made twice and must repeat its tokens, launch
+     no kernel, call no plain version, call the masked attention exactly
+     as counted and emit in-vocabulary tokens; each prints tokens/s,
+     prefill_s, decode_s, the decode micro-step against its byte bound
+     (the weights a step reads, every expert for deepseek, plus the cache
+     it reads, over 3.35 TB/s) and peak memory; and one K=8 decode block
+     of each model runs under sync debug mode "error" (no host sync).
+  16. in f32 at full width cut in depth (deepseek: the dense layer and 1
+     MoE layer with 16 experts; mamba 4 layers; zamba 12 blocks, 2 sites;
+     whisper 4 + 4 layers): prefill and decode logits on the card against
+     the CPU, and static K=8 == K=1.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256, and
@@ -188,6 +215,22 @@ LLAVA_RUNS = {"a": (4, 512, 32), "b": (1, 31616, 64)}
 # of 2,048 tokens (past its 512-token window), 32 new
 PALIGEMMA_RUN = (4, 256, 256, 32)
 GEMMA_PROMPTS, GEMMA_NEW = (1024, 2048), 32
+# the last four families, at full width on the static engine:
+# deepseek-v2-236b cut to its dense first layer and 4 of its 59 MoE layers,
+# (a) a wave of 4 x 512 prompt tokens, 32 new, (b) one sequence of 32,128
+# prompt tokens (32,192 positions, llava's long context), 64 new
+DEEPSEEK_LAYERS = 5
+DEEPSEEK_RUNS = {"a": (4, 512, 32), "b": (1, 32128, 64)}
+# llava15-13b's KV bytes a position (fp16, 40 layers x 2 x 40 x 128)
+LLAVA_KV_POS_BYTES = 819200
+# mamba2-130m at all 24 layers: (a) 4 x 512, 32 new; (b) 1 x 32,768, 32 new
+MAMBA_RUNS = {"a": (4, 512, 32), "b": (1, 32768, 32)}
+# zamba2-2.7b at all 54 blocks: serve_bucketed on 4 prompts of 512 and 4 of
+# 1,024 tokens, 32 new
+ZAMBA_PROMPTS, ZAMBA_NEW = (512, 1024), 32
+# whisper-medium at 24 + 24 layers: 1,500 frame rows before 4 x 32 prompt
+# tokens, 64 new
+WHISPER_RUN = (4, 32, 64)
 
 
 def log(msg: str) -> None:
@@ -1578,7 +1621,7 @@ def static_vlm_run(torch, kern, cm, eng, label, run, new, want, n_masked):
             f"masked={masked} wall={wall:.1f}s")
     check(outs[0] == outs[1], f"{label}: a repeated run emitted other "
           f"tokens")
-    return dict(rows[0], repeat=rows[1])
+    return dict(rows[0], repeat=rows[1], tokens=outs[0])
 
 
 def serve_llava(torch, kern, tm, cm, ServeEngine, get_config):
@@ -1723,71 +1766,317 @@ def serve_gemma3(torch, kern, tm, cm, ServeEngine, get_config):
 
 
 def f32_masked_checks(torch, tm, ServeEngine, get_config):
-    """The three new families in f32 at full width, cut in depth (llava
-    and paligemma to 4 layers, gemma3 to 6, which keeps its first global
-    layer): prefill (the VLMs after seeded patch rows) and decode logits
-    on the card against the CPU, and static K=8 == K=1 on the card. The
-    gemma3 prompt (1,500 tokens) takes the masked attention's blocked
-    branch and its decode runs past the window."""
+    """The three VLM-phase families in f32 at full width, cut in depth
+    (llava and paligemma to 4 layers, gemma3 to 6, which keeps its first
+    global layer): ``f32_card_vs_cpu``. The gemma3 prompt (1,500 tokens)
+    takes the masked attention's blocked branch and its decode runs past
+    the window."""
+    return {arch: f32_card_vs_cpu(
+        torch, tm, ServeEngine,
+        dataclasses.replace(get_config(arch), n_layers=n_layers), B, P, S)
+        for arch, n_layers, B, P, S in (("llava15-13b", 4, 2, 64, 64),
+                                        ("paligemma-3b", 4, 2, 256, 32),
+                                        ("gemma3-1b", 6, 1, 0, 1500))}
+
+
+def f32_card_vs_cpu(torch, tm, ServeEngine, cfg, B, P, S):
+    """``cfg`` in f32 (the port's seeded init on the card): prefill of B x
+    S tokens (after P seeded-normal prefix rows: VLM patches or Whisper
+    frames) and 4 decode steps, logits on the card against the CPU; then
+    static K=8 == K=1 on the card (16 new tokens)."""
     import numpy as np
-    res = {}
-    for arch, n_layers, B, P, S in (("llava15-13b", 4, 2, 64, 64),
-                                    ("paligemma-3b", 4, 2, 256, 32),
-                                    ("gemma3-1b", 6, 1, 0, 1500)):
-        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        params = tm.init_params(cfg, gen, "float32", "cuda")
-        opts = tm.RuntimeOptions(dtype="float32")
-        rng = np.random.default_rng(4)
-        n_dec = 4
-        toks = rng.integers(1, cfg.vocab, size=(B, S + n_dec)).astype(
-            np.int32)
-        pfx = (rng.standard_normal((B, P, cfg.d_model), dtype=np.float32)
-               if P else None)
-        logits = {}
-        for dev in ("cuda", "cpu"):
-            p = params if dev == "cuda" else _to(params, "cpu")
-            cache = tm.init_cache(cfg, B, P + S + n_dec, opts, dev)
-            lg, cache = tm.prefill(
-                cfg, p, torch.as_tensor(toks[:, :S], device=dev), cache,
-                opts, None if pfx is None else torch.as_tensor(pfx,
-                                                               device=dev))
-            rows = [lg.float().cpu()]
-            for j in range(n_dec):
-                lg, cache = tm.decode_step(
-                    cfg, p, torch.as_tensor(toks[:, S + j], device=dev),
-                    P + S + j, cache, opts)
-                rows.append(lg.float().cpu())
-            logits[dev] = torch.stack(rows)
-            del p, cache
-        err = float((logits["cuda"] - logits["cpu"]).abs().max())
-        scale = float(logits["cpu"].abs().max())
-        check(err <= 2e-3 * max(scale, 1.0),
-              f"f32 {arch} ({n_layers} layers): card and CPU logits "
-              f"disagree by {err:.3g}")
-        outs = {}
-        for k in (1, 8):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = tm.init_params(cfg, gen, "float32", "cuda")
+    opts = tm.RuntimeOptions(dtype="float32")
+    rng = np.random.default_rng(4)
+    n_dec = 4
+    toks = rng.integers(1, cfg.vocab, size=(B, S + n_dec)).astype(np.int32)
+    pfx = (rng.standard_normal((B, P, cfg.d_model), dtype=np.float32)
+           if P else None)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _to(params, "cpu")
+        cache = tm.init_cache(cfg, B, P + S + n_dec, opts, dev)
+        lg, cache = tm.prefill(
+            cfg, p, torch.as_tensor(toks[:, :S], device=dev), cache, opts,
+            None if pfx is None else torch.as_tensor(pfx, device=dev))
+        rows = [lg.float().cpu()]
+        for j in range(n_dec):
+            lg, cache = tm.decode_step(
+                cfg, p, torch.as_tensor(toks[:, S + j], device=dev),
+                P + S + j, cache, opts)
+            rows.append(lg.float().cpu())
+        logits[dev] = torch.stack(rows)
+        del p, cache
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    check(err <= 2e-3 * max(scale, 1.0),
+          f"f32 {cfg.name} ({cfg.n_layers} layers): card and CPU logits "
+          f"disagree by {err:.3g}")
+    outs = {}
+    for k in (1, 8):
+        eng = ServeEngine(cfg, params, opts, device="cuda",
+                          scheduler="static", decode_lookahead=k,
+                          max_len=P + S + 16)
+        outs[k] = eng.generate(toks[:, :S], 16, prefix_emb=(
+            None if pfx is None else torch.as_tensor(pfx, device="cuda")))
+    check(outs[1] == outs[8], f"f32 {cfg.name}: static K=8 diverged from "
+          f"K=1")
+    log(f"f32 {cfg.name} ({cfg.n_layers} layers, full width): card vs CPU "
+        f"max |logit diff| = {err:.2e} (max |logit| {scale:.2f}); static "
+        f"K=8 == K=1 on {B} x 16 tokens")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(logit_err=err, logit_max=scale, n_layers=cfg.n_layers)
+
+
+# ------------- phases 12-16: MLA, Mamba-2, Zamba2 and Whisper ------------- #
+
+def sync_free_block(torch, tm, cfg, params, opts, label, B=2, S=64,
+                    frames=None):
+    """Prefill a B x S wave at full width (after ``frames`` for an
+    encoder-decoder), then run one K=8 fused decode block under sync debug
+    mode "error": a host sync inside it raises."""
+    P = 0 if frames is None else frames.shape[1]
+    cache = tm.init_cache(cfg, B, P + S + 9, opts, "cuda")
+    toks = torch.randint(1, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5), dtype=torch.int32)
+    logits, cache = tm.prefill(cfg, params, toks, cache, opts,
+                               None if frames is None else frames[:B])
+    tok = logits.argmax(dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blk, _ = tm.decode_steps(cfg, params, tok, P + S, cache, 8, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(((blk >= 0) & (blk < cfg.vocab)).all()),
+          f"{label}: the sync-free block emitted tokens outside the vocab")
+    log(f"{label}: no host sync in a K=8 decode block (B={B}, S={S})")
+    del cache
+
+
+def _bounded(label, row, w_bytes, cache_bytes):
+    """Attach and print a decode step's byte bound: the weights a step
+    reads plus the cache bytes it must move, over 3.35 TB/s."""
+    bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=bound_ms, weight_bytes=w_bytes,
+               cache_bytes=cache_bytes)
+    log(f"{label}: decode micro-step {row['step_ms']:.2f}ms (host clock, "
+        f"mean of {row['decode_steps']}) against its byte bound "
+        f"{bound_ms:.3f}ms ({w_bytes / 1e9:.2f} GB weights + "
+        f"{cache_bytes / 1e9:.3f} GB cache); tokens/s="
+        f"{row['tokens_per_s']:.1f}; peak {row['peak_bytes'] / 1e9:.2f} GB "
+        f"allocated")
+    return row
+
+
+def serve_deepseek(torch, kern, tm, cm, ServeEngine, get_config):
+    """deepseek-v2-236b at full width (d_model 5120, 128 heads, MLA ranks
+    512/1536, rope 64, 160 routed experts top-6 and 2 shared, vocab
+    102,400, untied head) cut to the dense first layer and 4 MoE layers,
+    bf16, the port's seeded init, through the static engine's
+    ``generate``: (a) native and int8 (the latent cache stays native, so
+    the tokens must equal native's), (b) native; each twice. The prompt
+    attends through the masked attention once a layer, decode in the
+    latent space; no kernel launches. Prints the latent cache's bytes at
+    32,192 positions beside llava15-13b's KV there. A decode step reads
+    every expert (the capacity dispatch pads each to C >= 1)."""
+    import numpy as np
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    L = cfg.n_layers
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    w_bytes = _param_bytes(params) - _param_bytes(params["embed"])
+    lat_pos = L * cfg.mla.cache_width * 2           # latent bytes a position
+    runs = {}
+    for key, (B, S, new) in DEEPSEEK_RUNS.items():
+        prompts = np.random.default_rng(21).integers(
+            1, cfg.vocab, size=(B, S)).astype(np.int32)
+        for policy in ("native", "int8") if key == "a" else ("native",):
             eng = ServeEngine(cfg, params, opts, device="cuda",
-                              scheduler="static", decode_lookahead=k,
-                              max_len=P + S + 16)
-            outs[k] = eng.generate(toks[:, :S], 16, prefix_emb=(
-                None if pfx is None else torch.as_tensor(pfx,
-                                                         device="cuda")))
-        check(outs[1] == outs[8], f"f32 {arch}: static K=8 diverged from "
-              f"K=1")
-        log(f"f32 {arch} ({n_layers} layers, full width): card vs CPU max "
-            f"|logit diff| = {err:.2e} (max |logit| {scale:.2f}); static "
-            f"K=8 == K=1 on {B} x 16 tokens")
-        res[arch] = dict(logit_err=err, logit_max=scale, n_layers=n_layers)
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
-    return res
+                              scheduler="static", kv_policy=policy,
+                              decode_lookahead=8, max_len=S + new)
+            label = f"deepseek ({key}) {policy}"
+            row = static_vlm_run(
+                torch, kern, cm, eng, label,
+                lambda eng=eng, prompts=prompts, new=new:
+                    eng.generate(prompts, new),
+                new, lambda s: {k: 0 for k in KERNELS}, lambda s: L)
+            mean_valid = S + (row["decode_steps"] + 1) / 2
+            runs[f"{key} {policy}"] = _bounded(
+                label, dict(row, B=B, positions=S), w_bytes,
+                B * cfg.d_model * 2 + B * mean_valid * lat_pos)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(runs["a int8"]["tokens"] == runs["a native"]["tokens"],
+          "deepseek: the int8 policy changed the tokens (MLA's latent cache "
+          "stays native)")
+    n_pos = sum(DEEPSEEK_RUNS["b"][1:])
+    lat = _param_bytes(tm.init_cache(cfg, 1, n_pos, opts, "cuda"))
+    per_layer = lat / (n_pos * L)
+    full_depth = get_config("deepseek-v2-236b").n_layers
+    log(f"deepseek latent cache at {n_pos} positions: {lat / 1e6:.1f} MB "
+        f"for {L} layers ({per_layer:.0f} B a position a layer; at all "
+        f"{full_depth} layers {per_layer * full_depth * n_pos / 1e9:.2f} GB) "
+        f"against llava15-13b's KV {LLAVA_KV_POS_BYTES * n_pos / 1e9:.2f} GB "
+        f"there")
+    sync_free_block(torch, tm, cfg, params, opts, "deepseek")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, n_layers=L, latent_bytes=lat, positions=n_pos,
+                latent_bytes_pos_layer=per_layer,
+                llava_kv_bytes=LLAVA_KV_POS_BYTES * n_pos)
+
+
+def serve_mamba(torch, kern, tm, cm, ServeEngine, get_config):
+    """mamba2-130m at full width and all 24 layers, bf16, through
+    ``generate``: (a) 4 x 512, (b) 1 x 32,768, 32 new, each twice; no
+    attention at all. The state a sequence is the same at both lengths."""
+    import numpy as np
+    cfg = get_config("mamba2-130m")
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    w_bytes = _param_bytes(params)           # the tied table is the logits' too
+    runs = {}
+    for key, (B, S, new) in MAMBA_RUNS.items():
+        prompts = np.random.default_rng(22).integers(
+            1, cfg.vocab, size=(B, S)).astype(np.int32)
+        eng = ServeEngine(cfg, params, opts, device="cuda",
+                          scheduler="static", decode_lookahead=8,
+                          max_len=S + new)
+        label = f"mamba ({key})"
+        row = static_vlm_run(torch, kern, cm, eng, label,
+                             lambda eng=eng, prompts=prompts, new=new:
+                                 eng.generate(prompts, new),
+                             new, lambda s: {k: 0 for k in KERNELS},
+                             lambda s: 0)
+        state = _param_bytes(tm.init_cache(cfg, B, S + new, opts, "cuda")) // B
+        log(f"{label}: cache {state} B a sequence at {S + new} positions")
+        # a step reads and writes each sequence's state once
+        runs[key] = _bounded(label, dict(row, B=B, positions=S,
+                                         state_bytes_per_seq=state),
+                             w_bytes, 2 * B * state)
+        del eng
+    check(runs["a"]["state_bytes_per_seq"] == runs["b"]["state_bytes_per_seq"],
+          "mamba: the state a sequence grew with the length")
+    sync_free_block(torch, tm, cfg, params, opts, "mamba")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, n_layers=cfg.n_layers)
+
+
+def serve_zamba(torch, kern, tm, cm, ServeEngine, get_config):
+    """zamba2-2.7b at full width, all 54 Mamba-2 blocks and 9 shared
+    attention sites, bf16: ``serve_bucketed`` on 4 prompts of 512 and 4 of
+    1,024 tokens, 32 new, native, twice. The masked attention runs once a
+    site: 9 times a wave and 9 times a micro-step."""
+    import numpy as np
+    from repro_torch.models import zamba
+    cfg = get_config("zamba2-2.7b")
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    n_sites = zamba._layout(cfg)[0]
+    rng = np.random.default_rng(23)
+    reqs = [rng.integers(1, cfg.vocab, size=n).tolist()
+            for n in ZAMBA_PROMPTS for _ in range(4)]
+    waves = len(ZAMBA_PROMPTS)
+    eng = ServeEngine(cfg, params, opts, device="cuda", scheduler="static",
+                      decode_lookahead=8,
+                      max_len=max(ZAMBA_PROMPTS) + ZAMBA_NEW)
+    row = static_vlm_run(torch, kern, cm, eng, "zamba native",
+                         lambda: eng.serve([r[:] for r in reqs], ZAMBA_NEW),
+                         ZAMBA_NEW, lambda s: {k: 0 for k in KERNELS},
+                         lambda s: n_sites * (waves + s.decode_steps))
+    # the mean over both waves of the KV a step reads (4 sequences, 9
+    # sites) and the Mamba states it reads and writes
+    steps = row["decode_steps"] / waves
+    kv_pos = n_sites * 2 * cfg.n_heads * cfg.head_dim * 2
+    states = _param_bytes(tm.init_cache(cfg, 4, 1, opts, "cuda")["mamba"])
+    kv = statistics.mean(4 * (S + (steps + 1) / 2) * kv_pos
+                         for S in ZAMBA_PROMPTS)
+    row = _bounded("zamba native", dict(row, sites=n_sites), _param_bytes(params),
+                   kv + 2 * states)
+    sync_free_block(torch, tm, cfg, params, opts, "zamba")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run=row, n_layers=cfg.n_layers, sites=n_sites)
+
+
+def serve_whisper(torch, kern, tm, cm, ServeEngine, get_config):
+    """whisper-medium at full width, 24 encoder and 24 decoder layers,
+    bf16: ``generate`` with 1,500 seeded-normal frame rows (the stub
+    frontend) before 4 x 32 prompt tokens, 64 new, twice. The masked
+    attention runs 72 times a wave (24 full in the encoder, 24 causal, 24
+    cross) and 48 times a micro-step. Decode positions start after the
+    frames, as in the reference (ROADMAP.md C4): a step reads 1,500 zero
+    rows of its self cache too."""
+    import numpy as np
+    cfg = get_config("whisper-medium")
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    L, P = cfg.n_layers, cfg.source_len
+    B, S, new = WHISPER_RUN
+    prompts = np.random.default_rng(24).integers(
+        1, cfg.vocab, size=(B, S)).astype(np.int32)
+    frames = torch.randn((B, P, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(24)).bfloat16()
+    eng = ServeEngine(cfg, params, opts, device="cuda", scheduler="static",
+                      decode_lookahead=8, max_len=P + S + new)
+    row = static_vlm_run(torch, kern, cm, eng, "whisper native",
+                         lambda: eng.generate(prompts, new,
+                                              prefix_emb=frames),
+                         new, lambda s: {k: 0 for k in KERNELS},
+                         lambda s: (cfg.enc_layers + 2 * L)
+                         + 2 * L * s.decode_steps)
+    # a step reads the decoder's weights and the tied table, its self KV
+    # up to its position and the cross KV of the frames
+    w_bytes = (_param_bytes(params["dec_stack"]) + _param_bytes(params["embed"])
+               + _param_bytes(params["ln_dec"]))
+    kv_pos = L * 2 * cfg.n_heads * cfg.head_dim * 2
+    mean_valid = S + P + (row["decode_steps"] + 1) / 2
+    row = _bounded("whisper native", dict(row, B=B, frames=P), w_bytes,
+                   B * (mean_valid + P) * kv_pos)
+    sync_free_block(torch, tm, cfg, params, opts, "whisper", frames=frames)
+    del eng, params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run=row, n_layers=L, enc_layers=cfg.enc_layers)
+
+
+def f32_family_checks(torch, tm, ServeEngine, get_config):
+    """The four families in f32 at full width, cut in depth: deepseek to
+    its dense layer and 1 MoE layer with 16 of its 160 experts, mamba to 4
+    layers, zamba to 12 blocks (2 sites), whisper to 4 + 4 layers (its
+    1,500 frames kept): prefill and decode logits on the card against the
+    CPU, and static K=8 == K=1 on the card."""
+    ds = get_config("deepseek-v2-236b")
+    cases = (
+        (dataclasses.replace(ds, n_layers=2, moe=dataclasses.replace(
+            ds.moe, n_experts=16)), 2, 0, 64),
+        (dataclasses.replace(get_config("mamba2-130m"), n_layers=4), 2, 0,
+         300),
+        (dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12), 2, 0,
+         300),
+        (dataclasses.replace(get_config("whisper-medium"), n_layers=4,
+                             enc_layers=4), 2, 1500, 16))
+    return {cfg.name: f32_card_vs_cpu(torch, tm, ServeEngine, cfg, B, P, S)
+            for cfg, B, P, S in cases}
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -1800,6 +2089,8 @@ def _layer(tree, i):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -1962,6 +2253,13 @@ def main() -> None:
     gemma3 = serve_gemma3(torch, kern, tm, cm, ServeEngine, get_config)
     f32_masked = f32_masked_checks(torch, tm, ServeEngine, get_config)
 
+    # ---- phases 12-16: MLA, Mamba-2, Zamba2, Whisper ----
+    deepseek = serve_deepseek(torch, kern, tm, cm, ServeEngine, get_config)
+    mamba = serve_mamba(torch, kern, tm, cm, ServeEngine, get_config)
+    zamba = serve_zamba(torch, kern, tm, cm, ServeEngine, get_config)
+    whisper = serve_whisper(torch, kern, tm, cm, ServeEngine, get_config)
+    f32_families = f32_family_checks(torch, tm, ServeEngine, get_config)
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -2044,6 +2342,8 @@ def main() -> None:
             f32_logit_err=f32_err, f32_static=f32_static, arctic=arctic,
             arctic_launches=arctic_launches, llava=llava,
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
+            deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
+            f32_families=f32_families,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

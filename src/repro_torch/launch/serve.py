@@ -29,13 +29,18 @@ speculative).
     # tokens attend bidirectionally) or local:global layers, static only
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llava15-13b \\
         --reduced --device cpu
+    # MLA with a dense first layer, Mamba-2, the Zamba2 hybrid: static only
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --reduced --device cpu
 
 The flags and their destinations are the reference CLI's
 (``repro/launch/serve.py``). What the port does not run yet (``--shards``
-> 1, the MLA, SSM, hybrid and encoder-decoder families) and what the
-reference's paged path refuses too (VLM, sliding-window and soft-capped
-configs under ``--scheduler continuous``) is rejected by the engine with
-``NotImplementedError``.
+> 1) and what the reference's paged path refuses too (every family but
+the dense and MoE GQA decoders, and sliding-window and soft-capped configs,
+under ``--scheduler continuous``) is rejected by the engine with
+``NotImplementedError``. An encoder-decoder (whisper-medium) needs frame
+embeddings, which the CLI has no flag for (nor has the reference's): it
+raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -195,6 +200,13 @@ def main(argv=None) -> None:
                       layer_overlap=args.layer_overlap,
                       writeback_link=args.writeback_link)
 
+    if cfg.family == "encdec":
+        # the reference's CLI passes no frames either, and its encoder
+        # then fails on None (AttributeError); say why here instead
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: this CLI has no frame "
+            f"embeddings (prefix_emb) to encode; serve it through "
+            f"ServeEngine.generate(prompts, n, prefix_emb=frames)")
     rng = np.random.default_rng(args.seed)
     doc = rng.integers(1, cfg.vocab, size=args.shared_doc).tolist()
     if args.concurrency:

@@ -1,17 +1,19 @@
-"""The port's decoder-only LM, dense or mixture-of-experts (PyTorch):
-the model surfaces of the continuous engine (paged KV pool) and of the
-static engine (dense cache)."""
-from repro_torch.models.api import decode_steps, forward, module_for, prefill
+"""The port's model zoo (PyTorch): the decoder-only LM (dense, MoE, MLA,
+VLM; the continuous engine's paged surfaces and the static engine's dense
+cache), the Mamba-2 LM, the Zamba2 hybrid and the Whisper
+encoder-decoder (static engine), behind the family dispatch of
+``models.api``."""
+from repro_torch.models.api import (decode_step, decode_steps, forward,
+                                    init_cache, init_params, module_for,
+                                    paged_supported, prefill,
+                                    static_supported)
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.lm import (RuntimeOptions, copy_pages, decode_step,
+from repro_torch.models.lm import (RuntimeOptions, copy_pages,
                                    decode_step_paged, decode_steps_paged,
-                                   decode_verify_paged, init_cache,
-                                   init_paged_cache, init_params,
+                                   decode_verify_paged, init_paged_cache,
                                    layer_dma_slices, page_layer_nbytes,
-                                   paged_supported,
                                    prefill_paged_chunk, resolve_device,
-                                   spec_decode_verify, static_supported,
-                                   torch_dtype)
+                                   spec_decode_verify, torch_dtype)
 
 __all__ = ["RuntimeOptions", "copy_pages", "decode_step", "decode_step_paged",
            "decode_steps", "decode_steps_paged", "decode_verify_paged",

@@ -2,10 +2,12 @@
 the fused K-step decode over the dense cache (the reference is
 ``repro/models/api.py``).
 
-The dense, mixture-of-experts and VLM decoder families run
-(``models/lm.py``; a VLM is its decoder with a stub frontend's
-``prefix_emb`` prepended, on the static engine); ``module_for`` raises
-for the others, naming the ROADMAP.md item that will port them.
+Families: dense | moe | vlm -> ``models/lm.py`` (MLA and DeepSeek-V2's
+dense prefix layer included; a VLM is its decoder with a stub frontend's
+``prefix_emb`` prepended); ssm -> ``models/mamba_lm.py``; hybrid ->
+``models/zamba.py``; encdec -> ``models/whisper.py`` (``prefix_emb`` is
+its frame embeddings). Every family runs on the static dense-cache path;
+only ``lm``'s dense and MoE decoders have the paged path.
 """
 from __future__ import annotations
 
@@ -14,36 +16,72 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
-from repro_torch.models import sampling
+from repro_torch.models import lm, mamba_lm, sampling, whisper, zamba
 from repro_torch.models.lm import RuntimeOptions
 
-_MODS = {"dense": lm, "moe": lm, "vlm": lm}
+_MODS = {"dense": lm, "moe": lm, "vlm": lm, "ssm": mamba_lm,
+         "hybrid": zamba, "encdec": whisper}
 
 
 def module_for(cfg: ArchConfig):
-    mod = _MODS.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A, "
-            f"item 10)")
-    return mod
+    return _MODS[cfg.family]
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype="bfloat16", device="cuda"):
+    """Random weights of ``cfg``'s family from ``generator``, in the
+    reference's layout (to share the reference's weights, convert them
+    with ``models.convert.params_from_numpy``)."""
+    return module_for(cfg).init_params(cfg, generator, dtype, device)
+
+
+def static_supported(cfg: ArchConfig) -> Optional[str]:
+    """None when the static dense-cache path runs ``cfg``; else why not."""
+    fn = getattr(module_for(cfg), "static_supported", None)
+    return fn(cfg) if fn is not None else None
+
+
+def paged_supported(cfg: ArchConfig) -> Optional[str]:
+    """None when the paged path runs ``cfg``; else the reference's
+    reason."""
+    mod = module_for(cfg)
+    if not hasattr(mod, "paged_supported"):
+        return f"family {cfg.family!r} has no paged serving path"
+    return mod.paged_supported(cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               opts: RuntimeOptions = RuntimeOptions(), device="cuda"):
+    """The family's static cache for ``batch`` sequences of up to
+    ``max_len`` positions."""
+    return module_for(cfg).init_cache(cfg, batch, max_len, opts, device)
+
+
+def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+                opts: RuntimeOptions = RuntimeOptions()):
+    """One token a sequence at the host position ``pos``: (logits, cache
+    updated in place)."""
+    return module_for(cfg).decode_step(cfg, params, token, pos, cache, opts)
 
 
 def forward(cfg: ArchConfig, params, tokens,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None, *,
             collect_kv: bool = False):
-    """Full-sequence forward of ``cfg``'s family; ``prefix_emb`` (B, P, d),
-    a stub frontend's output (VLM patches), is prepended to the token
-    embeddings."""
-    return module_for(cfg).forward(cfg, params, tokens, opts, prefix_emb,
-                                   collect_kv=collect_kv)
+    """Full-sequence logits of ``cfg``'s family; ``prefix_emb`` (B, P, d),
+    a stub frontend's output, is prepended to a decoder's token
+    embeddings (VLM patches) or encoded (Whisper's frames).
+    ``collect_kv`` (decoder-only LMs) also returns each layer's KV."""
+    if collect_kv:
+        return module_for(cfg).forward(cfg, params, tokens, opts, prefix_emb,
+                                       collect_kv=True)
+    return module_for(cfg).forward(cfg, params, tokens, opts, prefix_emb)
 
 
 def prefill(cfg: ArchConfig, params, tokens, cache,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
-    """Run the prompt (after ``prefix_emb`` when given), fill the dense
-    cache and return (last-position logits, cache)."""
+    """Run the prompt (after ``prefix_emb`` when given, or over Whisper's
+    encoded frames), fill the cache and return (last-position logits,
+    cache)."""
     return module_for(cfg).prefill(cfg, params, tokens, cache, opts,
                                    prefix_emb=prefix_emb)
 

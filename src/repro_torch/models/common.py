@@ -1,6 +1,7 @@
-"""Shared PyTorch building blocks of the serving paths: dense layers,
-RMSNorm, rotary embeddings, the SwiGLU activation, the dense-cache write
-and the general masked attention (lazy causal, sliding-window, prefix-LM
+"""Shared PyTorch building blocks of the serving paths: dense layers
+(with or without a bias), the embedding table, RMSNorm and LayerNorm,
+rotary and sinusoidal position embeddings, the SwiGLU activation, the
+dense-cache write and the general masked attention (lazy causal, sliding-window, prefix-LM
 and full masks, soft-capping, a query offset and a valid length).
 
 Parameters are plain dicts of tensors in the reference package's layout
@@ -40,12 +41,39 @@ def dense(p, x):
     return y
 
 
+def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
+               device):
+    """{"emb": (vocab, d)} drawn Normal(0, 0.02) in f32, then cast."""
+    emb = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                      device=generator.device) * 0.02
+    return {"emb": emb.to(device=device, dtype=dtype)}
+
+
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm in f32 with the ``(1 + w)`` gain; returns x's dtype."""
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm in f32 (biased variance); returns x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def sinusoid(n: int, d: int, device=None):
+    """(n, d) f32 sinusoidal positions: sin of the first d/2 angles, then
+    their cos (Whisper's encoder table)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):

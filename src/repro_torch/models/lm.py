@@ -4,11 +4,15 @@ copy-on-write) and over a dense per-sequence cache (the static engine's
 full-prompt prefill and decode).
 
 The reference is ``repro/models/lm.py`` (its dense GQA/MHA decoders,
-with local:global and prefix-LM masking, its VLM stream and its
+with local:global and prefix-LM masking, its VLM stream, its
 mixture-of-experts stacks, whose layers hold a ``moe`` subtree in
-place of ``mlp``: ``models/moe.py``). Parameters keep its layout:
-``params["stack"]`` carries a leading ``n_layers`` axis and the layer
-loop indexes it. Unlike the reference, the
+place of ``mlp``: ``models/moe.py``, and its multi-head latent attention:
+``models/mla.py``). Parameters keep its layout:
+``params["stack"]`` carries a leading axis of the stacked layers and the
+layer loop indexes it; layers of another shape before the stack
+(DeepSeek-V2's dense first layer before its MoE stack) are a list,
+``params["head_layers"]``, with their caches in ``cache["head"]``, on the
+static path only. Unlike the reference, the
 caches are updated in place: a prefill or decode step writes its KV into
 the cache tensors it was given and returns the same cache dict.
 
@@ -52,6 +56,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import decode_attention as kern
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.models import common as cm
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sampling as sampling_mod
 
@@ -92,9 +97,10 @@ def resolve_device(device) -> torch.device:
 
 # ------------------------------- params --------------------------------- #
 
-def _init_layer(generator, cfg: ArchConfig, dtype, device):
-    """One layer's norms and attention, and its dense FFN unless the stack
-    is MoE (``init_params`` adds the stacked ``moe`` subtree then)."""
+def _init_layer(generator, cfg: ArchConfig, dtype, device, d_ff: int):
+    """One layer's norms and attention (MLA where the config has it), and
+    a dense FFN of ``d_ff`` unless ``d_ff`` is 0 (an MoE stack's layer:
+    ``init_params`` adds the stacked ``moe`` subtree then)."""
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     b = cfg.qkv_bias
 
@@ -103,13 +109,22 @@ def _init_layer(generator, cfg: ArchConfig, dtype, device):
     p = {
         "ln1": torch.zeros((d,), dtype=dtype, device=device),
         "ln2": torch.zeros((d,), dtype=dtype, device=device),
-        "attn": {"wq": lin(d, H * hd, b), "wk": lin(d, Hkv * hd, b),
-                 "wv": lin(d, Hkv * hd, b), "wo": lin(H * hd, d)},
     }
-    if cfg.moe is None:
-        p["mlp"] = moe_mod.init_dense_ffn(generator, cfg, cfg.d_ff, dtype,
-                                          device)
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.init_mla(generator, cfg, dtype, device)
+    else:
+        p["attn"] = {"wq": lin(d, H * hd, b), "wk": lin(d, Hkv * hd, b),
+                     "wv": lin(d, Hkv * hd, b), "wo": lin(H * hd, d)}
+    if d_ff:
+        p["mlp"] = moe_mod.init_dense_ffn(generator, cfg, d_ff, dtype, device)
     return p
+
+
+def _layer_split(cfg: ArchConfig):
+    """(unstacked prefix layers, whether the stack is MoE)."""
+    if cfg.moe is not None and cfg.moe.first_dense:
+        return cfg.moe.first_dense, True
+    return 0, cfg.moe is not None
 
 
 def _stack(trees):
@@ -123,21 +138,29 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
     """Random weights from ``generator`` in the reference layout. The draws
     are PyTorch's, not JAX's: to share weights with the reference package,
     convert its params with ``models.convert.params_from_numpy``."""
-    reason = _family_supported(cfg)
+    reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    emb = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                      dtype=torch.float32, device=generator.device) * 0.02
-    params = {"embed": {"emb": emb.to(device=device, dtype=dtype)},
+    n_pre, stack_moe = _layer_split(cfg)
+    n_stack = cfg.n_layers - n_pre
+    params = {"embed": cm.embed_init(generator, cfg.vocab, cfg.d_model,
+                                     dtype, device),
               "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
                                         device=device)}
-    params["stack"] = _stack([_init_layer(generator, cfg, dtype, device)
-                              for _ in range(cfg.n_layers)])
-    if cfg.moe is not None:
-        params["stack"]["moe"] = moe_mod.init_moe(generator, cfg,
-                                                  cfg.n_layers, dtype, device)
+    if n_pre:
+        params["head_layers"] = [
+            _init_layer(generator, cfg, dtype, device,
+                        cfg.moe.d_ff_dense or cfg.d_ff)
+            for _ in range(n_pre)]
+    params["stack"] = _stack([
+        _init_layer(generator, cfg, dtype, device,
+                    0 if stack_moe else cfg.d_ff)
+        for _ in range(n_stack)])
+    if stack_moe:
+        params["stack"]["moe"] = moe_mod.init_moe(generator, cfg, n_stack,
+                                                  dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(generator, cfg.d_model, cfg.vocab,
                                           dtype, device,
@@ -188,39 +211,35 @@ def _embed_tokens(cfg, params, tokens, prefix_emb=None):
 # masked by length, writes land on data nobody consumes).
 
 
-def _family_supported(cfg: ArchConfig) -> Optional[str]:
-    """None for a dense, MoE or VLM GQA/MHA decoder whose layers all share
-    one shape; else why not, naming the ROADMAP.md item that will port
-    it."""
-    if cfg.mla is not None:
-        return ("MLA latent caches are not ported yet (ROADMAP.md queue A, "
-                "item 10)")
+def static_supported(cfg: ArchConfig) -> Optional[str]:
+    """None when this module's static dense-cache path runs ``cfg`` (the
+    dense, MoE and VLM decoders, MLA and unstacked prefix layers
+    included); else why not."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        return (f"family {cfg.family!r} is not ported yet (ROADMAP.md queue "
-                f"A, item 10)")
-    if cfg.moe is not None and cfg.moe.first_dense:
-        # the reference's paged path refuses its unscanned prefix layers
-        # too; only deepseek-v2 has them, and it is MLA
-        return ("dense prefix layers before the MoE stack (moe.first_dense) "
-                "are not ported yet (ROADMAP.md queue A, item 10)")
+        return (f"family {cfg.family!r} is not a decoder-only LM: "
+                f"models.api.module_for gives its module")
     return None
 
 
 def paged_supported(cfg: ArchConfig) -> Optional[str]:
-    """None when the port's paged path runs ``cfg``; else why not, naming
-    the ROADMAP.md item that will port it."""
-    reason = _family_supported(cfg)
-    if reason:
-        return reason
+    """None when the paged path runs ``cfg``; else why not: the
+    reference's reasons, in its order, and soft-capping, which the
+    reference's paged path would hand to kernels without a soft-cap."""
+    if cfg.mla is not None:
+        return "MLA latent cache is already compressed; paged path covers GQA"
     if cfg.family not in ("dense", "moe"):
         # the reference's rule: its VLM stream runs on the dense cache only
         return f"family {cfg.family!r} is not covered by the paged KV path"
+    if _layer_split(cfg)[0]:
+        return "unscanned prefix layers not supported by the paged cache"
     if cfg.sliding_window:
         return ("sliding-window layers need windowed page masking, which the "
                 "reference's paged path lacks too")
+    if cfg.enc_layers:
+        return "cross-attention caches are not paged"
     if cfg.logit_softcap:
-        return ("logit soft-capping is not in the paged kernels (ROADMAP.md "
-                "queue A, item 10)")
+        return ("logit soft-capping is not in the paged kernels, and the "
+                "reference's paged path would drop it")
     return None
 
 
@@ -611,11 +630,10 @@ def spec_decode_verify(cfg: ArchConfig, params, tokens, draft_len, seq_lens,
 # the dense decode kernel (kv_valid = pos + 1, the reference's causal
 # attention at q_offset = pos) for a layer with neither a window nor a
 # soft-cap; the general masked attention (``common.attention``) for the
-# rest (prefix-LM prompts, sliding-window and soft-capped layers).
-
-
-# None when the static dense-cache path runs ``cfg``; else why not
-static_supported = _family_supported
+# rest (prefix-LM prompts, sliding-window and soft-capped layers). MLA
+# layers (``models/mla.py``) attend the prompt through the masked
+# attention and decode in the latent space, as the reference does; their
+# cache is the latent, whatever ``cache_dtype`` says.
 
 
 def _kind_array(cfg: ArchConfig, start: int, n: int):
@@ -624,6 +642,21 @@ def _kind_array(cfg: ArchConfig, start: int, n: int):
     gemma3's layer i is global when i % 6 == 5)."""
     return [1 if cfg.attention_kind(start + i) == "local" else 0
             for i in range(n)]
+
+
+def _layers(cfg: ArchConfig, params, cache=None):
+    """(layer params, layer cache or None, kind) of every layer in order:
+    the unstacked prefix layers (kind 0, as in the reference), then the
+    stack's."""
+    n_pre = len(params.get("head_layers", []))
+    n_stack = cfg.n_layers - n_pre
+    out = [(lp, None if cache is None else cache["head"][i], 0)
+           for i, lp in enumerate(params.get("head_layers", []))]
+    for i, kind in enumerate(_kind_array(cfg, n_pre, n_stack)):
+        out.append((_layer(params["stack"], i),
+                     None if cache is None else _layer(cache["stack"], i),
+                     kind))
+    return out
 
 
 def _prompt_mask(cfg: ArchConfig, kind: int):
@@ -659,9 +692,13 @@ def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int):
     return cm.dense(p["wo"], out.reshape(B, S, H * hd)), (k, v)
 
 
-def _block(lp, x, cfg: ArchConfig, rope, opts: RuntimeOptions, kind: int):
-    h, kv = _attn_apply(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg, rope,
-                        kind)
+def _block(lp, x, cfg: ArchConfig, rope, positions, opts: RuntimeOptions,
+           kind: int):
+    xn = cm.rms_norm(x, lp["ln1"])
+    if cfg.mla is not None:
+        h, kv = mla_mod.mla_prefill_attn(lp["attn"], xn, cfg, positions)
+    else:
+        h, kv = _attn_apply(lp["attn"], xn, cfg, rope, kind)
     x = x + h
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts), kv
 
@@ -669,21 +706,21 @@ def _block(lp, x, cfg: ArchConfig, rope, opts: RuntimeOptions, kind: int):
 def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
             prefix_emb=None, on_kv=None):
     """The final residual stream (B, P + S, d) of a full-prompt forward
-    (``prefix_emb`` (B, P, d) prepended). Each layer's (k, v) goes to
-    ``on_kv(i, k, v)`` as the layer finishes, so no more than one layer's
-    KV is held beside the cache."""
+    (``prefix_emb`` (B, P, d) prepended). Each layer's cache entry ((k, v),
+    or an MLA layer's (c, k_rope)) goes to ``on_kv(i, a, b)`` as the layer
+    finishes, so no more than one layer's KV is held beside the cache."""
     reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
     x = _embed_tokens(cfg, params, tokens, prefix_emb)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    rope = cm.rope_cos_sin(positions, cfg.head_dim)
-    for i, kind in enumerate(_kind_array(cfg, 0, cfg.n_layers)):
-        x, (k, v) = _block(_layer(params["stack"], i), x, cfg, rope, opts,
-                           kind)
+    rope = (cm.rope_cos_sin(positions, cfg.head_dim) if cfg.mla is None
+            else None)
+    for i, (lp, _, kind) in enumerate(_layers(cfg, params)):
+        x, (a, b) = _block(lp, x, cfg, rope, positions, opts, kind)
         if on_kv is not None:
-            on_kv(i, k, v)
+            on_kv(i, a, b)
     return x
 
 
@@ -692,9 +729,10 @@ def forward(cfg: ArchConfig, params, tokens,
             collect_kv: bool = False):
     """Full-sequence forward. tokens: (B, S) int32; prefix_emb: (B, P, d)
     stub frontend output (VLM patches), prepended, or None. Returns logits
-    (B, P + S, vocab), or (logits, kvs) with ``collect_kv``: one (k, v)
-    pair of (B, P + S, Hkv, dh) per layer, k rotated (the reference
-    returns the same pairs stacked on a leading layer axis)."""
+    (B, P + S, vocab), or (logits, kvs) with ``collect_kv``: one pair a
+    layer in order, (k, v) of (B, P + S, Hkv, dh) with k rotated, or an
+    MLA layer's (c, k_rope) (the reference returns the prefix layers'
+    pairs in a list and the stack's stacked on a leading layer axis)."""
     kvs = []
     x = _hidden(cfg, params, tokens, opts, prefix_emb,
                 (lambda i, k, v: kvs.append((k, v))) if collect_kv else None)
@@ -702,27 +740,49 @@ def forward(cfg: ArchConfig, params, tokens,
     return (logits, kvs) if collect_kv else logits
 
 
+def _layer_cache(cfg: ArchConfig, opts: RuntimeOptions, batch: int,
+                 max_len: int, device, n_layers=None):
+    """One layer's dense cache, or with ``n_layers`` the stack's, on a
+    leading layer axis: MLA's latent in the activation dtype (int8 does not
+    apply: the latent is the compressed cache), else k and v (B, Lmax, Hkv,
+    dh) in ``cache_dtype`` with per-kv-head f32 scales for int8."""
+    if cfg.mla is not None:
+        return mla_mod.init_mla_cache(cfg, batch, max_len, opts.tdtype,
+                                      device, n_layers)
+    lead = () if n_layers is None else (n_layers,)
+    quant = opts.cache_dtype == "int8"
+    dtype = torch_dtype(opts.cache_dtype or opts.dtype)
+    shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.ones((*lead, cfg.n_kv_heads),
+                                 dtype=torch.float32, device=device)
+    return c
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                opts: RuntimeOptions = RuntimeOptions(), device="cuda"):
-    """Dense KV cache: (n_layers, batch, max_len, Hkv, dh) per k/v.
+    """Dense KV cache: ``{"stack": ...}`` with (n_stacked, batch, max_len,
+    Hkv, dh) per k/v, and ``"head"``, one layer's cache per unstacked
+    prefix layer, where the config has them. MLA layers cache the latent
+    ((.., batch, max_len, kv_lora_rank) and the rope key).
 
     ``opts.cache_dtype='int8'`` stores int8 with per-(layer, kv-head) f32
-    scales, which each prefill sets afresh from its prompt."""
+    scales, which each prefill sets afresh from its prompt (not for MLA,
+    as in the reference)."""
     reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(f"dense KV cache: {reason}")
     device = resolve_device(device)
-    quant = opts.cache_dtype == "int8"
-    dtype = torch_dtype(opts.cache_dtype or opts.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if quant:
-        c["k_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
-                                  dtype=torch.float32, device=device)
-        c["v_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
-                                  dtype=torch.float32, device=device)
-    return {"stack": c}
+    n_pre, _ = _layer_split(cfg)
+    cache = {"stack": _layer_cache(cfg, opts, batch, max_len, device,
+                                   cfg.n_layers - n_pre)}
+    if n_pre:
+        cache["head"] = [_layer_cache(cfg, opts, batch, max_len, device)
+                         for _ in range(n_pre)]
+    return cache
 
 
 def prefill(cfg: ArchConfig, params, tokens, cache,
@@ -730,17 +790,23 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     """Run the prompt (B, S) after ``prefix_emb`` (B, P, d) when given,
     write each layer's KV at positions [0, P + S) of the dense cache in
     place as the layer finishes (int8: quantized with fresh per-layer
-    scales from this prompt), and return (last-position logits (B,
-    vocab), cache)."""
-    st = cache["stack"]
+    scales from this prompt; MLA: the latent and rope key), and return
+    (last-position logits (B, vocab), cache)."""
+    layer_caches = [cl for _, cl, _ in _layers(cfg, params, cache)]
 
     def write(i, k, v):
-        if "k_scale" in st:
+        cl = layer_caches[i]
+        if "c" in cl:
+            S = k.shape[1]
+            cl["c"][:, :S] = k.to(cl["c"].dtype)
+            cl["k_rope"][:, :S] = v.to(cl["k_rope"].dtype)
+            return
+        if "k_scale" in cl:
             ksc, vsc = _amax_scale(k, (0, 1, 3)), _amax_scale(v, (0, 1, 3))
-            st["k_scale"][i].copy_(ksc)
-            st["v_scale"][i].copy_(vsc)
+            cl["k_scale"].copy_(ksc)
+            cl["v_scale"].copy_(vsc)
             k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
-        cm.update_cache(st["k"][i], st["v"][i], k, v, 0)
+        cm.update_cache(cl["k"], cl["v"], k, v, 0)
     x = _hidden(cfg, params, tokens, opts, prefix_emb, write)
     return _logits(cfg, params, x[:, -1]), cache
 
@@ -781,8 +847,13 @@ def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
 
 def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
                   kv_valid, opts: RuntimeOptions, kind: int):
-    x = x + _decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                         cache_layer, pos, rope, kv_valid, kind)
+    xn = cm.rms_norm(x, lp["ln1"])
+    if cfg.mla is not None:
+        x = x + mla_mod.mla_decode_attn(lp["attn"], xn, cfg, cache_layer,
+                                        pos)
+    else:
+        x = x + _decode_attn(lp["attn"], xn, cfg, cache_layer, pos, rope,
+                             kv_valid, kind)
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
 
 
@@ -793,11 +864,13 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
     (logits (B, vocab), cache) with the cache updated in place."""
     B = token.shape[0]
     x = _embed_tokens(cfg, params, token[:, None])
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    rope = cm.rope_cos_sin(positions, cfg.head_dim)
-    kv_valid = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
-    st = cache["stack"]
-    for i, kind in enumerate(_kind_array(cfg, 0, cfg.n_layers)):
-        x = _decode_block(_layer(params["stack"], i), x, cfg, _layer(st, i),
-                          pos, rope, kv_valid, opts, kind)
+    rope = kv_valid = None
+    if cfg.mla is None:
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        rope = cm.rope_cos_sin(positions, cfg.head_dim)
+        kv_valid = torch.full((B,), pos + 1, dtype=torch.int32,
+                              device=x.device)
+    for lp, cl, kind in _layers(cfg, params, cache):
+        x = _decode_block(lp, x, cfg, cl, pos, rope, kv_valid, opts, kind)
     return _logits(cfg, params, x)[:, 0], cache

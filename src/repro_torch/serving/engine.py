@@ -30,10 +30,12 @@ pull (or a ``torch.cuda.synchronize()``) that ends it: ``prefill_s``,
 
 Both engines serve the dense and the mixture-of-experts decoders (causal
 GQA/MHA attention; the MoE FFN's dispatch is ``RuntimeOptions.moe_impl``,
-capacity-dropped by default as in the reference). Not ported yet, and
-rejected with ``NotImplementedError``: head-sharded serving (ROADMAP.md
-A9) and other families or attention masks, MLA and dense prefix layers
-included (A10).
+capacity-dropped by default as in the reference). The static engine also
+serves every other family of ``models.api``: the VLMs, MLA with
+DeepSeek-V2's dense prefix layer, Mamba-2, the Zamba2 hybrid and the
+Whisper encoder-decoder; the continuous engine refuses them with the
+reference's ``paged_supported`` reasons. Head-sharded serving (ROADMAP.md
+A9) is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -363,8 +365,14 @@ class ServeEngine:
                  greedy: bool = True, seed: int = 0,
                  noise=None) -> List[List[int]]:
         """One static wave. prompts: (B, S) int array (equal lengths);
-        prefix_emb: (B, P, d) stub frontend output (VLM patches) prepended
-        to every prompt's embeddings, or None (it counts toward max_len).
+        prefix_emb: (B, P, d) stub frontend output, or None: VLM patches
+        prepended to every prompt's embeddings, or an encoder-decoder's
+        frames. It counts toward max_len, and decode positions start after
+        it for every family, as in the reference: so an encoder-decoder
+        decodes at S + P onward, P zero rows of its self cache stay inside
+        the causal mask and its learned positions are read P rows late
+        (ROADMAP.md queue C records this fault of the reference, which the
+        port keeps to stay token-identical).
 
         Greedy decode runs in fused K-step blocks (``models.decode_steps``,
         K = ``decode_lookahead``): the host pulls one (B, K) token block a

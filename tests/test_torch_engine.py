@@ -185,8 +185,15 @@ def test_off_path_options_raise(models, arch, kw, item):
 
 
 def test_off_path_families_raise():
-    # arctic-480b (MoE) is served since the MoE FFN was ported
-    for arch in ("deepseek-v2-236b", "mamba2-130m"):
+    # arctic-480b (MoE) is served since the MoE FFN was ported; MLA and
+    # Mamba-2 run on the static engine, and the continuous engine refuses
+    # them with the reference's paged_supported reasons
+    for arch, reason in (("deepseek-v2-236b", "MLA latent cache is already "
+                          "compressed"),
+                         ("mamba2-130m", "family 'ssm' has no paged serving "
+                          "path")):
         cfg = treduced(tget(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert tm.static_supported(cfg) is None
+        with pytest.raises(NotImplementedError, match=reason):
             ServeEngine(cfg, device="cpu")
+        ServeEngine(cfg, device="cpu", scheduler="static")

@@ -255,15 +255,16 @@ def test_static_supported_names_roadmap_items():
     # the VLMs, prefix-LM, local:global and soft-capped configs
     for arch in ("llava15-13b", "paligemma-3b", "gemma3-1b"):
         assert tm.static_supported(tget(arch)) is None, arch
-    for arch, item in [("whisper-medium", "10"), ("zamba2-2.7b", "10"),
-                       ("deepseek-v2-236b", "10"), ("mamba2-130m", "10")]:
-        reason = tm.static_supported(tget(arch))
-        assert reason and f"item {item}" in reason, (arch, reason)
+    # the last four families (ROADMAP.md A10.3), each through its module
+    from repro_torch.models import mamba_lm, whisper, zamba
+    for arch, mod in [("whisper-medium", whisper), ("zamba2-2.7b", zamba),
+                      ("deepseek-v2-236b", tlm), ("mamba2-130m", mamba_lm)]:
+        assert tm.static_supported(tget(arch)) is None, arch
+        assert tm.module_for(tget(arch)) is mod, arch
     assert tm.module_for(tget("arctic-480b")) is tlm
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.module_for(tget("mamba2-130m"))
+    assert tm.module_for(tget("mamba2-130m")) is mamba_lm
     assert tm.module_for(tget("qwen2.5-3b")).static_supported is \
-        tm.static_supported
+        tlm.static_supported
 
 
 def test_forward_collect_kv_matches(model):
