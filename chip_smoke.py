@@ -7,7 +7,9 @@ NVIDIA GPU. Run from the root of a checkout:
 To compare two checkouts on one card, ``--kernels-only --src DIR`` runs
 only phase 3 (every kernel entry's checks and times) and the three paged
 profiles of phase 4 on the ``repro_torch`` under DIR, and prints no
-result line.
+result line. ``--sharded-only`` builds the kernels and runs only phase 17;
+on a machine with a card for every rank (four), its ranks take a card each
+over nccl. It prints no result line either.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -156,10 +158,26 @@ Phases (any failure exits non-zero before the result line):
      MoE layer with 16 experts; mamba 4 layers; zamba 12 blocks, 2 sites;
      whisper 4 + 4 layers): prefill and decode logits on the card against
      the CPU, and static K=8 == K=1.
+  17. head-sharded continuous serving (``ServeEngine(shards=N)``):
+     llama3.2-1b at full width (bf16, 32 KV heads, page 16, K=8), 8 of
+     phase 4's requests with 32 new tokens, at 2 shards (native, int8,
+     n-gram k=4) and at 4 (native), the ranks spawned here
+     (``launch.ranks.run_ranks``) and sharing the one card over gloo
+     (nccl where every rank has a card). Every rank's tokens must equal a
+     shards=1 run's on the same card, its pool bytes be 1/N of them, its
+     trace reconcile and its pages be freed; on each rank the paged
+     decode, chunk and verify kernels must launch exactly n_layers times a
+     micro-step, prefill chunk and verify pass, on pools of Hkv/N heads,
+     with no plain version; and a decode step, a prefill chunk and a
+     verify window (bf16 and int8) gathered over the head shards must be
+     bitwise the whole pool's call. Prints each run's tokens/s and decode
+     step, the backend and the rank-to-device map; then checks and times
+     the three paged entries at a shard's shapes.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
-decode at llava's long context and at paligemma's head width 256, and
-flash at llava's group 1) and, last, the device JSON line.
+decode at llava's long context and at paligemma's head width 256,
+flash at llava's group 1, and the paged entries at a head shard of 2
+and 4) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -231,6 +249,12 @@ ZAMBA_PROMPTS, ZAMBA_NEW = (512, 1024), 32
 # whisper-medium at 24 + 24 layers: 1,500 frame rows before 4 x 32 prompt
 # tokens, 64 new
 WHISPER_RUN = (4, 32, 64)
+# the head-sharded phase: llama3.2-1b at full width on the continuous
+# engine, 8 of phase 4's requests with 32 new tokens, at 2 shards (native,
+# int8, n-gram k=4) and at 4 (native), every rank on the one card over gloo
+SHARD_REQS, SHARD_NEW = 8, 32
+SHARD_RUNS = {2: ("native", "int8", "ngram"), 4: ("native",)}
+SHARD_TIMEOUT_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -375,19 +399,23 @@ def kernel_cases(torch, kern, flash):
 
 def paged_cases(torch, kern, H, DH, Hkv,
                 pools=("float32", "bfloat16", "float16", "int8"),
-                verify_c=VERIFY_C, chunk_edges=True):
+                verify_c=VERIFY_C, chunk_edges=True, split_kv_heads=None):
     """The paged entries at one width and over ``pools``: decode, the chunk
     at a scalar and a per-sequence start, the verify windows of
     ``verify_c``, and (with ``chunk_edges``, where the chunk kernel splits
     its keys) chunks and windows whose frontiers fall on and beside its
-    split edges."""
+    split edges. With ``split_kv_heads``, a head shard's calls: the
+    kernels split as a pool of that many KV heads would (no edge cases)."""
+    sk = {} if split_kv_heads is None else dict(split_kv_heads=split_kv_heads)
+    shard = ("" if split_kv_heads is None
+             else f" shard=1/{split_kv_heads // Hkv}")
     import torch.nn.functional as F
     dev = "cuda"
     B = 8
     n_pp = -(-MAX_LEN // PS)
     P = B * n_pp + 1
     g = torch.Generator(device=dev).manual_seed(0)
-    wide = "" if DH == 64 else f" dh={DH}"
+    wide = ("" if DH == 64 else f" dh={DH}") + shard
     grp = H // Hkv
     pos = torch.arange(n_pp * PS, device=dev)
     for pool in pools:
@@ -424,7 +452,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
                     f"group={grp} pool={pool}{label}{wide}", ops_type,
                     lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
                         kern.paged_decode_attention(q, kp, vp, pt, lens,
-                                                    **sc),
+                                                    **sc, **sk),
                     lambda q=q, kp=kp, vp=vp, pt=pt, lens=lens, sc=sc:
                         kern.paged_decode_attention_plain(q, kp, vp, pt,
                                                           lens, **sc),
@@ -438,10 +466,10 @@ def paged_cases(torch, kern, H, DH, Hkv,
                     4 * H * DH * n_keys, tol,
                     lambda q=q[:, None], kp=kp, vp=vp, pt=pt, sl=before,
                     nf=ones, sc=sc: kern.spec_verify_attention(
-                        q, kp, vp, pt, sl, nf, **sc)[:, 0])
+                        q, kp, vp, pt, sl, nf, **sc, **sk)[:, 0])
 
         yield decode("", pt, lens, g)
-        if hasattr(kern, "paged_split"):
+        if hasattr(kern, "paged_split") and not sk:
             # seq_lens at 1, the table and each split edge +-1 (B=16 over
             # pages drawn at random: shared and stale pages alike), from a
             # generator of their own (the other cases draw as before)
@@ -472,7 +500,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
                     f"group={grp} pool={pool} {label}{wide}", ops_type,
                     lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
                     sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
-                                                        nv, **sc),
+                                                        nv, **sc, **sk),
                     lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
                     sc=sc: kern.chunk_prefill_attention_plain(
                         q, kp, vp, pt, s, nv, **sc),
@@ -500,7 +528,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
                     f"group={grp} pool={pool} {label}{wide}", ops_type,
                     lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
                     sc=sc: kern.spec_verify_attention(q, kp, vp, pt, sl,
-                                                      nf, **sc),
+                                                      nf, **sc, **sk),
                     lambda q=qv, kp=kp, vp=vp, pt=ptv, sl=sl, nf=nf,
                     sc=sc: kern.spec_verify_attention_plain(
                         q, kp, vp, pt, sl, nf, **sc),
@@ -727,12 +755,14 @@ def flash_cases(torch, flash):
                    1e-4 if dt == "float32" else 2e-2)
 
 
-def check_kernels(torch, kern, flash):
+def check_kernels(torch, kern, flash, cases=None):
     """Each case (name, label, dtype name, kernel fn, plain fn, SDPA fn,
-    bytes, ops, tolerance[, a second yardstick fn]) against its plain
-    version, twice (bitwise equal), then timed."""
+    bytes, ops, tolerance[, a second yardstick fn]) of ``cases`` (default:
+    ``kernel_cases``) against its plain version, twice (bitwise equal),
+    then timed."""
     rows = []
-    for case in kernel_cases(torch, kern, flash):
+    for case in (kernel_cases(torch, kern, flash) if cases is None
+                 else cases):
         (name, label, ops_type, fn, plain, sdpa, nbytes, ops,
          tol) = case[:9]
         got = fn()
@@ -2072,6 +2102,235 @@ def f32_family_checks(torch, tm, ServeEngine, get_config):
             for cfg, B, P, S in cases}
 
 
+# --------------------- phase 17: head-sharded serving -------------------- #
+
+def _shard_engine(ServeEngine, RuntimeOptions, cfg, params, run, shards):
+    """Phase 17's continuous engine: full-width bf16 llama3.2-1b as phase 4
+    serves it, with native or int8 KV or n-gram speculation (k=4)."""
+    kw = (dict(spec_mode="ngram", spec_k=4) if run == "ngram"
+          else dict(kv_policy=run))
+    return ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
+                       device="cuda", seed=0, scheduler="continuous",
+                       page_size=PS, max_batch=8, prefill_chunk=C,
+                       decode_lookahead=8, max_len=MAX_LEN, shards=shards,
+                       **kw)
+
+
+def _pool_bytes(tm, eng) -> int:
+    """Bytes of the paged pool (pages and scales) this engine's device
+    holds, as ``serve_continuous`` allocates it."""
+    cache = tm.init_paged_cache(eng.cfg, eng.n_pages, PS, eng.opts,
+                                eng.device)
+    return sum(t.numel() * t.element_size() for t in cache["stack"].values())
+
+
+@contextlib.contextmanager
+def kv_heads_seen(kern):
+    """The KV-head counts of the pools the CUDA kernels' launches were
+    given while the block runs (each launch validates its operands with
+    ``_check`` first; the entries count their own launches by name, so
+    they are not wrapped)."""
+    seen, check_fn = set(), kern._check
+
+    def wrapped(q, k_pages, *a, **kw):
+        seen.add(k_pages.shape[2])
+        return check_fn(q, k_pages, *a, **kw)
+    kern._check = wrapped
+    try:
+        yield seen
+    finally:
+        kern._check = check_fn
+
+
+def _shard_attention_check(torch, kern, group, H, DH, Hkv):
+    """One decode step (B=8, 36 pages a sequence, ragged lengths), one
+    prefill chunk (B=1, C=64 at 384) and one C=5 verify window over a
+    full-width pool, bf16 and int8, on every rank: the rank's head slice
+    through ``sharded_attend`` must give bitwise the unsharded call's
+    output. Every rank draws the same inputs; the launches here are not
+    the serving run's."""
+    from repro_torch.kernels import sharded as ksh
+    B, n_pp = 8, -(-MAX_LEN // PS)
+    P = B * n_pp + 1
+    hl = ksh.head_slice(group, Hkv)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    dev = dict(device="cuda")
+    checked = []
+    for pool in ("bfloat16", "int8"):
+        kp, vp, sc = _pools(torch, g, (P, PS, Hkv, DH), pool, torch.bfloat16)
+        pt = (torch.randperm(P - 1, generator=g, **dev)[:B * n_pp]
+              .reshape(B, n_pp) + 1).to(torch.int32)
+        lens = torch.randint(1, MAX_LEN + 1, (B,), generator=g,
+                             **dev).to(torch.int32)
+        sl = torch.randint(0, MAX_LEN - 4, (B,), generator=g,
+                           **dev).to(torch.int32)
+        nf = torch.randint(1, 6, (B,), generator=g, **dev).to(torch.int32)
+        nv = torch.tensor([384 + C], dtype=torch.int32, **dev)
+        local = (kp[:, :, hl].contiguous(), vp[:, :, hl].contiguous(),
+                 *(sc[k][hl].contiguous() if sc else None
+                   for k in ("k_scale", "v_scale")))
+
+        def q(*shape):
+            return torch.randn(shape, generator=g, **dev).to(torch.bfloat16)
+        for name, qq, axis, extras in (
+                ("paged_decode_attention", q(B, H, DH), 1, (pt, lens)),
+                ("chunk_prefill_attention", q(1, C, H, DH), 2,
+                 (pt[:1], 384, nv)),
+                ("spec_verify_attention", q(B, 5, H, DH), 2, (pt, sl, nf))):
+            fn = getattr(kern, name)
+            whole = fn(qq, kp, vp, *extras, **sc)
+
+            def attend(q_, kp_, vp_, ks_, vs_, *ex, _fn=fn):
+                return _fn(q_, kp_, vp_, *ex, k_scale=ks_, v_scale=vs_,
+                           split_kv_heads=Hkv)
+            got = ksh.sharded_attend(group, attend, qq, *local, extras,
+                                     q_head_axis=axis)
+            torch.cuda.synchronize()
+            check(torch.equal(got, whole),
+                  f"rank {group.rank}/{group.size}: {name} ({pool}) gathered "
+                  f"over head shards differs from the whole pool's call")
+            checked.append(f"{name}/{pool}")
+    return checked
+
+
+def shard_rank(rank, shards, reqs, runs):
+    """One rank of phase 17 (spawned): serves ``runs`` at ``shards`` on its
+    head slice with the counts set to 0 just before each run, and checks
+    what this rank can see alone: exact launches of the paged kernels at
+    Hkv/N heads and no plain version, a reconciled trace and freed pages,
+    and the gathered attention bitwise equal to the whole pool's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kern
+    import repro_torch.models as tm
+    from repro_torch.serving import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b")
+    L, n_kv = cfg.n_layers, cfg.n_kv_heads // shards
+    out, params = {}, None
+    for run in runs:
+        eng = _shard_engine(ServeEngine, tm.RuntimeOptions, cfg, params, run,
+                            shards)
+        params = eng.params
+        check(torch.cuda.current_device() == eng.device.index,
+              f"rank {rank}: the engine's device {eng.device} is not the "
+              f"current one (cuda:{torch.cuda.current_device()})")
+        zero_counts(kern)
+        with count_plain(kern) as plain, kv_heads_seen(kern) as heads:
+            t0 = time.perf_counter()
+            toks = eng.serve([r[:] for r in reqs], SHARD_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = read_counts(kern)
+        s = eng.stats
+        label = f"rank {rank}/{shards} {run}"
+        want = dict(paged_decode_attention=L * (s.decode_steps
+                                                - s.spec_blocks),
+                    chunk_prefill_attention=L * n_prefill_chunks(eng),
+                    spec_verify_attention=L * s.spec_blocks,
+                    decode_attention=0, flash_attention=0)
+        check(n == want, f"{label}: launches {n} != {want}")
+        check(heads == {n_kv}, f"{label}: pools of {heads} KV heads, not "
+              f"{n_kv}")
+        check(not plain, f"{label}: plain versions called: {plain}")
+        check(eng.trace_report["ok"], f"{label}: trace did not reconcile")
+        check(eng.kv_manager.n_used == 0, f"{label}: pages leaked")
+        out[run] = dict(
+            tokens=toks, launches=n, pool_bytes=_pool_bytes(tm, eng),
+            device=str(eng.device), backend=dist.get_backend(),
+            tokens_per_s=s.tps, itl_p50_ms=s.itl_p50 * 1e3,
+            ttft_p50_ms=s.ttft_p50 * 1e3, decode_s=s.decode_s,
+            decode_steps=s.decode_steps, prefill_s=s.prefill_s,
+            host_syncs=s.host_syncs, spec_blocks=s.spec_blocks,
+            acceptance=s.acceptance_rate, wall_s=wall)
+    out["attention"] = _shard_attention_check(
+        torch, kern, eng.shard, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads)
+    return out
+
+
+def serve_sharded(torch, kern, tm, ServeEngine, get_config):
+    """Phase 17: head-sharded continuous serving of llama3.2-1b at full
+    width (32 KV heads), ranks spawned here and sharing the one card over
+    gloo, against shards=1 on the same card and requests: every rank's
+    tokens equal shards=1's, each rank's pool bytes are 1/N of them, and
+    (checked in the ranks) launches are exact at Hkv/N with no plain
+    version and the gathered attention is bitwise the whole pool's. Then
+    the three paged entries are checked and timed here at a shard's
+    shapes. Returns (measurements, kernel rows, launches by shards)."""
+    from repro_torch.launch.ranks import backend_for, run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    reqs = requests(cfg.vocab, SHARD_REQS)
+    want, params = {}, None
+    for run in SHARD_RUNS[2]:
+        eng = _shard_engine(ServeEngine, tm.RuntimeOptions, cfg, params, run,
+                            1)
+        params = eng.params
+        t0 = time.perf_counter()
+        toks = eng.serve([r[:] for r in reqs], SHARD_NEW)
+        torch.cuda.synchronize()
+        s = eng.stats
+        want[run] = dict(tokens=toks, pool_bytes=_pool_bytes(tm, eng),
+                         tokens_per_s=s.tps, itl_p50_ms=s.itl_p50 * 1e3,
+                         decode_s=s.decode_s, decode_steps=s.decode_steps,
+                         wall_s=time.perf_counter() - t0)
+        log(f"shards=1 {run:7s} tokens/s={s.tps:.1f} "
+            f"decode step={s.decode_s / s.decode_steps * 1e3:.2f}ms "
+            f"itl p50={s.itl_p50 * 1e3:.2f}ms pool={want[run]['pool_bytes']}B")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"shards=1": want}
+    for n, runs in SHARD_RUNS.items():
+        backend = backend_for(n, "cuda")
+        t0 = time.perf_counter()
+        ranks = run_ranks(shard_rank, n, (n, reqs, runs), backend=backend,
+                          timeout=SHARD_TIMEOUT_S)
+        log(f"shards={n} backend={backend} ranks "
+            + " ".join(f"{r}->{res[runs[0]]['device']}"
+                       for r, res in enumerate(ranks))
+            + f" ({time.perf_counter() - t0:.1f}s with spawn)")
+        for run in runs:
+            for r, res in enumerate(ranks):
+                got = res[run]
+                check(got["backend"] == backend, f"rank {r}: backend "
+                      f"{got['backend']}, not {backend}")
+                check(got["tokens"] == want[run]["tokens"],
+                      f"shards={n} {run}: rank {r}'s tokens differ from "
+                      f"shards=1's")
+                check(got["pool_bytes"] * n == want[run]["pool_bytes"],
+                      f"shards={n} {run}: rank {r} holds {got['pool_bytes']} "
+                      f"pool bytes, not 1/{n} of {want[run]['pool_bytes']}")
+            r0 = ranks[0][run]
+            log(f"shards={n} {run:7s} tokens/s={r0['tokens_per_s']:.1f} "
+                f"decode step={r0['decode_s'] / r0['decode_steps'] * 1e3:.2f}"
+                f"ms itl p50={r0['itl_p50_ms']:.2f}ms "
+                f"pool={r0['pool_bytes']}B/rank tokens == shards=1 on "
+                f"{n} ranks; launches "
+                + " ".join(f"{k.split('_')[0]}={v}"
+                           for k, v in r0["launches"].items())
+                + " a rank")
+        log(f"shards={n}: gathered attention bitwise equal to the whole "
+            f"pool's on every rank ({', '.join(ranks[0]['attention'])})")
+        result[f"shards={n}"] = ranks
+    # the three entries at a shard's shapes (llama3.2-1b's group 1, bf16
+    # pool), split as the whole pool: the kernels line's sharded rows
+    H, DH, Hkv = PAGED_WIDTHS[0]
+    rows = []
+    for n in SHARD_RUNS:
+        rows += check_kernels(torch, kern, None, paged_cases(
+            torch, kern, H // n, DH, Hkv // n, pools=("bfloat16",),
+            verify_c=(5,), chunk_edges=False, split_kv_heads=Hkv))
+    launches = {n: {**result[f"shards={n}"][0][runs[0]]["launches"],
+                    **({"spec_verify_attention": result[f"shards={n}"][0][
+                        "ngram"]["launches"]["spec_verify_attention"]}
+                       if "ngram" in runs else {})}
+                for n, runs in SHARD_RUNS.items()}
+    return result, rows, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2126,6 +2385,10 @@ def main() -> None:
                     help="only build, check and time the kernel entries and "
                     "profile the paged blocks (to compare two checkouts in "
                     "one run); prints no result line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="only build the kernels and run phase 17 (head-"
+                    "sharded serving; with a card a rank, over nccl); prints "
+                    "no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -2203,6 +2466,15 @@ def main() -> None:
         kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
                      hmma, chunk_hmma, paged_regs, t_start)
         return
+    if args.sharded_only:
+        sharded, shard_rows, _ = serve_sharded(torch, kern, tm, ServeEngine,
+                                               get_config)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).write_text(json.dumps(dict(
+                smi=smi, sharded=sharded, shard_rows=shard_rows), indent=1,
+                default=str))
+        return
     dense_regs = dense_ptxas(kbuild)
 
     # ---- phase 3 ----
@@ -2259,6 +2531,10 @@ def main() -> None:
     zamba = serve_zamba(torch, kern, tm, cm, ServeEngine, get_config)
     whisper = serve_whisper(torch, kern, tm, cm, ServeEngine, get_config)
     f32_families = f32_family_checks(torch, tm, ServeEngine, get_config)
+
+    # ---- phase 17: head-sharded continuous serving ----
+    sharded, shard_rows, shard_launches = serve_sharded(
+        torch, kern, tm, ServeEngine, get_config)
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -2321,6 +2597,15 @@ def main() -> None:
         ("flash_attention", f"group=1 float16 S={S_a} causal",
          llava["runs"]["a native"]["launches"]["flash_attention"],
          "llava15-13b")]
+    # the head-sharded paths: the three paged entries at a shard's heads
+    # (group 1, bf16 pool, split as the whole pool), with each rank's
+    # launches in its native run (n-gram for the verify entry); at four
+    # shards no verify pass runs
+    for n, ln in shard_launches.items():
+        entries += [(name, f"{head[name]} shard=1/{n}", ln[name],
+                     f"llama3.2-1b shards={n}")
+                    for name in PAGED if ln.get(name)]
+    rows = rows + shard_rows
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
@@ -2343,7 +2628,7 @@ def main() -> None:
             arctic_launches=arctic_launches, llava=llava,
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
-            f32_families=f32_families,
+            f32_families=f32_families, sharded=sharded,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

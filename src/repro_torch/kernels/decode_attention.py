@@ -276,8 +276,22 @@ def _paged_split_plain(q, k_pages, v_pages, page_table, seq_lens, split: int,
                                scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
+def _split_heads(split_kv_heads, Hkv: int) -> int:
+    """The KV-head count the split rules size a call's splits from: the
+    operands' own, or ``split_kv_heads`` for a head shard of a pool of that
+    many heads (a multiple of the shard's), so that a shard runs the same
+    splits, and sums in the same order, as the whole pool."""
+    if split_kv_heads is None:
+        return Hkv
+    if split_kv_heads < Hkv or split_kv_heads % Hkv:
+        raise ValueError(f"split_kv_heads ({split_kv_heads}) must be a "
+                         f"multiple of the pool's {Hkv} kv heads")
+    return split_kv_heads
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
-                           scale: float = None, k_scale=None, v_scale=None):
+                           scale: float = None, k_scale=None, v_scale=None,
+                           split_kv_heads: Optional[int] = None):
     """Decode attention over a page-table-indirected KV pool.
 
     q: (B, H, dh); k/v_pages: (n_pages, page_size, Hkv, dh) pooled pages
@@ -290,7 +304,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     On the card the page table is cut into splits of ``paged_split(...)``
     keys (pages up to 4096 keys): pass 1 writes each split's partials into
     f32 scratch allocated here, pass 2 combines them in split order
-    (bitwise repeatable); with one split, pass 1 writes the output."""
+    (bitwise repeatable); with one split, pass 1 writes the output. On a
+    head shard (``kernels.sharded``) the operands are the shard's heads and
+    ``split_kv_heads`` the whole pool's KV-head count: the split is then
+    the whole pool's, and each head's result bitwise the same."""
     if not _on_cuda(q):
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, seq_lens, scale=scale,
@@ -303,8 +320,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
         raise ValueError("page_table must be (B, n_pp) and seq_lens (B,)")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     n_pp = page_table.shape[1]
-    split = paged_split(B, Hkv, n_pp * ps, H // Hkv, ps,
-                        _sm_count(q.device.index))
+    split = paged_split(B, _split_heads(split_kv_heads, Hkv), n_pp * ps,
+                        H // Hkv, ps, _sm_count(q.device.index))
     if split > _PAGED_MAX_SPLIT:
         raise ValueError(f"page_size {ps} exceeds the paged decode kernel's "
                          f"{_PAGED_MAX_SPLIT}-key split")
@@ -388,14 +405,15 @@ def chunk_split(B: int, Hkv: int, C: int, group: int, n_keys: int,
 
 
 def _launch_chunk(name, q, k_pages, v_pages, page_table, start, *, n_valid=None,
-                  n_fed=None, scale, k_scale, v_scale):
+                  n_fed=None, scale, k_scale, v_scale, split_kv_heads):
     """Check and launch the chunk kernel (csrc/chunk_prefill_attention.cu)
     for the entry ``name``. start: an int (every sequence's) or a (B,)
     int32 tensor on the card; n_valid, or else n_fed (n_valid = start +
     n_fed): (B,) int32 on the card. The kernel reads them as given, so no
     tensor is built for them here. On the tensor-core tiles with more than
     one split, the partials go to f32 scratch allocated here and a second
-    launch combines them."""
+    launch combines them; ``split_kv_heads`` (None: the pool's) is the KV-head
+    count the split is sized from."""
     B, C, H, dh = q.shape
     vecs = [t for t in (start, n_valid, n_fed) if isinstance(t, torch.Tensor)]
     _check(q, k_pages, v_pages, k_scale, v_scale, (page_table, *vecs),
@@ -411,8 +429,8 @@ def _launch_chunk(name, q, k_pages, v_pages, page_table, start, *, n_valid=None,
     n_pp = page_table.shape[1]
     split, n_split, part = 0, 1, None
     if chunk_on_tensor_cores(q.dtype, k_pages.dtype):
-        split = chunk_split(B, Hkv, C, H // Hkv, n_pp * ps,
-                            _sm_count(q.device.index))
+        split = chunk_split(B, _split_heads(split_kv_heads, Hkv), C,
+                            H // Hkv, n_pp * ps, _sm_count(q.device.index))
         n_split = max(1, -(-(n_pp * ps) // split))
         if n_split > 1:
             # pass 1's partials: acc (B*C*H, n_split, dh), then m and l
@@ -504,7 +522,8 @@ def chunk_prefill_attention_plain(q, k_pages, v_pages, page_table, start,
 
 def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
                             *, scale: float = None, k_scale=None,
-                            v_scale=None):
+                            v_scale=None,
+                            split_kv_heads: Optional[int] = None):
     """Chunked-prefill attention: a query chunk against the paged pool.
 
     q: (B, C, H, dh) — one prefill chunk whose queries sit at absolute
@@ -512,6 +531,7 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
     start: int, 0-d or (B,) int32 tensor; n_valid: (B,) int32 total valid
     tokens once the chunk lands (masks the chunk's right-padding). Row
     (c, head) attends key positions < min(start + c + 1, n_valid).
+    ``split_kv_heads``: as in ``paged_decode_attention``.
     Returns (B, C, H, dh) in q's dtype."""
     if not _on_cuda(q):
         return chunk_prefill_attention_plain(
@@ -521,7 +541,8 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
         start = _start_vector(start, q.shape[0], q.device)
     out = _launch_chunk("chunk_prefill_attention", q, k_pages, v_pages,
                         page_table, start, n_valid=n_valid, scale=scale,
-                        k_scale=k_scale, v_scale=v_scale)
+                        k_scale=k_scale, v_scale=v_scale,
+                        split_kv_heads=split_kv_heads)
     chunk_prefill_attention.launches += 1
     return out
 
@@ -550,7 +571,8 @@ def spec_verify_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
 
 def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
                           *, scale: float = None, k_scale=None,
-                          v_scale=None):
+                          v_scale=None,
+                          split_kv_heads: Optional[int] = None):
     """Speculative-verify attention: a window of C queries per sequence
     against the paged pool, per-sequence start, per-row causal frontier.
 
@@ -562,15 +584,16 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
 
     On the card this is the chunk kernel (``csrc/chunk_prefill_attention
     .cu``) with ``start = seq_lens`` and ``n_valid = seq_lens + n_fed``,
-    which the kernel adds as it reads them. Returns (B, C, H, dh) in q's
-    dtype."""
+    which the kernel adds as it reads them; ``split_kv_heads``: as in
+    ``paged_decode_attention``. Returns (B, C, H, dh) in q's dtype."""
     if not _on_cuda(q):
         return spec_verify_attention_plain(
             q, k_pages, v_pages, page_table, seq_lens, n_fed, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
     out = _launch_chunk("spec_verify_attention", q, k_pages, v_pages,
                         page_table, seq_lens, n_fed=n_fed, scale=scale,
-                        k_scale=k_scale, v_scale=v_scale)
+                        k_scale=k_scale, v_scale=v_scale,
+                        split_kv_heads=split_kv_heads)
     spec_verify_attention.launches += 1
     return out
 

@@ -33,14 +33,20 @@ speculative).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --reduced --device cpu
 
+    # head-sharded continuous serving: 2 ranks spawned here, each holding
+    # half the KV heads of every page (one card each where there are two,
+    # else both on one card, or the CPU, over gloo)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --reduced --device cpu --scheduler continuous --shards 2
+
 The flags and their destinations are the reference CLI's
-(``repro/launch/serve.py``). What the port does not run yet (``--shards``
-> 1) and what the reference's paged path refuses too (every family but
-the dense and MoE GQA decoders, and sliding-window and soft-capped configs,
-under ``--scheduler continuous``) is rejected by the engine with
-``NotImplementedError``. An encoder-decoder (whisper-medium) needs frame
-embeddings, which the CLI has no flag for (nor has the reference's): it
-raises ``ValueError``.
+(``repro/launch/serve.py``). What the reference's paged path refuses
+(every family but the dense and MoE GQA decoders, and sliding-window and
+soft-capped configs, under ``--scheduler continuous``) is rejected by the
+engine with ``NotImplementedError``; ``--shards`` > 1 off the continuous
+engine, or not dividing the KV heads, with ``ValueError``. An
+encoder-decoder (whisper-medium) needs frame embeddings, which the CLI has
+no flag for (nor has the reference's): it raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -52,6 +58,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.reduce import reduced
 from repro_torch.models import RuntimeOptions
 from repro_torch.serving import ServeEngine
+
+# a sharded run's collectives and the whole run time out after this long
+RANK_TIMEOUT_S = 3600.0
 
 
 def main(argv=None) -> None:
@@ -77,7 +86,10 @@ def main(argv=None) -> None:
     ap.add_argument("--max-batch", type=int, default=8,
                     help="continuous scheduler slot count")
     ap.add_argument("--shards", type=int, default=1,
-                    help="head-shard the paged KV pool (not ported yet)")
+                    help="head-shard the paged KV pool and attention over "
+                         "this many ranks (processes spawned here; each on "
+                         "its own card where there are enough, else all on "
+                         "one card or the CPU over gloo)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="serialize the prefill and decode streams onto "
                          "one virtual queue instead of overlapping them")
@@ -154,7 +166,23 @@ def main(argv=None) -> None:
     ap.add_argument("--slo-itl-ms", type=float, default=None,
                     help="per-request p95 inter-token-latency target")
     args = ap.parse_args(argv)
+    if args.chiplet_mb is not None and args.kv_fast_mb is None:
+        ap.error("--chiplet-mb needs --kv-fast-mb (the chiplet promotes "
+                 "out of the tiered KV pool)")
+    if args.shards > 1:
+        # one process a shard, each a rank of one process group; the
+        # engine validates the rest (continuous scheduler, n_kv_heads)
+        from repro_torch.launch.ranks import backend_for, run_ranks
+        run_ranks(_serve, args.shards, (args,),
+                  backend=backend_for(args.shards, args.device),
+                  timeout=RANK_TIMEOUT_S)
+    else:
+        _serve(0, args)
 
+
+def _serve(rank: int, args) -> None:
+    """Build the engine, serve the request stream and, in rank 0, print
+    the report (a head-sharded run calls this in every rank)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, d_model=args.d_model)
@@ -165,9 +193,6 @@ def main(argv=None) -> None:
             draft_cfg = reduced(draft_cfg, d_model=max(args.d_model // 2, 16))
     max_len = args.prompt_len + args.new_tokens + args.shared_doc
     hier = None
-    if args.chiplet_mb is not None and args.kv_fast_mb is None:
-        ap.error("--chiplet-mb needs --kv-fast-mb (the chiplet promotes "
-                 "out of the tiered KV pool)")
     if args.kv_fast_mb is not None:
         from repro_torch.core import hbs, lpddr6, npu_hierarchy, sram_chiplet
         chiplet = None
@@ -220,6 +245,16 @@ def main(argv=None) -> None:
         outs = eng.generate(np.asarray(reqs), args.new_tokens)
     else:
         outs = eng.serve(reqs, args.new_tokens)
+    if eng.shard is not None:
+        import torch.distributed as dist
+        devices = [None] * eng.shard.size
+        dist.all_gather_object(devices, str(eng.device))
+        if rank == 0:
+            print(f"[serve] shards={eng.shard.size} "
+                  f"backend={dist.get_backend()} ranks: "
+                  + " ".join(f"{r}->{d}" for r, d in enumerate(devices)))
+    if rank:
+        return
     s = eng.stats
     print(f"[serve] arch={cfg.name} device={eng.device} "
           f"sched={args.scheduler} kv={args.kv_policy} reqs={s.requests} "
@@ -227,7 +262,7 @@ def main(argv=None) -> None:
           f"serve={s.serve_s*1e3:.0f}ms "
           f"steps={s.decode_steps} lookahead={args.decode_lookahead} "
           f"syncs={s.host_syncs} preempt={s.preemptions} TPS={s.tps:.1f} "
-          f"overlap={not args.no_overlap}")
+          f"shards={args.shards} overlap={not args.no_overlap}")
     if args.scheduler == "continuous":
         _print_continuous(args, eng, hier)
     print("[serve] first output:", outs[0][:16])

@@ -21,7 +21,9 @@ Attention runs through ``kernels.decode_attention`` and
 a CPU tensor their plain versions. On the static path, the layers the
 reference attends through its XLA masked attention (prefix-LM prompts,
 sliding-window and soft-capped layers) take ``common.attention`` instead,
-on any device.
+on any device. With ``RuntimeOptions.kv_shard`` (head-sharded serving) the
+paged pool holds this rank's KV heads only and the paged attention runs on
+them through ``kernels.sharded``; the rest of the model is replicated.
 
 Public surface:
     init_params(cfg, generator, dtype, device)          -> params
@@ -55,6 +57,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import decode_attention as kern
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import sharded as ksh
 from repro_torch.models import common as cm
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -79,6 +82,11 @@ class RuntimeOptions:
     moe_impl: str = "capacity"      # capacity | ragged
     cache_dtype: str = ""           # "" -> same as dtype; "int8" -> quantized
     capacity_factor: float = 1.25
+    # head-sharded paged serving (DESIGN.md SS16): a kernels.sharded
+    # ShardGroup whose ranks each hold Hkv/N heads of the paged pool and
+    # attend over them, all-gathering head outputs (bitwise identical to
+    # the unsharded path). None: the whole pool on one device.
+    kv_shard: object = None
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -243,25 +251,38 @@ def paged_supported(cfg: ArchConfig) -> Optional[str]:
     return None
 
 
+def _local_kv_heads(cfg: ArchConfig, opts: RuntimeOptions) -> slice:
+    """The pool's KV heads on this device: this rank's block of them under
+    ``opts.kv_shard``, else all (a whole-axis slice: the same code)."""
+    if opts.kv_shard is not None:
+        return ksh.head_slice(opts.kv_shard, cfg.n_kv_heads)
+    return slice(0, cfg.n_kv_heads)
+
+
 def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
                      opts: RuntimeOptions = RuntimeOptions(), device="cuda"):
-    """Pooled KV pages: (n_layers, n_pages, page_size, Hkv, dh) per k/v.
+    """Pooled KV pages: (n_layers, n_pages, page_size, Hkv, dh) per k/v;
+    under ``opts.kv_shard`` this rank's (n_layers, n_pages, page_size,
+    Hkv/N, dh) head slice.
 
     ``opts.cache_dtype='int8'`` stores int8 pages with per-(layer, kv-head)
-    f32 scales, calibrated by the pool's first prefill chunk."""
+    f32 scales ((n_layers, Hkv/N) on a shard), calibrated by the pool's
+    first prefill chunk."""
     reason = paged_supported(cfg)
     if reason:
         raise NotImplementedError(f"paged KV cache: {reason}")
     device = resolve_device(device)
     quant = opts.cache_dtype == "int8"
     dtype = torch_dtype(opts.cache_dtype or opts.dtype)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    hl = _local_kv_heads(cfg, opts)
+    n_kv = hl.stop - hl.start
+    shape = (cfg.n_layers, n_pages, page_size, n_kv, cfg.head_dim)
     c = {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
     if quant:
-        c["k_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
+        c["k_scale"] = torch.ones((cfg.n_layers, n_kv),
                                   dtype=torch.float32, device=device)
-        c["v_scale"] = torch.ones((cfg.n_layers, cfg.n_kv_heads),
+        c["v_scale"] = torch.ones((cfg.n_layers, n_kv),
                                   dtype=torch.float32, device=device)
     return {"stack": c}
 
@@ -336,9 +357,21 @@ def _project_qkv(p, x, cfg: ArchConfig, rope):
     return cm.rotate(q, *rope), cm.rotate(k, *rope), v
 
 
-def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
-                      page_table, rows, start, n_valid, *, calibrate: bool,
-                      n_fed=None):
+def _attend_pool(cfg: ArchConfig, opts: RuntimeOptions, attend, q, kp, vp,
+                 ksc, vsc, extras, *, q_head_axis: int):
+    """``attend(q, kp, vp, ksc, vsc, *extras)`` over the paged pool: under
+    ``opts.kv_shard`` on this rank's head slice with the head outputs
+    all-gathered (``kernels.sharded.sharded_attend``, the reference's
+    routing), else over the whole pool."""
+    if opts.kv_shard is not None:
+        return ksh.sharded_attend(opts.kv_shard, attend, q, kp, vp, ksc, vsc,
+                                  extras, q_head_axis=q_head_axis)
+    return attend(q, kp, vp, ksc, vsc, *extras)
+
+
+def _paged_chunk_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions,
+                      cache_layer, positions, rope, page_table, rows, start,
+                      n_valid, *, calibrate: bool, n_fed=None):
     """Chunk attention against pooled KV pages. x: (B, C, d).
 
     Scatters the chunk's KV into the pool rows ``rows`` (``_kv_rows`` of
@@ -347,41 +380,50 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, cache_layer, positions, rope,
     sequence owns — previously cached prefix pages included. ``n_fed``
     (B,) marks a speculative verify window (``start`` = seq_lens) and
     routes it to ``spec_verify_attention``; a prefill chunk, whose start
-    is a (B,) tensor too, goes to ``chunk_prefill_attention``."""
+    is a (B,) tensor too, goes to ``chunk_prefill_attention``. On a head
+    shard, q, k and v are projected for every head (replicated) and the
+    pool and its scales hold this rank's heads only."""
     B, C, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
+    hl = _local_kv_heads(cfg, opts)
     quant = "k_scale" in cache_layer
     kp, vp = cache_layer["k"], cache_layer["v"]
 
     if quant:
         if calibrate:
             # first chunk of the pool's life sets the frozen scales; keep
-            # the chunk's right-padding out of them
+            # the chunk's right-padding out of them. Every head's scale,
+            # then this device's slice of them
             ok = (positions < n_valid[:, None])[..., None, None]
             cache_layer["k_scale"].copy_(
-                _amax_scale(torch.where(ok, k, 0), (0, 1, 3)))
+                _amax_scale(torch.where(ok, k, 0), (0, 1, 3))[hl])
             cache_layer["v_scale"].copy_(
-                _amax_scale(torch.where(ok, v, 0), (0, 1, 3)))
+                _amax_scale(torch.where(ok, v, 0), (0, 1, 3))[hl])
         ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
-        k_store = _quantize_with(k, ksc[None, None]).to(torch.int8)
-        v_store = _quantize_with(v, vsc[None, None]).to(torch.int8)
+        k_store = _quantize_with(k[:, :, hl], ksc[None, None]).to(torch.int8)
+        v_store = _quantize_with(v[:, :, hl], vsc[None, None]).to(torch.int8)
     else:
         ksc = vsc = None
-        k_store, v_store = k.to(kp.dtype), v.to(vp.dtype)
+        k_store, v_store = k[:, :, hl].to(kp.dtype), v[:, :, hl].to(vp.dtype)
 
     # scatter the chunk's KV at absolute positions [start, start + C)
     _write_kv(kp, vp, rows, k_store.reshape(B * C, *k_store.shape[2:]),
               v_store.reshape(B * C, *v_store.shape[2:]))
 
-    if n_fed is not None:
-        out = kern.spec_verify_attention(q, kp, vp, page_table, start, n_fed,
-                                         scale=hd ** -0.5, k_scale=ksc,
-                                         v_scale=vsc)
-    else:
-        out = kern.chunk_prefill_attention(q, kp, vp, page_table, start,
-                                           n_valid, scale=hd ** -0.5,
-                                           k_scale=ksc, v_scale=vsc)
+    def attend(q_, kp_, vp_, ksc_, vsc_, pt, st, nv):
+        # the kernels' splits follow the unsharded head count, so a shard
+        # sums in the same order as the whole pool
+        if n_fed is not None:
+            return kern.spec_verify_attention(
+                q_, kp_, vp_, pt, st, nv, scale=hd ** -0.5, k_scale=ksc_,
+                v_scale=vsc_, split_kv_heads=Hkv)
+        return kern.chunk_prefill_attention(
+            q_, kp_, vp_, pt, st, nv, scale=hd ** -0.5, k_scale=ksc_,
+            v_scale=vsc_, split_kv_heads=Hkv)
+    out = _attend_pool(cfg, opts, attend, q, kp, vp, ksc, vsc,
+                       (page_table, start,
+                        n_valid if n_fed is None else n_fed), q_head_axis=2)
     return cm.dense(p["wo"], out.reshape(B, C, H * hd))
 
 
@@ -409,7 +451,7 @@ def prefill_paged_chunk(cfg: ArchConfig, params, tokens, cache, page_table,
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                  cl, positions, rope, page_table, rows,
+                                  opts, cl, positions, rope, page_table, rows,
                                   start_b, n_valid, calibrate=calibrate)
         x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
     return _logits(cfg, params, x), cache
@@ -429,31 +471,36 @@ def copy_pages(cache, pairs):
     return cache
 
 
-def _paged_decode_attn(p, x, cfg: ArchConfig, cache_layer, seq_lens, rope,
-                       page_table, rows):
+def _paged_decode_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions,
+                       cache_layer, seq_lens, rope, page_table, rows):
     """Single-token attention against pooled KV pages. x: (B, 1, d); the
     new token's KV lands in the pool rows ``rows`` (``_kv_rows`` at
     ``seq_lens``: page ``page_table[b, len // ps]``, offset ``len % ps``;
-    the null page for inactive slots, whose table rows are 0)."""
+    the null page for inactive slots, whose table rows are 0). On a head
+    shard, only this rank's KV heads are written and attended."""
     B = x.shape[0]
-    H, hd = cfg.n_heads, cfg.head_dim
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
+    hl = _local_kv_heads(cfg, opts)
     quant = "k_scale" in cache_layer
     kp, vp = cache_layer["k"], cache_layer["v"]
 
     if quant:
         ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
-        k_store = _quantize_with(k[:, 0], ksc[None]).to(torch.int8)
-        v_store = _quantize_with(v[:, 0], vsc[None]).to(torch.int8)
+        k_store = _quantize_with(k[:, 0, hl], ksc[None]).to(torch.int8)
+        v_store = _quantize_with(v[:, 0, hl], vsc[None]).to(torch.int8)
     else:
         ksc = vsc = None
-        k_store, v_store = k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype)
+        k_store, v_store = k[:, 0, hl].to(kp.dtype), v[:, 0, hl].to(vp.dtype)
 
     _write_kv(kp, vp, rows, k_store, v_store)
 
-    out = kern.paged_decode_attention(q[:, 0], kp, vp, page_table,
-                                      seq_lens + 1, scale=hd ** -0.5,
-                                      k_scale=ksc, v_scale=vsc)
+    def attend(q_, kp_, vp_, ksc_, vsc_, pt, lens):
+        return kern.paged_decode_attention(
+            q_, kp_, vp_, pt, lens, scale=hd ** -0.5, k_scale=ksc_,
+            v_scale=vsc_, split_kv_heads=Hkv)
+    out = _attend_pool(cfg, opts, attend, q[:, 0], kp, vp, ksc, vsc,
+                       (page_table, seq_lens + 1), q_head_axis=1)
     return cm.dense(p["wo"], out.reshape(B, 1, H * hd))
 
 
@@ -473,7 +520,7 @@ def decode_step_paged(cfg: ArchConfig, params, token, seq_lens, page_table,
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                   cl, seq_lens, rope, page_table, rows)
+                                   opts, cl, seq_lens, rope, page_table, rows)
         x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
     return _logits(cfg, params, x)[:, 0], cache
 
@@ -582,7 +629,7 @@ def decode_verify_paged(cfg: ArchConfig, params, tokens, seq_lens, n_fed,
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
-                                  cl, positions, rope, page_table, rows,
+                                  opts, cl, positions, rope, page_table, rows,
                                   seq_lens, n_valid, calibrate=False,
                                   n_fed=n_fed)
         x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)

@@ -161,8 +161,7 @@ class ModelDraft:
         self.opts = opts if opts is not None else RuntimeOptions(
             dtype="float32")
         if params is None:
-            gen_device = "cuda" if self.device.type == "cuda" else "cpu"
-            gen = torch.Generator(device=gen_device).manual_seed(seed)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, self.opts.dtype, self.device)
         self.params = params
         self.page_size = page_size

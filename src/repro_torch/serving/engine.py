@@ -34,8 +34,15 @@ capacity-dropped by default as in the reference). The static engine also
 serves every other family of ``models.api``: the VLMs, MLA with
 DeepSeek-V2's dense prefix layer, Mamba-2, the Zamba2 hybrid and the
 Whisper encoder-decoder; the continuous engine refuses them with the
-reference's ``paged_supported`` reasons. Head-sharded serving (ROADMAP.md
-A9) is not ported yet and raises ``NotImplementedError``.
+reference's ``paged_supported`` reasons.
+
+``ServeEngine(shards=N, scheduler="continuous")`` serves head-sharded
+(DESIGN.md SS16) under ``torch.distributed``: N ranks, one process each
+(``launch.ranks.run_ranks``), build the same engine and run the same host
+code; each holds ``Hkv/N`` KV heads of every page and attends over them
+through ``kernels.sharded``, so tokens are bitwise those of ``shards=1``
+on every rank. The ranks agree on every measured wall time (the slowest
+rank's), so their virtual clocks, and hence their schedules, stay equal.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import sharded as ksh
 from repro_torch.models import (RuntimeOptions, copy_pages, decode_step,
                                 decode_steps, decode_steps_paged, init_cache,
                                 init_paged_cache, init_params,
@@ -212,12 +220,32 @@ class ServeEngine:
                  top_k: int = 0, top_p: float = 1.0, sample_seed: int = 0,
                  shards: int = 1, overlap: bool = True):
         import dataclasses
-        self.device = resolve_device(device)
         if kv_policy not in ("native", "int8"):
             raise ValueError(f"kv_policy must be 'native' or 'int8', got "
                              f"{kv_policy!r}")
         if kv_policy == "int8":
             opts = dataclasses.replace(opts, cache_dtype="int8")
+        # ---- head-sharded serving (DESIGN.md SS16) ---- #
+        # N ranks of a process group each hold Hkv/N heads of every page
+        # and run the unchanged kernels on them; head outputs are
+        # all-gathered, so outputs stay bitwise those of shards=1 while a
+        # device's page bytes shrink by N
+        if shards < 1:
+            raise ValueError(f"shards ({shards}) must be >= 1")
+        self.shard = None
+        if shards > 1:
+            if scheduler != "continuous":
+                raise ValueError("head-sharded serving (shards > 1) runs "
+                                 "on the paged continuous engine; use "
+                                 "scheduler='continuous'")
+            if cfg.n_kv_heads % shards:
+                raise ValueError(f"shards ({shards}) must divide "
+                                 f"n_kv_heads ({cfg.n_kv_heads}) for head "
+                                 f"sharding")
+            self.shard = ksh.ShardGroup.from_world(shards, device)
+            device = self.shard.device
+            opts = dataclasses.replace(opts, kv_shard=self.shard)
+        self.device = resolve_device(device)
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         # ---- speculative decoding / sampling configuration ---- #
@@ -245,10 +273,6 @@ class ServeEngine:
         if temperature == 0.0 and (top_k or top_p < 1.0):
             raise ValueError("top_k/top_p filter a stochastic sample; they "
                              "need temperature > 0 (temperature 0 is greedy)")
-        if shards != 1:
-            raise NotImplementedError(
-                "head-sharded serving is not ported yet (ROADMAP.md queue A, "
-                "item 9)")
         if scheduler == "continuous":
             reason = paged_supported(cfg)
             if reason:
@@ -281,8 +305,7 @@ class ServeEngine:
                              f"be >= 1")
         self.decode_lookahead = decode_lookahead
         if params is None:
-            gen_device = "cuda" if self.device.type == "cuda" else "cpu"
-            gen = torch.Generator(device=gen_device).manual_seed(seed)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, opts.dtype, self.device)
         self.params = params
         # chunk right-padding needs no reserve headroom — positions past a
@@ -342,6 +365,12 @@ class ServeEngine:
         self.trace: Optional[TraceRecorder] = None
         self.trace_report: Optional[dict] = None
         self.stats = ServeStats()
+
+    def _wall(self, w0: float) -> float:
+        """Wall seconds since ``w0``; on a head shard the slowest rank's,
+        so every rank charges the same time to its virtual clock."""
+        dw = time.perf_counter() - w0
+        return dw if self.shard is None else ksh.agree_max(self.shard, dw)
 
     def _dev(self, a) -> torch.Tensor:
         """Host numpy array -> tensor on the engine's device."""
@@ -697,7 +726,7 @@ class ServeEngine:
                         self._dev(np.asarray([start + n_real], np.int32)),
                         self.opts, calibrate=not calibrated)
                     _sync(self.device)   # the bracket ends with the chunk
-                    dw = time.perf_counter() - w0
+                    dw = self._wall(w0)
                     s = stall_charge(plan, [req], t0, dw, "prefill")
                     self.stats.host_syncs += 1
                     calibrated = True
@@ -769,7 +798,7 @@ class ServeEngine:
                 # the n-gram draft is host-only and reports zero syncs
                 props = draft.propose_all(items)
                 self.stats.host_syncs += draft.take_host_syncs()
-                td = dstream.commit(t0, time.perf_counter() - w0)
+                td = dstream.commit(t0, self._wall(w0))
                 trace.engine_span("spec_propose", t0, td,
                                   {"n_seqs": len(items)}, track="decode")
                 for _, r in parts:
@@ -826,7 +855,7 @@ class ServeEngine:
                 # the pass's one host pull: tokens and n_acc together
                 res = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
                 out_np, nacc_np = res[:, :-1], res[:, -1]
-                dw = time.perf_counter() - w0
+                dw = self._wall(w0)
                 s = stall_charge(plan, [r for _, r in parts], tb, dw,
                                  "decode")
                 tv = dstream.commit(tb, s + dw)
@@ -926,7 +955,7 @@ class ServeEngine:
                     top_p=self.top_p, keys=keys,
                     done=self._dev(inactive), quota=self._dev(quota))
                 blk_np = blk.cpu().numpy()     # the block's one host pull
-                dw = time.perf_counter() - w0
+                dw = self._wall(w0)
                 s = stall_charge(plan, [r for _, r in parts], t0, dw,
                                  "decode")
                 tv = dstream.commit(t0, s + dw)

@@ -174,13 +174,16 @@ def test_default_device_needs_cuda(models):
     ("gemma3-1b", dict(scheduler="continuous"), "windowed page masking"),
     ("paligemma-3b", dict(scheduler="continuous"),
      "family 'vlm' is not covered by the paged KV path"),
-    (None, dict(shards=2), "item 9"),
+    # head sharding runs on the continuous engine only, with the
+    # reference's ValueError
+    (None, dict(scheduler="static", shards=2), "continuous"),
 ])
 def test_off_path_options_raise(models, arch, kw, item):
     _, tcfg, _, tp = models
     if arch is not None:
         tcfg, tp = treduced(tget(arch)), None
-    with pytest.raises(NotImplementedError, match=item):
+    exc = ValueError if "shards" in kw else NotImplementedError
+    with pytest.raises(exc, match=item):
         ServeEngine(tcfg, tp, device="cpu", **kw)
 
 

@@ -118,6 +118,67 @@ def test_cuda_spec_verify_matches_plain(cuda_device, dtype, quant, Hkv, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("B", [8, 2])
+def test_cuda_head_shard_bitwise_equal_to_whole_pool(cuda_device, B, n,
+                                                     pool):
+    """Head-sharded serving's kernel calls: each of the three paged entries
+    called with a shard's heads of q and of the pool (and its scales) and
+    the whole pool's KV-head count for its split gives bitwise the
+    matching heads of the whole call, at llama3.2-1b's width (32 heads of
+    64 over 32 KV heads, page 16, 36 pages a sequence): a decode step, a
+    64-token chunk at 384 and a C=5 verify window, at B=8 and B=2. The
+    shard's own head count would split the chunk's keys otherwise, and at
+    B=2 the decode's and the verify window's too."""
+    rng = np.random.default_rng(20 + n + B)
+    H = Hkv = 32
+    dh, ps, npp = 64, 16, 36
+    P = B * npp + 1
+    dev = dict(device=cuda_device)
+    kp, vp = _pool(rng, P, ps, Hkv, dh)
+    ksc = vsc = None
+    if pool == "int8":
+        kp, ksc = _quantize(kp)
+        vp, vsc = _quantize(vp)
+        ksc, vsc = _t(ksc).to(**dev), _t(vsc).to(**dev)
+    kpt = _t(kp).to(dtype=getattr(torch, pool), **dev)
+    vpt = _t(vp).to(dtype=getattr(torch, pool), **dev)
+    pt = _t(_tables(rng, B, npp, P)).to(**dev)
+    lens = _t(rng.integers(1, npp * ps + 1, size=B).astype(np.int32)).to(**dev)
+    vl, fed = (_t(a).to(**dev) for a in _verify_window(rng, B, 5, npp, ps))
+
+    def q(*shape):
+        return _t(rng.standard_normal(shape, dtype=np.float32)).to(
+            dtype=torch.bfloat16, **dev)
+    qd, qc, qv = q(B, H, dh), q(1, 64, H, dh), q(B, 5, H, dh)
+    nv = torch.tensor([430], dtype=torch.int32, **dev)
+    calls = [
+        (tk.paged_decode_attention, 1, qd, (pt, lens)),
+        (tk.chunk_prefill_attention, 2, qc, (pt[:1], 384, nv)),
+        (tk.spec_verify_attention, 2, qv, (pt, vl, fed))]
+    n_sm = tk._sm_count(torch.cuda.current_device())
+    assert (tk.chunk_split(1, Hkv // n, 64, 1, npp * ps, n_sm)
+            != tk.chunk_split(1, Hkv, 64, 1, npp * ps, n_sm))
+    if B == 2:
+        assert (tk.paged_split(B, Hkv // n, npp * ps, 1, ps, n_sm)
+                != tk.paged_split(B, Hkv, npp * ps, 1, ps, n_sm))
+        assert (tk.chunk_split(B, Hkv // n, 5, 1, npp * ps, n_sm)
+                != tk.chunk_split(B, Hkv, 5, 1, npp * ps, n_sm))
+    for fn, axis, qq, extras in calls:
+        whole = fn(qq, kpt, vpt, *extras, k_scale=ksc, v_scale=vsc)
+        for r in range(n):
+            kv = slice(r * Hkv // n, (r + 1) * Hkv // n)
+            qh = (slice(None),) * axis + (slice(r * H // n, (r + 1) * H // n),)
+            part = fn(qq[qh].contiguous(), kpt[:, :, kv].contiguous(),
+                      vpt[:, :, kv].contiguous(), *extras,
+                      k_scale=None if ksc is None else ksc[kv].contiguous(),
+                      v_scale=None if vsc is None else vsc[kv].contiguous(),
+                      split_kv_heads=Hkv)
+            assert torch.equal(part, whole[qh]), (fn.__name__, r)
+
+
+@pytest.mark.cuda
 def test_cuda_launch_counts_and_rejects(cuda_device):
     """Each launch counts once; a head width the kernels were not built for
     raises instead of falling back to the plain version."""
