@@ -9,7 +9,8 @@ only phase 3 (every kernel entry's checks and times) and the three paged
 profiles of phase 4 on the ``repro_torch`` under DIR, and prints no
 result line. ``--sharded-only`` builds the kernels and runs only phase 17;
 on a machine with a card for every rank (four), its ranks take a card each
-over nccl. It prints no result line either.
+over nccl. It prints no result line either, nor does ``--train-only``,
+which builds the kernels and runs only phase 18.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -173,6 +174,26 @@ Phases (any failure exits non-zero before the result line):
      bitwise the whole pool's call. Prints each run's tokens/s and decode
      step, the backend and the rank-to-device map; then checks and times
      the three paged entries at a shard's shapes.
+  18. training (no kernel is on its path: each entry's launches must stay
+     0). (a) llama3.2-1b at full width and depth (1.34 B parameters) in
+     f32, remat "block", 4 x 1,024 tokens a step in 2 micro-batches, 8
+     AdamW steps (lr 3e-4, warmup 1) through ``build_train_step``: every
+     loss and grad_norm finite, the last loss below the first, the params
+     f32 beside a separate f32 master, the masked attention called
+     n_layers x 2 (forward and remat's recompute) x micro-batches x steps
+     times; prints ``[smoke] train llama3.2-1b f32 step_ms=... tokens/s=...
+     peak_GB=... flop_bound_ms=...`` (the median of steps 2-7; the bound
+     is the step's operations over 67 TFLOP/s f32), then 2 steps in bf16
+     (the params stay bf16, each its master's round trip). (b) the step-4
+     state saved with ``save_checkpoint`` under build/, restored onto the
+     CPU and bitwise the card's; ``train()`` resumes from it on the card
+     and must repeat the straight run's losses of steps 4-7 (rel 1e-5;
+     says whether bitwise). (c) each family's reduced twin in f32, loss
+     and every gradient leaf on the card against the CPU, remat == none
+     and n_micro 2 == 1 on llama. (d) the reduced llama3.2-1b twin is
+     refused on the card with NotImplementedError before any weights are
+     drawn (``ServeEngine``, both schedulers, and the serve CLI's
+     ``--reduced``); gemma3-1b's twin still serves there.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -255,6 +276,13 @@ WHISPER_RUN = (4, 32, 64)
 SHARD_REQS, SHARD_NEW = 8, 32
 SHARD_RUNS = {2: ("native", "int8", "ngram"), 4: ("native",)}
 SHARD_TIMEOUT_S = 300.0
+# the training phase: llama3.2-1b at full width in f32, (B, S, n_micro,
+# steps, the step saved and resumed from); the families whose reduced twins
+# train on the card against the CPU
+TRAIN_RUN = (4, 1024, 2, 8, 4)
+TRAIN_FAMILIES = ("llama3.2-1b", "arctic-480b", "llava15-13b",
+                  "paligemma-3b", "gemma3-1b", "deepseek-v2-236b",
+                  "mamba2-130m", "zamba2-2.7b", "whisper-medium")
 
 
 def log(msg: str) -> None:
@@ -2331,10 +2359,365 @@ def serve_sharded(torch, kern, tm, ServeEngine, get_config):
     return result, rows, launches
 
 
+# -------------------------- phase 18: training -------------------------- #
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> dict:
+    """Operations of one training step of ``cfg`` on B x S tokens as the
+    port runs it (f32, remat "block", the tied head in 512-row chunks that
+    are recomputed in the backward pass): the weight matrices' 6 N T
+    (forward, the two products of the backward), remat's second forward 2
+    N T, the head's 8 T d V (its forward, backward and recompute; N
+    excludes the embedding table, whose lookup does no product), and the
+    masked attention, which computes every query-key score of its single
+    block: 4 B S^2 H dh a layer forward, times 4 (forward, backward,
+    recompute)."""
+    T = B * S
+    n_mat = n_params - cfg.vocab * cfg.d_model
+    parts = {"weights": 6 * n_mat * T, "remat": 2 * n_mat * T,
+             "head": 8 * T * cfg.d_model * cfg.vocab,
+             "attention": 16 * B * S * S * cfg.n_heads * cfg.head_dim
+             * cfg.n_layers}
+    return dict(parts, total=sum(parts.values()))
+
+
+def _kernel_launches(kern) -> int:
+    return sum(read_counts(kern).values())
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Bitwise equality of two tensors of one dtype and shape."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
+    """(a) and (b): llama3.2-1b at full width and depth in f32, remat
+    "block", B x S = 4 x 1,024 in 2 micro-batches, 8 AdamW steps through
+    ``build_train_step``; the step-4 state saved, restored onto the CPU and
+    held bitwise against the card's; then ``train()`` resumes from that
+    checkpoint on the card and must repeat steps 4-7's losses."""
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.data import for_arch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, build_train_step, train
+    cfg = get_config("llama3.2-1b")
+    B, S, n_micro, steps, save_at = TRAIN_RUN
+    tcfg = TrainConfig(steps=steps, seq_len=S, global_batch=B,
+                       n_micro=n_micro, ckpt_every=save_at, keep=1,
+                       ckpt_dir=str(ckpt_dir), seed=0, log_every=1,
+                       optimizer=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                             total_steps=steps))
+    opts = tm.RuntimeOptions(dtype="float32", remat="block")
+    params = _init_on_card(torch, tm, cfg, "float32", seed=tcfg.seed)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state = adamw_init(params)
+    step_fn = build_train_step(cfg, opts, tcfg)
+    ds = for_arch(cfg, S, B, tcfg.seed)
+    zero_counts(kern)
+    calls0 = cm.attention.calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, gnorms, io = [], [], [], {}
+    for step in range(steps):
+        t0 = time.perf_counter()
+        batch = {k: v.to("cuda") for k, v in ds.batch_at(step).items()}
+        loss, params, state, om = step_fn(params, state, batch)
+        losses.append(float(loss))              # the step's one host read
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(om["grad_norm"])
+        if step + 1 == save_at:
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt_dir, save_at, (params, state), keep=1)
+            io["save_s"] = time.perf_counter() - t0
+            check(latest_step(ckpt_dir) == save_at,
+                  f"no complete step-{save_at} checkpoint")
+            t0 = time.perf_counter()
+            (cp, cs), got = restore_checkpoint(ckpt_dir, (params, state),
+                                               device="cpu")
+            io["restore_cpu_s"] = time.perf_counter() - t0
+            host = _leaves((cp, cs))
+            card = _leaves((params, state))
+            check(len(host) == len(card) and all(
+                h.device.type == "cpu" and _same_bits(torch, h, c.cpu())
+                for h, c in zip(host, card)),
+                "the step-4 checkpoint restored onto the CPU is not "
+                "bitwise the card's state")
+            io["leaves"] = len(host)
+            io["bytes"] = sum(t.numel() * t.element_size() for t in host)
+            del cp, cs, host
+            gc.collect()
+    torch.cuda.synchronize()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    launches = _kernel_launches(kern)
+    calls = cm.attention.calls - calls0
+    gn = [float(g) for g in gnorms]
+    check(all(math.isfinite(x) for x in losses + gn),
+          f"non-finite loss or grad_norm: {losses} {gn}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(launches == 0, f"training launched kernels: {read_counts(kern)}")
+    # each micro-batch's forward calls the masked attention once a layer,
+    # and remat recomputes each block's forward once in the backward pass
+    want_calls = cfg.n_layers * 2 * n_micro * steps
+    check(calls == want_calls, f"masked attention called {calls} times, "
+          f"want {want_calls} (n_layers x (forward + remat) x micro-batches "
+          f"x steps)")
+    for p, m in zip(_leaves(params), _leaves(state["master"])):
+        check(p.dtype == torch.float32 and m.dtype == torch.float32
+              and p.data_ptr() != m.data_ptr(),
+              "params left f32, or the master aliases them")
+    med = statistics.median(step_s[2:steps])
+    tokens = B * S
+    flops = train_flops(cfg, n_params, B, S)
+    bound_ms = flops["total"] / PEAK_OPS["float32"] * 1e3
+    log(f"train llama3.2-1b f32 step_ms={med * 1e3:.1f} "
+        f"tokens/s={tokens / med:.0f} peak_GB={peak / 1e9:.2f} "
+        f"flop_bound_ms={bound_ms:.1f}")
+    log(f"train llama3.2-1b: {n_params} parameters, losses "
+        + " ".join(f"{x:.4f}" for x in losses) + ", grad_norm "
+        + " ".join(f"{x:.3f}" for x in gn) + f", step_ms "
+        + " ".join(f"{x * 1e3:.1f}" for x in step_s)
+        + f"; checkpoint {io['bytes'] / 1e9:.2f} GB in {io['leaves']} "
+        f"leaves: save {io['save_s']:.1f}s, restore onto the CPU "
+        f"{io['restore_cpu_s']:.1f}s (bitwise)")
+    straight = losses
+    del params, state, step_fn, gnorms, om, loss, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the loop's own resume from the step-4 checkpoint, on the card
+    t0 = time.perf_counter()
+    out = train(cfg, tcfg, opts, log_fn=log, device="cuda")
+    io["resume_s"] = time.perf_counter() - t0
+    resumed = out["losses"]
+    check(out["last_step"] == steps and len(resumed) == steps - save_at,
+          f"the resumed run did not run steps {save_at}-{steps - 1}: {out}")
+    bitwise = resumed == straight[save_at:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                  straight[save_at:]))
+    check(rel <= 1e-5, f"resumed losses {resumed} differ from the straight "
+          f"run's {straight[save_at:]} (rel {rel:.2e})")
+    log(f"train resume from step {save_at}: losses "
+        + " ".join(f"{x:.6f}" for x in resumed)
+        + f" {'bitwise equal to' if bitwise else f'within rel {rel:.2e} of'}"
+        f" the straight run's; train() took {io['resume_s']:.1f}s (init, "
+        f"restore, {steps - save_at} steps, step-{steps} checkpoint)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, losses=straight, grad_norm=gn,
+                step_ms=[x * 1e3 for x in step_s], step_ms_median=med * 1e3,
+                tokens_per_s=tokens / med, peak_bytes=peak, flops=flops,
+                flop_bound_ms=bound_ms, attention_calls=calls,
+                resumed_losses=resumed, resume_bitwise=bitwise,
+                resume_rel=rel, io=io)
+
+
+def train_bf16(torch, tm, get_config):
+    """bf16 llama3.2-1b at full width, 2 steps: the params stay bf16 and
+    are their f32 master's round trip on the card."""
+    from repro_torch.data import for_arch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, build_train_step
+    cfg = get_config("llama3.2-1b")
+    B, S, n_micro, _, _ = TRAIN_RUN
+    tcfg = TrainConfig(steps=2, seq_len=S, global_batch=B, n_micro=n_micro,
+                       optimizer=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                             total_steps=2))
+    opts = tm.RuntimeOptions(dtype="bfloat16", remat="block")
+    params = _init_on_card(torch, tm, cfg, "bfloat16", seed=1)
+    state = adamw_init(params)
+    step_fn = build_train_step(cfg, opts, tcfg)
+    ds = for_arch(cfg, S, B, 1)
+    losses = []
+    for step in range(2):
+        batch = {k: v.to("cuda") for k, v in ds.batch_at(step).items()}
+        loss, params, state, om = step_fn(params, state, batch)
+        losses.append(float(loss))
+    check(all(math.isfinite(x) for x in losses), f"bf16 losses {losses}")
+    for p, m in zip(_leaves(params), _leaves(state["master"])):
+        check(p.dtype == torch.bfloat16 and m.dtype == torch.float32
+              and torch.equal(p, m.to(torch.bfloat16)),
+              "a bf16 param is not its master's round trip")
+    log(f"train llama3.2-1b bf16: 2 steps, losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f", grad_norm {float(om['grad_norm']):.3f}; params bf16, each "
+        f"the round trip of its f32 master")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses)
+
+
+def _grads(torch, tm, cfg, params, batch, opts):
+    from repro_torch.tree import leaves, tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = tm.train_loss(cfg, p, batch, opts)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves(p))
+
+
+def _grad_err(torch, got, want) -> float:
+    """max over leaves of max |got - want| / (1e-4 max |want| + 1e-6): at
+    most 1 passes."""
+    return max(float((a.cpu() - b.cpu()).abs().max())
+               / (1e-4 * float(b.abs().max()) + 1e-6)
+               for a, b in zip(got, want))
+
+
+def train_card_vs_cpu(torch, kern, tm, get_config):
+    """(c) each family's reduced twin (head width 16: training reaches no
+    kernel, so it is not refused) in f32: loss to rel 1e-5 and every
+    gradient leaf within 1e-4 max|g_cpu| + 1e-6 of the CPU's; on llama,
+    remat "block" == "none" and n_micro 2 == 1 (rel 2e-3 over 3 steps)."""
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.data import for_arch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, build_train_step
+    from repro_torch.tree import tree_map
+    opts = tm.RuntimeOptions(dtype="float32")
+    rows = {}
+    zero_counts(kern)
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced(get_config(arch))
+        params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                                "float32", "cpu")
+        batch = for_arch(cfg, 32, 2, seed=0).batch_at(0)
+        l_cpu, g_cpu = _grads(torch, tm, cfg, params, batch, opts)
+        pc = _to(params, "cuda")
+        bc = {k: v.to("cuda") for k, v in batch.items()}
+        l_gpu, g_gpu = _grads(torch, tm, cfg, pc, bc, opts)
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        gerr = _grad_err(torch, g_gpu, g_cpu)
+        check(rel <= 1e-5 and gerr <= 1.0,
+              f"{arch} twin: card vs CPU loss rel {rel:.2e}, gradient "
+              f"error {gerr:.3f} of its tolerance")
+        row = dict(loss_rel=rel, grad_err_of_tol=gerr)
+        if arch == "llama3.2-1b":
+            l_r, g_r = _grads(torch, tm, cfg, pc, bc, tm.RuntimeOptions(
+                dtype="float32", remat="block"))
+            row["remat_grad_err_of_tol"] = _grad_err(torch, g_r, g_gpu)
+            check(abs(l_r - l_gpu) <= 1e-5 * abs(l_gpu)
+                  and row["remat_grad_err_of_tol"] <= 1.0,
+                  "remat 'block' differs from 'none' on the card")
+            micro = {}
+            for n in (1, 2):
+                tc = TrainConfig(steps=3, seq_len=32, global_batch=4,
+                                 n_micro=n, optimizer=AdamWConfig(
+                                     lr=1e-3, warmup_steps=0, total_steps=3))
+                step = build_train_step(cfg, opts, tc)
+                # a copy: the steps update it in place
+                p = tree_map(lambda t: t.to("cuda", copy=True), params)
+                st = adamw_init(p)
+                ds = for_arch(cfg, 32, 4, seed=2)
+                micro[n] = []
+                for s in range(3):
+                    b = {k: v.to("cuda") for k, v in ds.batch_at(s).items()}
+                    loss, p, st, _ = step(p, st, b)
+                    micro[n].append(float(loss))
+            row["micro_rel"] = max(abs(a - b) / abs(b)
+                                   for a, b in zip(micro[2], micro[1]))
+            check(row["micro_rel"] <= 2e-3,
+                  f"n_micro 2 vs 1 on the card: {micro}")
+        rows[arch] = row
+        del params, pc, g_cpu, g_gpu
+    check(_kernel_launches(kern) == 0,
+          f"the twins' training launched kernels: {read_counts(kern)}")
+    log("train card vs CPU (reduced twins, f32): "
+        + ", ".join(f"{a} loss rel {r['loss_rel']:.1e} grad "
+                    f"{r['grad_err_of_tol']:.3f} of tol"
+                    for a, r in rows.items())
+        + f"; llama remat block vs none {rows['llama3.2-1b']['remat_grad_err_of_tol']:.3f}"
+        f" of tol, n_micro 2 vs 1 rel {rows['llama3.2-1b']['micro_rel']:.1e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def width_refusal(torch, kern, tm, get_config):
+    """(d) the reduced llama3.2-1b twin on the card is refused with
+    NotImplementedError before any weights are drawn, by ``ServeEngine``
+    (both schedulers) and by the serve CLI's ``--reduced`` (default
+    ``--device cuda``); gemma3-1b's twin, whose layers reach no kernel,
+    still serves on the card."""
+    import repro_torch.launch.serve as tserve
+    import repro_torch.serving.engine as teng
+    from repro_torch.configs.reduce import reduced
+    drawn = []
+    real = teng.init_params
+
+    def spy(*a, **k):
+        drawn.append(1)
+        return real(*a, **k)
+    teng.init_params = spy
+    try:
+        for sched in ("continuous", "static"):
+            try:
+                teng.ServeEngine(reduced(get_config("llama3.2-1b")),
+                                 device="cuda", scheduler=sched)
+            except NotImplementedError as e:
+                msg = str(e)
+            else:
+                check(False, f"the reduced twin was served ({sched})")
+        check(not drawn and "head_dim 16" in msg and "--device cpu" in msg,
+              f"refusal after drawing weights or without its reason: {msg}")
+        try:
+            tserve.main(["--arch", "llama3.2-1b", "--reduced"])
+        except NotImplementedError:
+            pass
+        else:
+            check(False, "the serve CLI served the reduced twin on cuda")
+        check(not drawn, "the CLI drew weights before refusing")
+        zero_counts(kern)
+        eng = teng.ServeEngine(reduced(get_config("gemma3-1b")),
+                               opts=tm.RuntimeOptions(dtype="float32"),
+                               device="cuda", scheduler="static", max_len=48)
+        import numpy as np
+        out = eng.generate(np.tile(np.arange(1, 17, dtype=np.int32),
+                                   (2, 1)), 16)
+        check(drawn and len(out) == 2 and all(len(o) == 16 for o in out),
+              f"gemma3-1b's twin did not serve on the card: {out}")
+        check(_kernel_launches(kern) == 0, "gemma3-1b's twin launched")
+    finally:
+        teng.init_params = real
+    log(f"width refusal: reduced llama3.2-1b on cuda refused before any "
+        f"weights were drawn ({msg[:90]}...); the CLI's --reduced too; "
+        f"reduced gemma3-1b served 2 x 16 tokens on the card, no launch")
+    return dict(message=msg)
+
+
+def train_phase(torch, kern, tm, cm, get_config) -> dict:
+    """Phase 18 (a)-(d), the checkpoints in a temporary directory of the
+    checkout's build/ (removed afterwards)."""
+    import shutil
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=base))
+    free = shutil.disk_usage(ckpt).free
+    log(f"train: checkpoints under {ckpt.name}, {free / 1e9:.0f} GB free")
+    try:
+        out = dict(full_width=train_full_width(torch, kern, tm, cm,
+                                               get_config, ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["bf16"] = train_bf16(torch, tm, get_config)
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, kern, tm, get_config)
+    out["refusal"] = width_refusal(torch, kern, tm, get_config)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 (training) {out['phase_s']:.1f}s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
 
@@ -2389,6 +2772,9 @@ def main() -> None:
                     help="only build the kernels and run phase 17 (head-"
                     "sharded serving; with a card a rank, over nccl); prints "
                     "no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only build the kernels and run phase 18 "
+                    "(training); prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -2475,6 +2861,15 @@ def main() -> None:
                 smi=smi, sharded=sharded, shard_rows=shard_rows), indent=1,
                 default=str))
         return
+    if args.train_only:
+        from repro_torch.models import common as cm
+        train = train_phase(torch, kern, tm, cm, get_config)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(smi=smi, train=train),
+                                                 indent=1, default=str))
+        return
     dense_regs = dense_ptxas(kbuild)
 
     # ---- phase 3 ----
@@ -2535,6 +2930,9 @@ def main() -> None:
     # ---- phase 17: head-sharded continuous serving ----
     sharded, shard_rows, shard_launches = serve_sharded(
         torch, kern, tm, ServeEngine, get_config)
+
+    # ---- phase 18: training ----
+    train = train_phase(torch, kern, tm, cm, get_config)
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -2628,7 +3026,7 @@ def main() -> None:
             arctic_launches=arctic_launches, llava=llava,
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
-            f32_families=f32_families, sharded=sharded,
+            f32_families=f32_families, sharded=sharded, train=train,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

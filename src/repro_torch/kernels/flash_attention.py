@@ -6,7 +6,8 @@ its own positions (``S == L``). On a CUDA tensor it launches the
 hand-written kernel ``csrc/flash_attention.cu`` (replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``), or raises on what
 the kernel does not take; on a CPU tensor it runs the plain version. It
-counts its launches in ``flash_attention.launches``.
+counts its launches in ``flash_attention.launches``. The kernel is forward
+only: on a CUDA tensor that needs a gradient (grad mode on) it raises.
 
 Two differences from the TPU kernel: any ``S`` is taken (the Pallas
 wrapper asserts block multiples of S and L), and on bf16/f16 inputs the
@@ -53,6 +54,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
     dtype."""
     if not _on_cuda(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward: its output would carry no graph, and
+        # the projections before it would silently get no gradient
+        raise RuntimeError("flash_attention has no backward: train through "
+                           "models.common.attention (models.train_loss "
+                           "does), or call it under torch.no_grad()")
     _check(q, k, v, None, None, (), q_ndim=4)
     B, S, H, dh = q.shape
     Hkv = k.shape[2]

@@ -77,6 +77,21 @@ def forward(cfg: ArchConfig, params, tokens,
     return module_for(cfg).forward(cfg, params, tokens, opts, prefix_emb)
 
 
+def train_loss(cfg: ArchConfig, params, batch,
+               opts: RuntimeOptions = RuntimeOptions()):
+    """(loss, metrics) of ``cfg``'s family on batch {"tokens", "labels"}
+    (+ "prefix_emb": VLM patches or Whisper's frames), for autograd."""
+    return module_for(cfg).train_loss(cfg, params, batch, opts)
+
+
+def kernel_width_reason(cfg: ArchConfig, path: str) -> Optional[str]:
+    """Why ``path`` ("paged", "prefill", "decode" or "static") cannot run
+    ``cfg`` on a CUDA device (a head width its kernels do not take), or
+    None. Only the decoder-only LMs reach a kernel."""
+    fn = getattr(module_for(cfg), "kernel_width_reason", None)
+    return fn(cfg, path) if fn is not None else None
+
+
 def prefill(cfg: ArchConfig, params, tokens, cache,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
     """Run the prompt (after ``prefix_emb`` when given, or over Whisper's

@@ -1,8 +1,10 @@
-"""Shared PyTorch building blocks of the serving paths: dense layers
-(with or without a bias), the embedding table, RMSNorm and LayerNorm,
-rotary and sinusoidal position embeddings, the SwiGLU activation, the
-dense-cache write and the general masked attention (lazy causal, sliding-window, prefix-LM
-and full masks, soft-capping, a query offset and a valid length).
+"""Shared PyTorch building blocks of the serving and training paths:
+dense layers (with or without a bias), the embedding table, RMSNorm and
+LayerNorm, rotary and sinusoidal position embeddings, the SwiGLU
+activation, the dense-cache write, the general masked attention (lazy
+causal, sliding-window, prefix-LM and full masks, soft-capping, a query
+offset and a valid length) and the training loss's chunked
+cross-entropy.
 
 Parameters are plain dicts of tensors in the reference package's layout
 (``dense`` weights are ``(d_in, d_out)`` and apply as ``x @ w``), so weights
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 # the CPU vector exp guard of the kernels' plain versions (see ``_exp``)
 from repro_torch.kernels.decode_attention import _cpu_exp_ready
@@ -268,3 +271,39 @@ def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
 
 
 attention.calls = 0
+
+
+# ---------------------------- cross-entropy ----------------------------- #
+
+def _xent_chunk(h_c, w, lab_c, tied: bool, ignore: int):
+    """(sum of the chunk's NLL, its count of valid labels): f32 logits of
+    h_c (B, c, d) against the head ``w``."""
+    wf = w.float()
+    logits = h_c.float() @ (wf.T if tied else wf)             # (B, c, V)
+    valid = lab_c != ignore
+    safe = torch.where(valid, lab_c, torch.zeros_like(lab_c)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, torch.zeros_like(lse))
+    return nll.sum(), valid.sum()
+
+
+def chunked_xent(h, w, labels, *, tied: bool = False, chunk: int = 512,
+                 ignore: int = -1):
+    """Mean next-token NLL WITHOUT materializing (B, S, V) logits (the
+    reference's ``chunked_xent``): a loop over sequence chunks of
+    ``chunk`` positions, each under ``torch.utils.checkpoint``, so at most
+    one chunk's f32 logits (B, chunk, V) are alive, in the forward and in
+    the backward pass. h: (B, S, d) final hidden states; w: (d, V) head or
+    (V, d) tied embedding; labels (B, S), ``ignore`` where no loss is
+    taken. The sum over valid labels, divided by their count (at least 1)."""
+    S = h.shape[1]
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for lo in range(0, S, chunk):
+        t, c = ckpt.checkpoint(_xent_chunk, h[:, lo:lo + chunk], w,
+                               labels[:, lo:lo + chunk], tied, ignore,
+                               use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp_min(cnt, 1)

@@ -21,14 +21,19 @@ Attention runs through ``kernels.decode_attention`` and
 a CPU tensor their plain versions. On the static path, the layers the
 reference attends through its XLA masked attention (prefix-LM prompts,
 sliding-window and soft-capped layers) take ``common.attention`` instead,
-on any device. With ``RuntimeOptions.kv_shard`` (head-sharded serving) the
-paged pool holds this rank's KV heads only and the paged attention runs on
-them through ``kernels.sharded``; the rest of the model is replicated.
+on any device. Training (``train_loss``) takes ``common.attention`` on
+every layer and device, as the reference trains through its XLA attention
+(no kernel has a backward). With ``RuntimeOptions.kv_shard`` (head-sharded
+serving) the paged pool holds this rank's KV heads only and the paged
+attention runs on them through ``kernels.sharded``; the rest of the model
+is replicated.
 
 Public surface:
     init_params(cfg, generator, dtype, device)          -> params
     static_supported(cfg)                               -> reason or None
+    kernel_width_reason(cfg, path)                      -> reason or None
     forward(cfg, params, tokens, opts, collect_kv=)     -> logits[, kvs]
+    train_loss(cfg, params, batch, opts)                -> (loss, metrics)
     init_cache(cfg, batch, max_len, opts, device)       -> cache
     prefill(cfg, params, tokens, cache, opts)           -> (logits, cache)
     decode_step(cfg, params, token, pos, cache, opts)   -> (logits, cache)
@@ -53,6 +58,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import decode_attention as kern
@@ -82,6 +88,7 @@ class RuntimeOptions:
     moe_impl: str = "capacity"      # capacity | ragged
     cache_dtype: str = ""           # "" -> same as dtype; "int8" -> quantized
     capacity_factor: float = 1.25
+    remat: str = "none"             # none | block  (activation checkpointing)
     # head-sharded paged serving (DESIGN.md SS16): a kernels.sharded
     # ShardGroup whose ranks each hold Hkv/N heads of the paged pool and
     # attend over them, all-gathering head outputs (bitwise identical to
@@ -176,6 +183,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
     return params
 
 
+def unstack(tree, depth: int = 1):
+    """A stacked tree with each leaf cut into (nested) lists of its slices
+    on the leading ``depth`` axes, by ``torch.unbind`` (views). ``_layer``
+    indexes such a list as it indexes the stack, but in the backward pass
+    one unbind stacks its slices' gradients once, where each indexed
+    slice's backward writes a zero tensor the size of the whole stack (a
+    layer's backward would write every stacked weight's size)."""
+    if isinstance(tree, dict):
+        return {k: unstack(v, depth) for k, v in tree.items()}
+    parts = list(tree.unbind(0))
+    return parts if depth == 1 else [unstack(x, depth - 1) for x in parts]
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s slice (views) of a stacked param or cache tree."""
     if isinstance(tree, dict):
@@ -185,12 +205,17 @@ def _layer(tree, i: int):
 
 # ------------------------------- layers --------------------------------- #
 
-def _ffn_apply(p, x, cfg: ArchConfig, opts: RuntimeOptions):
-    """The layer's FFN: the MoE FFN (its aux losses dropped: serving has
-    no use for them) or the dense one."""
+def _ffn_apply(p, x, cfg: ArchConfig, opts: RuntimeOptions, aux=None):
+    """The layer's FFN: the MoE FFN or the dense one. The MoE FFN's aux
+    losses are added into the dict ``aux`` when one is given (training),
+    else dropped (serving has no use for them)."""
     if "moe" in p:
-        return moe_mod.moe_ffn(p["moe"], x, cfg, impl=opts.moe_impl,
-                               capacity_factor=opts.capacity_factor)[0]
+        y, a = moe_mod.moe_ffn(p["moe"], x, cfg, impl=opts.moe_impl,
+                               capacity_factor=opts.capacity_factor)
+        if aux is not None:
+            for name, val in a.items():
+                aux[name] = aux[name] + val
+        return y
     return moe_mod.dense_ffn(p["mlp"], x, cfg.gated_mlp)
 
 
@@ -251,6 +276,58 @@ def paged_supported(cfg: ArchConfig) -> Optional[str]:
     return None
 
 
+def _kernel_layers(cfg: ArchConfig, path: str):
+    """The (kernel name, head widths it takes) that ``path``'s layers reach
+    on a CUDA device: "paged" (the paged decode, chunk prefill and spec
+    verify, on every layer of a ``paged_supported`` config), "prefill"
+    (flash on a causal layer without a soft-cap), "decode" (the dense
+    decode on a layer with neither a window nor a soft-cap) or "static"
+    (both). Masked, windowed, soft-capped and MLA layers reach none."""
+    if path == "paged":
+        return [("paged decode / chunk prefill / spec verify",
+                 kern._HEAD_DIMS)]
+    if path not in ("prefill", "decode", "static"):
+        raise ValueError(f"unknown path {path!r}")
+    if cfg.mla is not None or cfg.logit_softcap:
+        return []
+    n_pre, _ = _layer_split(cfg)
+    kinds = [0] * n_pre + _kind_array(cfg, n_pre, cfg.n_layers - n_pre)
+    out = []
+    prefix = cfg.prefix_bidirectional and cfg.prefix_len
+    if path != "decode" and not prefix and 0 in kinds:
+        out.append(("flash attention", kern._HEAD_DIMS))
+    if path != "prefill" and 0 in kinds:
+        out.append(("dense decode", kern._DENSE_HEAD_DIMS))
+    return out
+
+
+def kernel_width_reason(cfg: ArchConfig, path: str) -> Optional[str]:
+    """None when every kernel that ``path``'s layers reach on a CUDA device
+    (see ``_kernel_layers``) takes ``cfg.head_dim``; else why not. Checked
+    before any weights are drawn, so a config no kernel serves fails at
+    construction rather than at its first launch. The CPU takes any width,
+    and training reaches no kernel."""
+    if (paged_supported if path == "paged" else static_supported)(cfg):
+        return None                      # the path does not run cfg at all
+    bad = [(name, dims) for name, dims in _kernel_layers(cfg, path)
+           if cfg.head_dim not in dims]
+    if not bad:
+        return None
+    takes = "; ".join(f"the {name} takes {list(dims)}" for name, dims in bad)
+    return (f"{cfg.name}: head_dim {cfg.head_dim} reaches a CUDA kernel that "
+            f"does not take it ({takes}); pass device='cpu' (--device cpu) "
+            f"to run it on the CPU")
+
+
+def _refuse_width(cfg: ArchConfig, path: str, device) -> None:
+    """Raise ``NotImplementedError`` on a CUDA ``device`` when
+    ``kernel_width_reason(cfg, path)`` gives a reason."""
+    if torch.device(device).type == "cuda":
+        reason = kernel_width_reason(cfg, path)
+        if reason:
+            raise NotImplementedError(reason)
+
+
 def _local_kv_heads(cfg: ArchConfig, opts: RuntimeOptions) -> slice:
     """The pool's KV heads on this device: this rank's block of them under
     ``opts.kv_shard``, else all (a whole-axis slice: the same code)."""
@@ -272,6 +349,7 @@ def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
     if reason:
         raise NotImplementedError(f"paged KV cache: {reason}")
     device = resolve_device(device)
+    _refuse_width(cfg, "paged", device)
     quant = opts.cache_dtype == "int8"
     dtype = torch_dtype(opts.cache_dtype or opts.dtype)
     hl = _local_kv_heads(cfg, opts)
@@ -719,17 +797,20 @@ def _prompt_mask(cfg: ArchConfig, kind: int):
     return "causal", 0, 0
 
 
-def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int):
+def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int, *,
+                train: bool = False):
     """Attention over the whole prompt x (B, S, d): the flash kernel where
     the reference's ``try_flash_attention`` would take its Pallas kernel
-    (a causal mask, no soft-cap), else the general masked attention.
-    Returns the block output and this layer's (k, v) (B, S, Hkv, dh), k
-    rotated."""
+    (a causal mask, no soft-cap), else the general masked attention. The
+    training forward (``train``) takes the masked attention on every layer,
+    as the reference trains through its XLA attention: the flash kernel
+    has no backward. Returns the block output and this layer's (k, v)
+    (B, S, Hkv, dh), k rotated."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
     mask, window, prefix_len = _prompt_mask(cfg, kind)
-    if mask == "causal" and not cfg.logit_softcap:
+    if mask == "causal" and not cfg.logit_softcap and not train:
         out = flash.flash_attention(q, k, v, causal=True,
                                     scale=1.0 / math.sqrt(hd))
     else:
@@ -740,14 +821,14 @@ def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int):
 
 
 def _block(lp, x, cfg: ArchConfig, rope, positions, opts: RuntimeOptions,
-           kind: int):
+           kind: int, aux=None, *, train: bool = False):
     xn = cm.rms_norm(x, lp["ln1"])
     if cfg.mla is not None:
         h, kv = mla_mod.mla_prefill_attn(lp["attn"], xn, cfg, positions)
     else:
-        h, kv = _attn_apply(lp["attn"], xn, cfg, rope, kind)
+        h, kv = _attn_apply(lp["attn"], xn, cfg, rope, kind, train=train)
     x = x + h
-    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts), kv
+    return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts, aux), kv
 
 
 def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
@@ -760,6 +841,7 @@ def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
     if reason:
         raise NotImplementedError(reason)
     x = _embed_tokens(cfg, params, tokens, prefix_emb)
+    _refuse_width(cfg, "prefill", x.device)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     rope = (cm.rope_cos_sin(positions, cfg.head_dim) if cfg.mla is None
@@ -769,6 +851,81 @@ def _hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
         if on_kv is not None:
             on_kv(i, a, b)
     return x
+
+
+def _train_hidden(cfg: ArchConfig, params, tokens, opts: RuntimeOptions,
+                  prefix_emb=None):
+    """The training forward: (final residual stream normed (B, P + S, d),
+    aux {"load_balance", "router_z"} summed over the MoE layers). Every
+    prompt attention takes ``common.attention`` (``_attn_apply(train=
+    True)``) on any device, and no tensor autograd saved is written in
+    place. With ``opts.remat == "block"`` each layer of the stack runs
+    under ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward pass), as the reference rematerializes its scanned stack and
+    not the unstacked prefix layers."""
+    reason = static_supported(cfg)
+    if reason:
+        raise NotImplementedError(reason)
+    x = _embed_tokens(cfg, params, tokens, prefix_emb)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    rope = (cm.rope_cos_sin(positions, cfg.head_dim) if cfg.mla is None
+            else None)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"load_balance": zero, "router_z": zero}
+    n_pre = len(params.get("head_layers", []))
+    params = dict(params, stack=unstack(params["stack"]))
+
+    def block(lp, x, kind):
+        a = {"load_balance": zero, "router_z": zero}
+        x, _ = _block(lp, x, cfg, rope, positions, opts, kind, a, train=True)
+        return x, a
+    for i, (lp, _, kind) in enumerate(_layers(cfg, params)):
+        if i >= n_pre:
+            x, a = remat(opts, block, lp, x, kind)
+        else:
+            x, a = block(lp, x, kind)
+        aux = {name: aux[name] + a[name] for name in aux}
+    return cm.rms_norm(x, params["final_norm"]), aux
+
+
+def remat(opts: RuntimeOptions, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``opts.remat == "block"``."""
+    if opts.remat == "block":
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    if opts.remat != "none":
+        raise ValueError(f"remat must be 'none' or 'block', got "
+                         f"{opts.remat!r}")
+    return fn(*args)
+
+
+def train_loss(cfg: ArchConfig, params, batch, opts: RuntimeOptions =
+               RuntimeOptions()):
+    """batch: {"tokens": (B, S), "labels": (B, S)} (+ "prefix_emb" (B, P,
+    d) for a VLM). Next-token cross-entropy over the text positions by
+    ``common.chunked_xent`` (the (B, S, vocab) logits never exist), plus
+    ``0.01 * load_balance + 1e-4 * router_z`` for an MoE stack. Returns
+    (total, {"nll", "load_balance", "router_z"}), f32 scalars that autograd
+    differentiates."""
+    h, aux = _train_hidden(cfg, params, batch["tokens"], opts,
+                           batch.get("prefix_emb"))
+    labels = batch["labels"]
+    pfx = (batch["prefix_emb"].shape[1]
+           if batch.get("prefix_emb") is not None else 0)
+    S = labels.shape[1]
+    h_pred = h[:, pfx:pfx + S - 1]
+    if cfg.tie_embeddings:
+        loss = cm.chunked_xent(h_pred, params["embed"]["emb"],
+                               labels[:, 1:], tied=True)
+    else:
+        loss = cm.chunked_xent(h_pred, params["lm_head"]["w"],
+                               labels[:, 1:], tied=False)
+    total = loss
+    if cfg.moe is not None:
+        total = total + 0.01 * aux["load_balance"] + 1e-4 * aux["router_z"]
+    return total, {"nll": loss, **aux}
 
 
 def forward(cfg: ArchConfig, params, tokens,
@@ -823,6 +980,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     if reason:
         raise NotImplementedError(f"dense KV cache: {reason}")
     device = resolve_device(device)
+    _refuse_width(cfg, "static", device)
     n_pre, _ = _layer_split(cfg)
     cache = {"stack": _layer_cache(cfg, opts, batch, max_len, device,
                                    cfg.n_layers - n_pre)}

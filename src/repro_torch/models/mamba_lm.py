@@ -4,7 +4,8 @@ with an O(1) decode state (the reference is ``repro/models/mamba_lm.py``).
 There is no KV cache: the static engine's cache is ``{"ssm_states":
 {"conv", "ssm"}}``, one state a layer on a leading layer axis, its size
 independent of the sequence length, and ``cache_dtype`` does not apply
-(the reference ignores it too). The model has no paged path.
+(the reference ignores it too). The model has no paged path. Training
+(``train_loss``) runs the prompt path, which writes nothing in place.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import ssd
-from repro_torch.models.lm import (RuntimeOptions, _layer, _stack,
-                                   resolve_device, torch_dtype)
+from repro_torch.models.lm import (RuntimeOptions, _layer, _stack, remat,
+                                   resolve_device, torch_dtype, unstack)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
@@ -33,14 +34,35 @@ def _logits(params, x):
     return cm.rms_norm(x, params["final_norm"]) @ params["embed"]["emb"].T
 
 
+def _run(cfg: ArchConfig, params, tokens, opts: RuntimeOptions):
+    """The final residual stream (B, S, d), each layer under ``lm.remat``
+    (``opts.remat == "block"``: recomputed in the backward pass)."""
+    x = params["embed"]["emb"][tokens.long()]
+
+    def body(lp, h):
+        return h + ssd.mamba_forward(lp, h, cfg)
+    for i in range(cfg.n_layers):
+        x = remat(opts, body, _layer(params["stack"], i), x)
+    return x
+
+
 def forward(cfg: ArchConfig, params, tokens,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
     """Full-sequence logits (B, S, vocab); ``prefix_emb`` is ignored, as
     in the reference."""
-    x = params["embed"]["emb"][tokens.long()]
-    for i in range(cfg.n_layers):
-        x = x + ssd.mamba_forward(_layer(params["stack"], i), x, cfg)
-    return _logits(params, x)
+    return _logits(params, _run(cfg, params, tokens, opts))
+
+
+def train_loss(cfg: ArchConfig, params, batch,
+               opts: RuntimeOptions = RuntimeOptions()):
+    """Next-token cross-entropy of batch {"tokens", "labels"} (B, S), tied
+    to the embedding: (loss, {"nll": loss})."""
+    params = dict(params, stack=unstack(params["stack"]))
+    h = cm.rms_norm(_run(cfg, params, batch["tokens"], opts),
+                    params["final_norm"])
+    loss = cm.chunked_xent(h[:, :-1], params["embed"]["emb"],
+                           batch["labels"][:, 1:], tied=True)
+    return loss, {"nll": loss}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -20,7 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.lm import (RuntimeOptions, _layer, _stack,
-                                   resolve_device, torch_dtype)
+                                   resolve_device, torch_dtype, unstack)
 from repro_torch.models.zamba import INT8_REFUSED
 
 
@@ -157,6 +157,21 @@ def forward(cfg: ArchConfig, params, tokens,
     ``prefix_emb``."""
     enc_out = encode(cfg, params, _frames(prefix_emb), opts)
     return _logits(params, _dec_forward(cfg, params, tokens, enc_out))
+
+
+def train_loss(cfg: ArchConfig, params, batch,
+               opts: RuntimeOptions = RuntimeOptions()):
+    """Next-token cross-entropy of the decoder over batch {"tokens",
+    "labels"} (B, S) given the frames ``batch["prefix_emb"]``, tied to the
+    embedding: (loss, {"nll": loss}). No remat: the reference's Whisper
+    has none."""
+    params = dict(params, enc_stack=unstack(params["enc_stack"]),
+                  dec_stack=unstack(params["dec_stack"]))
+    enc_out = encode(cfg, params, _frames(batch.get("prefix_emb")), opts)
+    h = _dec_forward(cfg, params, batch["tokens"], enc_out)
+    loss = cm.chunked_xent(h[:, :-1], params["embed"]["emb"],
+                           batch["labels"][:, 1:], tied=True)
+    return loss, {"nll": loss}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -8,8 +8,8 @@ attends with rope, causally, through the masked attention (its head width,
 and returns to the backbone through a per-site projection. The backbone's
 weights and states keep the reference's (sites, per-site, ...) layout.
 The static engine's cache holds every block's Mamba state and each site's
-dense KV. An int8 KV cache is refused: the reference casts the unscaled
-KV to int8.
+dense KV. Training (``train_loss``) runs the cache-free prompt path. An
+int8 KV cache is refused: the reference casts the unscaled KV to int8.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd
 from repro_torch.models.lm import (RuntimeOptions, _embed_tokens, _layer,
-                                   _stack, resolve_device, torch_dtype)
+                                   _stack, remat, resolve_device,
+                                   torch_dtype, unstack)
 
 INT8_REFUSED = (
     "an int8 KV cache for {family!r}: the reference casts its unscaled KV "
@@ -89,30 +90,40 @@ def _shared_block(sp, x, emb0, cfg: ArchConfig, positions, cache=None,
     return h, (k, v)
 
 
-def _run(cfg: ArchConfig, params, tokens, cache=None):
+def _run(cfg: ArchConfig, params, tokens, cache=None,
+         opts: RuntimeOptions = RuntimeOptions()):
     """The prompt's final residual stream (B, S, d); with ``cache`` each
-    block's decode state and each site's KV land in it in place."""
+    block's decode state and each site's KV land in it in place. Without
+    one (forward, training) nothing is written in place, and with
+    ``opts.remat == "block"`` each site (its backbone blocks, the shared
+    block and its projection) runs under ``lm.remat``, as the reference
+    rematerializes its site body."""
     x = _embed_tokens(cfg, params, tokens)
     emb0 = x
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     n_sites, per = _layout(cfg)
-    for s in range(n_sites):
+
+    def site_body(s, x):
         site = _layer(params["mamba"], s)
         for j in range(per):
-            lp = _layer(site, j)
-            if cache is None:
-                x = x + ssd.mamba_forward(lp, x, cfg)
-                continue
-            y, state = ssd.mamba_forward(lp, x, cfg, return_state=True)
+            x = x + ssd.mamba_forward(_layer(site, j), x, cfg)
+        delta, _ = _shared_block(params["shared"], x, emb0, cfg, positions)
+        return x + cm.dense(_layer(params["site_proj"], s), delta)
+    for s in range(n_sites):
+        if cache is None:
+            x = remat(opts, site_body, s, x)
+            continue
+        site = _layer(params["mamba"], s)
+        for j in range(per):
+            y, state = ssd.mamba_forward(_layer(site, j), x, cfg,
+                                         return_state=True)
             x = x + y
             for name, val in state.items():
                 cache["mamba"][name][s, j].copy_(val)
         delta, (k, v) = _shared_block(params["shared"], x, emb0, cfg,
                                       positions)
-        if cache is not None:
-            cm.update_cache(cache["attn"]["k"][s], cache["attn"]["v"][s], k,
-                            v, 0)
+        cm.update_cache(cache["attn"]["k"][s], cache["attn"]["v"][s], k, v, 0)
         x = x + cm.dense(_layer(params["site_proj"], s), delta)
     return x
 
@@ -125,7 +136,20 @@ def forward(cfg: ArchConfig, params, tokens,
             opts: RuntimeOptions = RuntimeOptions(), prefix_emb=None):
     """Full-sequence logits (B, S, vocab); ``prefix_emb`` is ignored, as
     in the reference."""
-    return _logits(params, _run(cfg, params, tokens))
+    return _logits(params, _run(cfg, params, tokens, opts=opts))
+
+
+def train_loss(cfg: ArchConfig, params, batch,
+               opts: RuntimeOptions = RuntimeOptions()):
+    """Next-token cross-entropy of batch {"tokens", "labels"} (B, S), tied
+    to the embedding: (loss, {"nll": loss})."""
+    params = dict(params, mamba=unstack(params["mamba"], 2),
+                  site_proj=unstack(params["site_proj"]))
+    h = cm.rms_norm(_run(cfg, params, batch["tokens"], opts=opts),
+                    params["final_norm"])
+    loss = cm.chunked_xent(h[:, :-1], params["embed"]["emb"],
+                           batch["labels"][:, 1:], tied=True)
+    return loss, {"nll": loss}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

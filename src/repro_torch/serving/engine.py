@@ -58,7 +58,8 @@ from repro_torch.kernels import sharded as ksh
 from repro_torch.models import (RuntimeOptions, copy_pages, decode_step,
                                 decode_steps, decode_steps_paged, init_cache,
                                 init_paged_cache, init_params,
-                                layer_dma_slices, paged_supported, prefill,
+                                kernel_width_reason, layer_dma_slices,
+                                paged_supported, prefill,
                                 prefill_paged_chunk, resolve_device,
                                 spec_decode_verify, static_supported,
                                 torch_dtype)
@@ -225,6 +226,18 @@ class ServeEngine:
                              f"{kv_policy!r}")
         if kv_policy == "int8":
             opts = dataclasses.replace(opts, cache_dtype="int8")
+        # a head width that a kernel of the path does not take is refused
+        # here, before any weights are drawn or ranks spawned, rather than
+        # at the first launch (the CPU's plain versions take any width)
+        if torch.device(device).type == "cuda":
+            paths = [(cfg, "paged" if scheduler == "continuous"
+                      else "static")]
+            if spec_mode == "model" and draft_cfg is not None:
+                paths.append((draft_cfg, "paged"))
+            for c, path in paths:
+                reason = kernel_width_reason(c, path)
+                if reason:
+                    raise NotImplementedError(reason)
         # ---- head-sharded serving (DESIGN.md SS16) ---- #
         # N ranks of a process group each hold Hkv/N heads of every page
         # and run the unchanged kernels on them; head outputs are

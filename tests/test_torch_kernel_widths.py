@@ -1,0 +1,138 @@
+"""The refusal of a head width that no kernel of a path takes
+(``models.kernel_width_reason``), on the CPU: which layers reach which
+kernel on a CUDA device (the paged path's three kernels take head widths
+64 and 128, flash 64 and 128 on causal layers without a soft-cap, the
+dense decode 64, 128 and 256 on layers with neither a window nor a
+soft-cap; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper
+layers reach none), and that ``ServeEngine``, the dense and paged cache
+constructors, the static forward and the serve CLI refuse such a config
+on "cuda" before any weights are drawn, and never on "cpu"."""
+import pytest
+import torch
+
+import repro_torch.launch.serve as tserve
+import repro_torch.models as tm
+import repro_torch.serving.engine as teng
+from repro_torch.configs import all_configs, get_config
+from repro_torch.configs.reduce import reduced
+from repro_torch.models import lm as tlm
+from repro_torch.serving import ServeEngine
+
+torch.set_num_threads(2)
+
+ARCHS = sorted(c.name for c in (all_configs().values()
+                                if isinstance(all_configs(), dict)
+                                else all_configs()))
+# reduced twins (head width 16) whose layers reach a kernel on each path
+REFUSED_PAGED = {"arctic-480b", "command-r-plus-104b", "llama3.2-1b",
+                 "qwen2.5-3b", "yi-6b"}
+REFUSED_STATIC = REFUSED_PAGED | {"llava15-13b", "paligemma-3b"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_twins(arch):
+    """Every dense, MoE and VLM twin is refused on the paths it runs;
+    gemma3-1b's (every layer windowed or soft-capped) and the MLA, SSM,
+    hybrid and encoder-decoder twins are not."""
+    cfg = reduced(get_config(arch))
+    assert cfg.head_dim in (0, 16) or cfg.family in ("ssm",)
+    paged = tm.kernel_width_reason(cfg, "paged")
+    static = tm.kernel_width_reason(cfg, "static")
+    assert (paged is not None) == (arch in REFUSED_PAGED)
+    assert (static is not None) == (arch in REFUSED_STATIC)
+    for reason in (paged, static):
+        if reason is not None:
+            assert "head_dim 16" in reason and "--device cpu" in reason
+            assert "[64, 128" in reason
+
+
+def test_refusal_names_each_kernel_and_its_widths():
+    cfg = reduced(get_config("llama3.2-1b"))
+    assert "paged decode / chunk prefill / spec verify takes [64, 128]" in (
+        tm.kernel_width_reason(cfg, "paged"))
+    static = tm.kernel_width_reason(cfg, "static")
+    assert "flash attention takes [64, 128]" in static
+    assert "dense decode takes [64, 128, 256]" in static
+    # paligemma's prompt is prefix-LM (no flash): only its dense decode
+    pali = reduced(get_config("paligemma-3b"))
+    assert tm.kernel_width_reason(pali, "prefill") is None
+    assert "dense decode" in tm.kernel_width_reason(pali, "decode")
+    with pytest.raises(ValueError, match="unknown path"):
+        tm.kernel_width_reason(cfg, "train")
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2.5-3b", "arctic-480b",
+                                  "llava15-13b", "paligemma-3b", "gemma3-1b",
+                                  "deepseek-v2-236b", "yi-6b"])
+def test_full_width_not_refused(arch):
+    """Full width takes every kernel it reaches: head width 64 or 128, and
+    paligemma-3b's 256 at the dense decode only."""
+    cfg = get_config(arch)
+    for path in ("paged", "prefill", "decode", "static"):
+        assert tm.kernel_width_reason(cfg, path) is None, path
+    if arch == "paligemma-3b":
+        assert cfg.head_dim == 256
+        assert tlm._kernel_layers(cfg, "static") == [
+            ("dense decode", (64, 128, 256))]
+
+
+def test_a_width_no_kernel_takes_is_refused_at_full_width():
+    """A full-width config at head width 96 reaches flash and the dense
+    decode; at 256 (no window, no soft-cap) flash alone refuses it."""
+    cfg = get_config("qwen2.5-3b").replace(head_dim=96)
+    assert "head_dim 96" in tm.kernel_width_reason(cfg, "static")
+    wide = get_config("qwen2.5-3b").replace(head_dim=256)
+    reason = tm.kernel_width_reason(wide, "static")
+    assert "flash attention" in reason and "dense decode" not in reason
+    assert tm.kernel_width_reason(wide, "decode") is None
+
+
+@pytest.fixture
+def no_init(monkeypatch):
+    """Weights drawn by the engine fail the test."""
+    def boom(*a, **k):
+        raise AssertionError("init_params was called")
+    monkeypatch.setattr(teng, "init_params", boom)
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "static"])
+def test_engine_refuses_before_drawing_weights(no_init, scheduler):
+    cfg = reduced(get_config("llama3.2-1b"))
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        ServeEngine(cfg, device="cuda", scheduler=scheduler)
+
+
+def test_engine_refuses_a_model_draft(no_init):
+    cfg = get_config("llama3.2-1b")
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        ServeEngine(cfg, device="cuda", spec_mode="model",
+                    draft_cfg=reduced(cfg))
+
+
+def test_gemma3_twin_is_not_refused(no_init):
+    """gemma3-1b's twin reaches no kernel: the engine passes the width
+    check and goes on to the device (without a card: "CUDA is not
+    available") and to drawing its weights (where this test stops it)."""
+    cfg = reduced(get_config("gemma3-1b"))
+    want = ("init_params was called" if torch.cuda.is_available()
+            else "CUDA is not available")
+    with pytest.raises((AssertionError, RuntimeError), match=want):
+        ServeEngine(cfg, device="cuda", scheduler="static")
+
+
+def test_nothing_is_refused_on_the_cpu():
+    cfg = reduced(get_config("llama3.2-1b"))
+    for scheduler in ("continuous", "static"):
+        eng = ServeEngine(cfg, device="cpu", scheduler=scheduler, max_len=32)
+        assert eng.device.type == "cpu"
+    tm.init_cache(cfg, 1, 8, device="cpu")
+    tm.init_paged_cache(cfg, 4, 16, device="cpu")
+    for path in ("paged", "static", "prefill"):
+        tlm._refuse_width(cfg, path, "cpu")
+        with pytest.raises(NotImplementedError, match="head_dim 16"):
+            tlm._refuse_width(cfg, path, "cuda")
+
+
+def test_serve_cli_reduced_on_cuda_refuses(no_init):
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        tserve.main(["--arch", "llama3.2-1b", "--reduced"])

@@ -649,3 +649,89 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["continuous", "static"])
+def test_cuda_engine_refuses_a_width_before_drawing_weights(
+        cuda_device, monkeypatch, scheduler):
+    """A reduced twin (head width 16) on the card is refused at
+    construction with NotImplementedError, before any weights are drawn
+    and before any kernel is built or launched; gemma3-1b's twin, whose
+    layers reach no kernel, is not."""
+    import repro_torch.serving.engine as teng
+    from repro_torch.serving import ServeEngine
+
+    def boom(*a, **k):
+        raise AssertionError("init_params was called")
+    monkeypatch.setattr(teng, "init_params", boom)
+    launches = [e.launches for e in (tk.paged_decode_attention,
+                                     tk.chunk_prefill_attention,
+                                     tk.decode_attention,
+                                     tkf.flash_attention)]
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        ServeEngine(reduced(get_config("llama3.2-1b")), device="cuda",
+                    scheduler=scheduler)
+    assert launches == [e.launches for e in (tk.paged_decode_attention,
+                                             tk.chunk_prefill_attention,
+                                             tk.decode_attention,
+                                             tkf.flash_attention)]
+    with pytest.raises(AssertionError, match="init_params was called"):
+        ServeEngine(reduced(get_config("gemma3-1b")), device="cuda",
+                    scheduler="static")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_autograd(cuda_device):
+    """The flash kernel has no backward: on a CUDA tensor that requires
+    grad (grad mode on) it raises instead of returning an output with no
+    graph; under no_grad it launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=g, device=cuda_device)
+    k = torch.randn((1, 64, 4, 64), generator=g, device=cuda_device)
+    v = torch.randn((1, 64, 4, 64), generator=g, device=cuda_device)
+    for need in (q, k, v):
+        need.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            tkf.flash_attention(q, k, v)
+        with torch.no_grad():
+            out = tkf.flash_attention(q, k, v)
+        assert not out.requires_grad
+        need.requires_grad_(False)
+    n = tkf.flash_attention.launches
+    tkf.flash_attention(q, k, v)
+    assert tkf.flash_attention.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "arctic-480b"])
+def test_cuda_train_loss_matches_cpu(cuda_device, arch):
+    """The reduced twin trains on the card (no width refusal: training
+    reaches no kernel) and its loss and gradients match the CPU's in f32
+    with TF32 off; no kernel entry launches."""
+    import repro_torch.models as tm
+    from repro_torch.data import for_arch
+    from repro_torch.tree import leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                            "float32", "cpu")
+    batch = for_arch(cfg, 32, 2, seed=0).batch_at(0)
+    opts = tm.RuntimeOptions(dtype="float32")
+
+    def run(p, b):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = tm.train_loss(cfg, p, b, opts)
+        return loss.detach(), torch.autograd.grad(loss, leaves(p))
+    l0, g0 = run(params, batch)
+    entries = (tk.paged_decode_attention, tk.chunk_prefill_attention,
+               tk.spec_verify_attention, tk.decode_attention,
+               tkf.flash_attention)
+    before = [e.launches for e in entries]
+    l1, g1 = run(tree_map(lambda t: t.to(cuda_device), params),
+                 {k: v.to(cuda_device) for k, v in batch.items()})
+    assert [e.launches for e in entries] == before
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    for a, b in zip(g1, g0):
+        assert float((a.cpu() - b).abs().max()) <= (
+            1e-4 * float(b.abs().max()) + 1e-6)
