@@ -60,7 +60,11 @@ Phases (any failure exits non-zero before the result line):
      a 32,256-position cache) and paligemma-3b's (B=4, H=8, Hkv=1,
      dh=256, L=545, f32/bf16/f16/int8, ragged and at B=12 on the split
      edges); flash at llava's (B=4, S=1,088, group 1, fp16, causal and
-     full). Every kernel entry must give bitwise the same result on a
+     full). At llama3.2-1b's width as phase 19 (f)'s static engine serves
+     it (H = Hkv = 32, dh=64, bf16): flash (causal) on its longest wave
+     (B=1, S=60) and its widest (B=2, S=11), and the dense decode over
+     their caches (L = 77 and 28, ragged; B=12 at L=77 on the split
+     edges). Every kernel entry must give bitwise the same result on a
      second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
@@ -194,11 +198,47 @@ Phases (any failure exits non-zero before the result line):
      refused on the card with NotImplementedError before any weights are
      drawn (``ServeEngine``, both schedulers, and the serve CLI's
      ``--reduced``); gemma3-1b's twin still serves there.
+  19. the analytic model (``repro_torch.core``) against the card. (a)
+     the card's own rates, each printed with its name and power limit:
+     device-to-device and pinned host-to-device copies of 1 MB to 2 GB
+     (median of 10 each; the line's rate and intercept) and the dense
+     bf16 rate of an 8192^3 ``torch.matmul``. (b) two H100 hierarchies
+     (``core.h100_roofline.h100_hierarchy``): the published figures and
+     (a)'s. (c) for every native run whose decode step phases 4-16 record
+     (llama continuous, qwen and arctic static, llava (a)/(b), paligemma,
+     gemma3, deepseek (a)/(b), mamba (a)/(b), zamba, whisper): the model's
+     decode step under both (all weights and KV in HBM, the run's batch,
+     positions and depth, 2-byte types) beside the measured step and the
+     byte bound; llava (a) and (b) must be within 2% of their bound on
+     the published H100. (d) ``paper.beyond_gpu_tiers`` under both, and
+     the host-link rate at which llava15-13b holds 10 tokens/s of decode
+     at 32k positions with its KV in host DRAM. (e) the cost extractor
+     (``core.cost_analysis``, which must refuse a CUDA tensor) on the CPU
+     over one full-width llama3.2-1b decode step of phase 4's block
+     shape: FLOPs and bytes against ``model_flops_for`` and
+     ``decode_compulsory_bytes``, the three roofline terms, the card's
+     busy time a step. (f) ``paper.concurrency_sweep``'s runtime halves
+     on the card (llama3.2-1b at full width, bf16, seeded init): static
+     vs continuous at 2, 4, 8 ragged requests and the shared-document
+     stream with the prefix cache off and on (it must dedup pages). Every
+     serve, with the counts set to 0 just before it, must launch exactly
+     its kernels (flash once a layer a wave and the dense decode once a
+     layer a micro-step on the static engine; the chunk kernel once a
+     layer a prefill chunk and the paged decode once a layer a micro-step
+     on the continuous one) and no plain version. The counters (decode
+     steps, preemptions, peak pages, deduped pages, prefill tokens) must
+     equal those of the same sweep on the CPU at the reduced twin (the
+     same prompt lengths), and every output token must lie within 0.5
+     standard deviations of its position's logits of the f32 argmax of
+     the same weights on the CPU's plain path, given the tokens before
+     it.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
-flash at llava's group 1, and the paged entries at a head shard of 2
-and 4) and, last, the device JSON line.
+flash at llava's group 1, the three paged entries at a head shard
+of 2 and of 4, the verify entry there with 0 launches, and the four
+entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
+sweep's launches) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -276,6 +316,8 @@ WHISPER_RUN = (4, 32, 64)
 SHARD_REQS, SHARD_NEW = 8, 32
 SHARD_RUNS = {2: ("native", "int8", "ngram"), 4: ("native",)}
 SHARD_TIMEOUT_S = 300.0
+# paper.concurrency_sweep's runtime halves: new tokens a request
+SWEEP_NEW = 16
 # the training phase: llama3.2-1b at full width in f32, (B, S, n_micro,
 # steps, the step saved and resumed from); the families whose reduced twins
 # train on the card against the CPU
@@ -423,6 +465,7 @@ def kernel_cases(torch, kern, flash):
     yield from dense_decode_cases(torch, kern)
     yield from flash_cases(torch, flash)
     yield from vlm_kernel_cases(torch, kern, flash)
+    yield from sweep_kernel_cases(torch, kern, flash)
 
 
 def paged_cases(torch, kern, H, DH, Hkv,
@@ -703,7 +746,6 @@ def vlm_kernel_cases(torch, kern, flash):
     Hkv=1, dh=256, L=545, f32/bf16/f16/int8, ragged and on its split
     edges); flash at llava's width (B=4, S=1,088, H = Hkv = 40, fp16,
     causal and full)."""
-    import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(3)
     H, DH, Hkv = LLAVA_WIDTH
@@ -725,20 +767,8 @@ def vlm_kernel_cases(torch, kern, flash):
     q, k, v = (torch.randn((B, S, H, DH), generator=g, device=dev).half()
                for _ in range(3))
     for causal in (True, False):
-        pairs = S * (S + 1) // 2 if causal else S * S
-        yield ("flash_attention",
-               f"group=1 float16 S={S} {'causal' if causal else 'full'}",
-               "float16",
-               lambda q=q, k=k, v=v, c=causal:
-                   flash.flash_attention(q, k, v, causal=c),
-               lambda q=q, k=k, v=v, c=causal:
-                   flash.flash_attention_plain(q, k, v, causal=c),
-               lambda q=q, k=k, v=v, c=causal:
-                   F.scaled_dot_product_attention(
-                       q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), is_causal=c),
-               (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-               4 * B * H * DH * pairs, 2e-2)
+        yield _flash_case(flash, q, k, v, causal, "float16",
+                          f"group=1 float16 S={S}", gqa=False)
 
 
 def flash_cases(torch, flash):
@@ -748,7 +778,6 @@ def flash_cases(torch, flash):
     f32 (the FMA body) for 256, 512 and 300; then arctic-480b's width (H=56,
     Hkv=8, group 7) in bf16 at 512, 300 and 17. SDPA (enable_gqa) is the
     yardstick."""
-    import torch.nn.functional as F
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, DH = 4, 16, 128
@@ -764,23 +793,64 @@ def flash_cases(torch, flash):
                                device=dev).to(tdt)
                    for h in (H, Hkv, Hkv))
         for causal in (True, False):
-            pairs = S * (S + 1) // 2 if causal else S * S
-            yield ("flash_attention",
-                   f"group={H // Hkv} {dt} S={S} "
-                   f"{'causal' if causal else 'full'}",
-                   dt,
-                   lambda q=q, k=k, v=v, c=causal:
-                       flash.flash_attention(q, k, v, causal=c),
-                   lambda q=q, k=k, v=v, c=causal:
-                       flash.flash_attention_plain(q, k, v, causal=c),
-                   lambda q=q, k=k, v=v, c=causal:
-                       F.scaled_dot_product_attention(
-                           q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), is_causal=c,
-                           enable_gqa=True),
-                   (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                   4 * B * H * DH * pairs,
-                   1e-4 if dt == "float32" else 2e-2)
+            yield _flash_case(flash, q, k, v, causal, dt,
+                              f"group={H // Hkv} {dt} S={S}")
+
+
+def _flash_case(flash, q, k, v, causal, dt, label, gqa=True):
+    """One flash case (the tuple check_kernels takes) on (B, S, heads, dh)
+    ``q``, ``k``, ``v``: SDPA (``enable_gqa`` with ``gqa``) is the
+    yardstick; 1e-4 bounds an f32 case's error, 2e-2 the others'."""
+    import torch.nn.functional as F
+    B, S, H, DH = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return ("flash_attention",
+            f"{label} {'causal' if causal else 'full'}", dt,
+            lambda: flash.flash_attention(q, k, v, causal=causal),
+            lambda: flash.flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, **({"enable_gqa": True} if gqa else {})),
+            (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            4 * B * H * DH * pairs, 1e-4 if dt == "float32" else 2e-2)
+
+
+def sweep_waves():
+    """Phase 19 (f)'s static waves, as (B, S, dense cache length): the one
+    with the longest prompt and the one with the most requests. The
+    static engine's cache holds the prompt, the first token and whole
+    decode blocks of 8 for the other 15 new tokens."""
+    from repro_torch.paper import concurrency_sweep as cs
+    waves = set()
+    for reqs in cs.ragged_requests(cs.runtime_model("cuda")[0].vocab
+                                   ).values():
+        lens = [len(r) for r in reqs]
+        waves |= {(lens.count(S), S) for S in lens}
+    picks = {max(waves, key=lambda w: (w[1], w[0])),
+             max(waves, key=lambda w: (w[0], w[1]))}
+    return sorted((B, S, S + 1 + 8 * -(-(SWEEP_NEW - 1) // 8))
+                  for B, S in picks)
+
+
+def sweep_kernel_cases(torch, kern, flash):
+    """The static engine's kernels at llama3.2-1b's width (H = Hkv = 32,
+    dh=64) as phase 19 (f) serves it, bf16: flash (causal) on each wave
+    of ``sweep_waves`` and the dense decode over its cache, ragged, and at
+    B=12 on the longest cache with kv_valid at its split edges."""
+    H, DH, Hkv = PAGED_WIDTHS[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    waves = sweep_waves()
+    for B, S, _ in waves:
+        q, k, v = (torch.randn((B, S, H, DH), generator=g,
+                               device="cuda").bfloat16() for _ in range(3))
+        yield _flash_case(flash, q, k, v, True, "bfloat16",
+                          f"group=1 bfloat16 S={S} dh=64 B={B}", gqa=False)
+    for B, _, L in waves:
+        yield _dense_decode_case(torch, kern, g, B, H, DH, Hkv, L,
+                                 "bfloat16", torch.bfloat16, label=f" B={B}")
+    yield from _dense_decode_pools(torch, kern, g, 12, H, DH, Hkv,
+                                   max(L for _, _, L in waves),
+                                   ("bfloat16",), True)
 
 
 def check_kernels(torch, kern, flash, cases=None):
@@ -2714,6 +2784,450 @@ def train_phase(torch, kern, tm, cm, get_config) -> dict:
     return out
 
 
+# -------------- phase 19: the analytic model against the card -------------- #
+
+# (a)'s transfer sizes, 1 MB to 2 GB, and the matmul's side
+CARD_SIZES = tuple(1 << s for s in range(20, 32, 2)) + (1 << 31,)
+MATMUL_N = 8192
+
+
+def _line_fit(xs, ys):
+    """Least-squares (slope, intercept) of ``ys`` against ``xs``, each
+    point weighted by 1 / y^2: every size counts by its relative error, so
+    the microseconds of noise on a 2 GB copy do not set the intercept."""
+    w = [1 / y ** 2 for y in ys]
+    mx = sum(a * x for a, x in zip(w, xs)) / sum(w)
+    my = sum(a * y for a, y in zip(w, ys)) / sum(w)
+    slope = (sum(a * (x - mx) * (y - my) for a, x, y in zip(w, xs, ys))
+             / sum(a * (x - mx) ** 2 for a, x in zip(w, xs)))
+    return slope, my - slope * mx
+
+
+def measure_card(torch, smi):
+    """(a) The card's own rates: device-to-device copies (a copy reads and
+    writes its bytes, so it moves twice its size) and host-to-device
+    copies from pinned memory, 1 MB to 2 GB, each the median of 10 (the
+    L2 flushed before each); the line fitted to (bytes moved, seconds) gives
+    a rate (1 / slope) and an intercept. Then the dense bf16 rate of an
+    8192^3 ``torch.matmul`` (a measurement of the card, not a kernel
+    port)."""
+    big = CARD_SIZES[-1]
+    src = torch.empty(big, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    host = torch.empty(big, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for label, moved, frm in (("hbm copy", 2, src), ("host->device", 1,
+                                                      host)):
+        ms = {n: median_ms(torch, lambda n=n: dst[:n].copy_(
+            frm[:n], non_blocking=True), iters=10) for n in CARD_SIZES}
+        slope, icpt = _line_fit([moved * n for n in CARD_SIZES],
+                                [ms[n] * 1e-3 for n in CARD_SIZES])
+        out[label] = dict(ms=ms, bytes_per_s=1 / slope, intercept_s=icpt)
+        log(f"card {label}: "
+            + " ".join(f"{n >> 20}MB={ms[n]:.4f}ms" for n in CARD_SIZES)
+            + f"; line: {1 / slope / 1e9:.1f} GB/s moved, intercept "
+            f"{icpt * 1e6:.2f}us ({smi})")
+    del src, dst, host
+    g = torch.Generator(device="cuda").manual_seed(19)
+    a, b = (torch.randn((MATMUL_N, MATMUL_N), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    ms = median_ms(torch, lambda: torch.matmul(a, b), iters=10)
+    out["bf16_flops"] = 2 * MATMUL_N ** 3 / (ms * 1e-3)
+    out["matmul_ms"] = ms
+    log(f"card bf16 matmul {MATMUL_N}^3: {ms:.4f}ms, "
+        f"{out['bf16_flops'] / 1e12:.1f} TFLOP/s ({smi})")
+    return out
+
+
+def served_steps(get_config, reqs_llama, engine, static, arctic, llava,
+                 paligemma, gemma3, deepseek, mamba, zamba, whisper):
+    """(c)'s runs: every native run whose decode step this script records,
+    as (label, config as served, [(B, mean positions a step reads), one a
+    wave], measured step ms, byte bound ms or None). A step's positions
+    are its wave's prompt plus the mean of its decode offsets; the
+    continuous llama run's are its requests' mean at 8 slots."""
+    def waves(prompts, B, new):
+        return [(B, S + (new + 1) / 2) for S in prompts]
+
+    def step(row):
+        return 1e3 * row["decode_s"] / row["decode_steps"]
+
+    def static_row(label, cfg, row, ws):
+        return (label, cfg, ws, row["step_ms"], row.get("bound_ms"))
+
+    def at(row):
+        return [(row["B"], row["positions"] + (row["decode_steps"] + 1) / 2)]
+    llama = get_config("llama3.2-1b")
+    qwen = get_config("qwen2.5-3b")
+    arc = dataclasses.replace(get_config("arctic-480b"),
+                              n_layers=ARCTIC_LAYERS)
+    ds = dataclasses.replace(get_config("deepseek-v2-236b"),
+                             n_layers=DEEPSEEK_LAYERS)
+    B, P, S, _ = PALIGEMMA_RUN
+    whisper_B, whisper_S, _ = WHISPER_RUN
+    rows = [
+        ("llama continuous", llama,
+         [(8, statistics.mean(len(r) for r in reqs_llama) + (64 + 1) / 2)],
+         step(engine["native"]), None),
+        ("qwen static", qwen, waves(QWEN_PROMPTS, 4, QWEN_NEW),
+         step(static["native"]), None),
+        ("arctic static", arc, waves(QWEN_PROMPTS, 4, ARCTIC_STATIC_NEW),
+         step(arctic["runs"]["static native"]["runs"][0]), None)]
+    for key in LLAVA_RUNS:
+        r = llava["runs"][f"{key} native"]
+        rows.append(static_row(f"llava ({key})", get_config("llava15-13b"),
+                               r, at(r)))
+    r = paligemma["runs"]["native"]
+    rows.append(static_row("paligemma", get_config("paligemma-3b"), r,
+                           [(B, P + S + (r["decode_steps"] + 1) / 2)]))
+    rows.append(static_row("gemma3", get_config("gemma3-1b"),
+                           gemma3["runs"]["native"],
+                           waves(GEMMA_PROMPTS, 4, GEMMA_NEW)))
+    for key in DEEPSEEK_RUNS:
+        r = deepseek["runs"][f"{key} native"]
+        rows.append(static_row(f"deepseek ({key})", ds, r, at(r)))
+    for key in MAMBA_RUNS:
+        r = mamba["runs"][key]
+        rows.append(static_row(f"mamba ({key})", get_config("mamba2-130m"),
+                               r, at(r)))
+    rows.append(static_row("zamba", get_config("zamba2-2.7b"), zamba["run"],
+                           waves(ZAMBA_PROMPTS, 4, ZAMBA_NEW)))
+    r = whisper["run"]
+    rows.append(static_row("whisper", get_config("whisper-medium"), r,
+                           [(whisper_B, whisper_S + r["frames"]
+                             + (r["decode_steps"] + 1) / 2)]))
+    return rows
+
+
+def model_step_ms(core, cfg, ws, hier) -> tuple:
+    """The model's decode step, all weights and KV in HBM, averaged over
+    the waves ``ws``, and the bottleneck of the first."""
+    place = core.make_placement("all-hbm", "ddr")
+    reps = [core.phase_time(core.decode_phase(cfg, int(round(ctx)), B, 2),
+                            hier, place) for B, ctx in ws]
+    return 1e3 * statistics.mean(r.total for r in reps), reps[0].bottleneck
+
+
+def model_vs_card(core, rows, hiers, smi):
+    """(c) The model's decode step under each hierarchy beside the measured
+    step and the byte bound. Gate: llava (a) and (b), where the model and
+    the bound count the same weights and KV, within 2% on the published
+    H100."""
+    out = {}
+    for label, cfg, ws, meas, bound in rows:
+        pred = {name: model_step_ms(core, cfg, ws, h)
+                for name, h in hiers.items()}
+        out[label] = dict(waves=ws, measured_ms=meas, bound_ms=bound,
+                          **{f"{name}_ms": p for name, (p, _) in pred.items()},
+                          bottleneck=pred["spec"][1])
+        log(f"model {label:16s} " + " ".join(
+            f"B={B} ctx={ctx:.0f}" for B, ctx in ws)
+            + f": measured {meas:.3f}ms; model spec {pred['spec'][0]:.3f}ms "
+            f"(measured/model {meas / pred['spec'][0]:.2f}x), card rates "
+            f"{pred['card'][0]:.3f}ms ({meas / pred['card'][0]:.2f}x), "
+            f"bound {'%.3fms' % bound if bound else 'none'}, model "
+            f"bottleneck {pred['spec'][1]} ({smi})")
+    for key in LLAVA_RUNS:
+        r = out[f"llava ({key})"]
+        err = r["spec_ms"] / r["bound_ms"] - 1
+        r["spec_vs_bound"] = err
+        check(abs(err) <= 0.02, f"model: llava ({key})'s step on the "
+              f"published H100 is {100 * err:+.2f}% off its byte bound "
+              f"(limit 2%)")
+    return out
+
+
+def h100_answers(core, h100, hiers, get_config, smi):
+    """(d) ``beyond_gpu_tiers`` under each hierarchy, and the host-tier rate
+    at which llava15-13b holds 10 tokens/s of decode at 32k positions with
+    its KV in host DRAM."""
+    from repro_torch.paper import beyond_gpu_tiers
+    cfg = get_config("llava15-13b")
+    kv_host = core.make_placement("kv-host", "ddr", kv="hbs")
+    out = {}
+    for name, hier in hiers.items():
+        rows = []
+        summary = beyond_gpu_tiers.run(lambda n, us, d: rows.append((n, d)),
+                                       hier=hier)
+        for n, d in rows:
+            log(f"tiers ({name}) {n}: {d}")
+        need = h100.required_level_bandwidth(
+            cfg, hier, kv_host, target_tps=10.0, prefill=32128, decode=64)
+        at = core.run_inference(cfg, hier, kv_host, 32128, 64, n_samples=5)
+        log(f"tiers ({name}) {summary}; llava15-13b KV in host DRAM at "
+            f"32,128-32,192 positions: {at.tps_decode_only:.2f} tokens/s "
+            f"decode at {hier.level('hbs').bandwidth / 1e9:.1f} GB/s, 10 "
+            f"tokens/s needs "
+            f"{'%.1f GB/s' % need if need else 'more than 4096 GB/s'} of "
+            f"host link ({smi})")
+        out[name] = dict(rows=rows, summary=summary, required_gbps=need,
+                         kv_host_tps=at.tps_decode_only)
+    return out
+
+
+def extractor_on_cpu(torch, tm, h100, get_config, busy_ms, smi):
+    """(e) The cost extractor over one full-width llama3.2-1b paged decode
+    step of phase 4's block shape (B=8, 300 cached, 36 pages a slot) on
+    the CPU (bf16 weights drawn on the card, then copied): its FLOPs
+    against ``model_flops_for``, its bytes against
+    ``decode_compulsory_bytes``, the three roofline terms with H100
+    constants, beside the card's busy time a step of phase 4's K=8 block.
+    The extractor must refuse a CUDA tensor."""
+    from repro_torch.core.cost_analysis import analyze
+    try:
+        analyze(torch.mm, torch.ones(2, 2, device="cuda"),
+                torch.ones(2, 2, device="cuda"))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "cost_analysis counted a CUDA tensor's op")
+    cfg = get_config("llama3.2-1b")
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    B, n_pp = 8, -(-MAX_LEN // PS)
+    params = _to(tm.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "bfloat16", "cuda"), "cpu")
+    torch.cuda.empty_cache()
+    cache = tm.init_paged_cache(cfg, B * n_pp + 1, PS, opts, "cpu")
+    pt = torch.arange(1, B * n_pp + 1, dtype=torch.int32).reshape(B, n_pp)
+    lens = torch.full((B,), 300, dtype=torch.int32)
+    tok = torch.arange(1, B + 1, dtype=torch.int32)
+    t0 = time.perf_counter()
+    costs = analyze(tm.decode_step_paged, cfg, params, tok, lens, pt, cache,
+                    opts)
+    secs = time.perf_counter() - t0
+    mflops = h100.model_flops_for(cfg, "decode", 1, B)
+    floor = h100.decode_compulsory_bytes(cfg, 301, B, 1)
+    terms = h100.terms_from_costs(costs, n_dev=1, model_flops=mflops)
+    check(costs.flops >= mflops and costs.bytes >= floor,
+          f"extractor: {costs.flops:.4g} FLOP / {costs.bytes:.4g} B below "
+          f"the model's {mflops:.4g} / {floor:.4g}")
+    log(f"extractor (CPU, {secs:.1f}s): llama3.2-1b decode step B={B} len=300 "
+        f"FLOPs {costs.flops:.5g} ("
+        + " ".join(f"{k}={v:.4g}" for k, v in costs.flops_by_op.items())
+        + f") vs model_flops_for {mflops:.5g} ({costs.flops / mflops:.3f}x); "
+        f"bytes {costs.bytes:.5g} vs decode_compulsory_bytes {floor:.5g} "
+        f"({costs.bytes / floor:.2f}x; by op "
+        + " ".join(f"{k}={v:.4g}" for k, v in sorted(
+            costs.bytes_by_op.items(), key=lambda kv: -kv[1])[:6])
+        + f"); terms with H100 constants: compute "
+        f"{terms.compute_s * 1e3:.4f}ms memory {terms.memory_s * 1e3:.4f}ms "
+        f"collective {terms.collective_s * 1e3:.4f}ms ({terms.bottleneck}); "
+        f"the card's busy time a step of phase 4's block "
+        f"{busy_ms:.3f}ms ({smi})")
+    return dict(flops=costs.flops, flops_by_op=costs.flops_by_op,
+                bytes=costs.bytes, bytes_by_op=costs.bytes_by_op,
+                model_flops=mflops, compulsory_bytes=floor,
+                compute_ms=terms.compute_s * 1e3,
+                memory_ms=terms.memory_s * 1e3,
+                collective_ms=terms.collective_s * 1e3,
+                card_busy_ms=busy_ms, cpu_s=secs)
+
+
+# (f)'s counters: they follow the requests' lengths and the pool alone, so
+# the card's full-width run must repeat the CPU twin's
+SWEEP_COUNTERS = ("decode_steps", "preemptions", "peak_pages_used",
+                  "pages_deduped", "prefill_tokens_computed")
+# (f)'s tokens: each must be within this many standard deviations of its
+# position's logits of the top f32 logit, given the tokens before it
+SWEEP_GAP_STD = 0.5
+
+
+@contextlib.contextmanager
+def serves_recorded(kern, ServeEngine):
+    """Every ``ServeEngine.serve`` while the block runs, with the counts
+    set to 0 just before it and read just after: its scheduler, launches,
+    waves (distinct prompt lengths), decode micro-steps and prefill
+    chunks."""
+    runs, serve = [], ServeEngine.serve
+
+    def recorded(eng, reqs, new):
+        steps = eng.stats.decode_steps
+        zero_counts(kern)
+        out = serve(eng, reqs, new)
+        runs.append(dict(
+            scheduler=eng.scheduler, launches=read_counts(kern),
+            layers=eng.cfg.n_layers, waves=len({len(r) for r in reqs}),
+            steps=eng.stats.decode_steps - steps,
+            chunks=(n_prefill_chunks(eng) if eng.scheduler == "continuous"
+                    else 0)))
+        return out
+    ServeEngine.serve = recorded
+    try:
+        yield runs
+    finally:
+        ServeEngine.serve = serve
+
+
+def sweep_launches(run) -> dict:
+    """The launches one serve of (f) must make: the static engine flash
+    once a layer a wave and the dense decode once a layer a micro-step,
+    the continuous one the chunk kernel once a layer a prefill chunk and
+    the paged decode once a layer a micro-step."""
+    L = run["layers"]
+    want = dict.fromkeys(KERNELS, 0)
+    if run["scheduler"] == "static":
+        want.update(flash_attention=L * run["waves"],
+                    decode_attention=L * run["steps"])
+    else:
+        want.update(chunk_prefill_attention=L * run["chunks"],
+                    paged_decode_attention=L * run["steps"])
+    return want
+
+
+def teacher_forced_gaps(torch, tm, cfg, params, seqs, batch=8):
+    """For each (prompt, output) of ``seqs``: one f32 prefill of prompt +
+    output on the CPU's plain path, and at each output position the top
+    logit minus the output token's, over that position's logits' standard
+    deviation (0 where the token is the f32 argmax)."""
+    opts = tm.RuntimeOptions(dtype="float32")
+    gaps = []
+    for i in range(0, len(seqs), batch):
+        group = seqs[i:i + batch]
+        full = [p + o[:-1] for p, o in group]
+        T = max(map(len, full))
+        n_pp = -(-T // PS)
+        toks = torch.zeros((len(group), T), dtype=torch.int32)
+        for j, seq in enumerate(full):
+            toks[j, :len(seq)] = torch.tensor(seq)
+        cache = tm.init_paged_cache(cfg, len(group) * n_pp + 1, PS, opts,
+                                    "cpu")
+        pt = torch.arange(1, len(group) * n_pp + 1,
+                          dtype=torch.int32).reshape(len(group), n_pp)
+        lens = torch.tensor([len(seq) for seq in full], dtype=torch.int32)
+        with torch.inference_mode():
+            lg, _ = tm.prefill_paged_chunk(cfg, params, toks, cache, pt, 0,
+                                           lens, opts)
+        for j, (p, o) in enumerate(group):
+            rows = lg[j, len(p) - 1:len(p) - 1 + len(o)].float()
+            got = rows.gather(-1, torch.tensor(o)[:, None])[:, 0]
+            gaps += ((rows.max(-1).values - got)
+                     / rows.std(-1)).tolist()
+    return gaps
+
+
+def concurrency_on_card(torch, kern, tm, smi):
+    """(f) ``concurrency_sweep``'s runtime halves on the card: llama3.2-1b
+    at full width in bf16 (the seeded init), static vs continuous at n =
+    2, 4, 8 ragged requests, and the shared-document stream with the
+    prefix cache off and on. Every serve (warm-up ones too) must launch
+    exactly its kernels (``sweep_launches``) and no plain version; the
+    counters must equal the CPU twin's (``SWEEP_COUNTERS``; the lengths
+    are the same); each output token must be within ``SWEEP_GAP_STD``
+    standard deviations of the f32 argmax of the same weights on the CPU,
+    given the tokens before it; the prefix cache must dedup pages."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.paper import concurrency_sweep as cs
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    cfg = cs.runtime_model("cuda")[0]
+    params = tm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), "bfloat16", "cuda")
+    with count_plain(kern, flash) as plain, \
+            serves_recorded(kern, ServeEngine) as runs:
+        rt = cs.runtime("cuda", params=params)
+        sp = cs.shared_prefix_runtime("cuda", params=params)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    check(not plain, f"concurrency sweep: plain versions called on the "
+          f"card: {plain}")
+    launches = dict.fromkeys(KERNELS, 0)
+    for i, run in enumerate(runs):
+        want = sweep_launches(run)
+        check(run["launches"] == want, f"concurrency sweep serve {i} "
+              f"({run['scheduler']}): launches {run['launches']} != {want}")
+        for k, v in run["launches"].items():
+            launches[k] += v
+    check(len(runs) == 4 * len(rt) + 4, f"concurrency sweep: {len(runs)} "
+          f"serves recorded")
+
+    cpu_rt = cs.runtime("cpu")
+    cpu_sp = cs.shared_prefix_runtime("cpu")
+    pairs = [(rt[n][s], cpu_rt[n][s], rt[n]["requests"],
+              cpu_rt[n]["requests"], f"n={n} {s}")
+             for n in rt for s in ("static", "continuous")]
+    pairs += [(sp[pc], cpu_sp[pc], sp["requests"], cpu_sp["requests"],
+               f"prefix cache {'on' if pc else 'off'}") for pc in (False,
+                                                                  True)]
+    seqs = set()
+    for card, cpu, reqs, cpu_reqs, label in pairs:
+        check(list(map(len, reqs)) == list(map(len, cpu_reqs)),
+              f"concurrency sweep {label}: the card's prompt lengths are "
+              f"not the CPU twin's")
+        got = {k: card["stats"][k] for k in SWEEP_COUNTERS}
+        want = {k: cpu["stats"][k] for k in SWEEP_COUNTERS}
+        check(got == want, f"concurrency sweep {label}: counters {got} != "
+              f"the CPU twin's {want}")
+        check(all(len(o) == 16 and all(0 <= t < cfg.vocab for t in o)
+                  for o in card["tokens"]),
+              f"concurrency sweep {label}: malformed outputs")
+        seqs |= {(tuple(p), tuple(o)) for p, o in zip(reqs, card["tokens"])}
+    on, off = sp[True]["stats"], sp[False]["stats"]
+    check(on["pages_deduped"] > 0 and on["prefill_tokens_computed"]
+          < off["prefill_tokens_computed"],
+          f"concurrency sweep: the prefix cache saved nothing ({on})")
+
+    t1 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.to("cpu", torch.float32)
+                          if t.is_floating_point() else t.cpu(), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = teacher_forced_gaps(torch, tm, cfg, cpu_params,
+                               [(list(p), list(o)) for p, o in sorted(seqs)])
+    del cpu_params
+    gc.collect()
+    ref_s = time.perf_counter() - t1
+    worst = max(gaps)
+    exact = sum(g == 0 for g in gaps)
+    log(f"concurrency sweep on the card ({card_s:.1f}s, {len(runs)} serves): "
+        f"launches exact in every serve ("
+        + " ".join(f"{k.split('_')[0]}={v}" for k, v in launches.items())
+        + f"), no plain version, counters equal the CPU twin's in "
+        f"{len(pairs)} runs; {len(seqs)} distinct outputs, {exact}/"
+        f"{len(gaps)} tokens the f32 argmax on the CPU, the largest gap "
+        f"{worst:.4f} std (limit {SWEEP_GAP_STD}; CPU {ref_s:.1f}s) ({smi})")
+    check(worst <= SWEEP_GAP_STD, f"concurrency sweep: a bf16 token "
+          f"{worst:.3f} std below the f32 argmax on the CPU")
+    return dict(runtime={n: {s: rt[n][s]["stats"] for s in ("static",
+                                                            "continuous")}
+                         for n in rt},
+                shared_prefix={str(pc): sp[pc]["stats"]
+                               for pc in (False, True)},
+                predicted_dedup=sp["predicted"], measured_dedup=sp["measured"],
+                launches=launches, serves=len(runs), tokens=len(gaps),
+                tokens_argmax=exact, worst_gap_std=worst, card_s=card_s,
+                cpu_ref_s=ref_s)
+
+
+def analytic_phase(torch, kern, tm, get_config, smi, served,
+                   busy_ms) -> dict:
+    """Phase 19 (a)-(f); ``served``: (c)'s rows (``served_steps``),
+    ``busy_ms``: the card's busy time a step of phase 4's decode block."""
+    import repro_torch.core as core
+    from repro_torch.core import h100_roofline as h100
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = measure_card(torch, smi)
+    hiers = {"spec": h100.h100_hierarchy(),
+             "card": h100.h100_hierarchy(
+                 flops=card["bf16_flops"],
+                 hbm_bw=card["hbm copy"]["bytes_per_s"],
+                 host_bw=card["host->device"]["bytes_per_s"],
+                 host_latency=max(card["host->device"]["intercept_s"], 0.0))}
+    out = dict(card=card)
+    out["model_vs_card"] = model_vs_card(core, served, hiers, smi)
+    out["h100_answers"] = h100_answers(core, h100, hiers, get_config, smi)
+    out["extractor"] = extractor_on_cpu(torch, tm, h100, get_config, busy_ms,
+                                        smi)
+    out["concurrency"] = concurrency_on_card(torch, kern, tm, smi)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19 (the analytic model against the card) "
+        f"{out['phase_s']:.1f}s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2934,6 +3448,14 @@ def main() -> None:
     # ---- phase 18: training ----
     train = train_phase(torch, kern, tm, cm, get_config)
 
+    # ---- phase 19: the analytic model against the card ----
+    analytic = analytic_phase(
+        torch, kern, tm, get_config, smi,
+        served_steps(get_config, requests(cfg.vocab), engine, static, arctic,
+                     llava, paligemma, gemma3, deepseek, mamba, zamba,
+                     whisper),
+        breakdown["device_busy_ms"] / 8)
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -2998,11 +3520,24 @@ def main() -> None:
     # the head-sharded paths: the three paged entries at a shard's heads
     # (group 1, bf16 pool, split as the whole pool), with each rank's
     # launches in its native run (n-gram for the verify entry); at four
-    # shards no verify pass runs
+    # shards no verify pass runs: its launches there are 0
     for n, ln in shard_launches.items():
         entries += [(name, f"{head[name]} shard=1/{n}", ln[name],
-                     f"llama3.2-1b shards={n}")
-                    for name in PAGED if ln.get(name)]
+                     f"llama3.2-1b shards={n}") for name in PAGED]
+    # the concurrency sweep's paths (phase 19 (f)): the paged entries at
+    # their main-path case (llama3.2-1b's width), the static ones at the
+    # sweep's longest wave, with the launches of every serve of the sweep
+    sweep = analytic["concurrency"]["launches"]
+    B, S, L = max(sweep_waves(), key=lambda w: w[1])
+    sweep_case = {"paged_decode_attention": head["paged_decode_attention"],
+                  "chunk_prefill_attention":
+                      head["chunk_prefill_attention"],
+                  "decode_attention":
+                      f"group=1 pool=bfloat16 L={L} dh=64 B={B}",
+                  "flash_attention":
+                      f"group=1 bfloat16 S={S} dh=64 B={B} causal"}
+    entries += [(name, case, sweep[name], "llama3.2-1b concurrency sweep")
+                for name, case in sweep_case.items()]
     rows = rows + shard_rows
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
@@ -3027,6 +3562,7 @@ def main() -> None:
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
             f32_families=f32_families, sharded=sharded, train=train,
+            analytic=analytic,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
