@@ -10,7 +10,8 @@ profiles of phase 4 on the ``repro_torch`` under DIR, and prints no
 result line. ``--sharded-only`` builds the kernels and runs only phase 17;
 on a machine with a card for every rank (four), its ranks take a card each
 over nccl. It prints no result line either, nor does ``--train-only``,
-which builds the kernels and runs only phase 18.
+which builds the kernels and runs only phase 18, nor
+``--shard-paths-only``, which builds them and runs only phase 20.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -232,6 +233,26 @@ Phases (any failure exits non-zero before the result line):
      standard deviations of its position's logits of the f32 argmax of
      the same weights on the CPU's plain path, given the tokens before
      it.
+  20. the dry run's two sharded paths on the card, and its bytes against
+     the card's allocator; no kernel is on either sharded path (the counts
+     stay 0 there). (a) llama3.2-1b at full width, static, B=4 x 512 + 32
+     steps, a 4,096-position cache length-sharded over 2 ranks on the one
+     card (gloo, ``models.seq_shard_attn``): in f32 its tokens equal the
+     unsharded decode's on the card (the dense decode kernel, a launch a
+     layer a step) over the tie-free prefix, logits within 1e-4, and each
+     rank's cache slice is bitwise the unsharded cache's at the prefilled
+     positions and at layer 0's decoded ones (later layers' decoded KV
+     follow attention sums in another order: within 1e-4); the bf16 step
+     at N=1, 2 and on the kernel path. (b) arctic-480b at full width cut
+     to 2 of 35 layers, 2 ranks each holding 64 of the 128 experts
+     (``init_params(experts=)``, ``moe_ffn(impl="shard_map")``): a 4 x 64
+     forward's logits and one layer's output within phase 7's two bf16
+     ulps of the capacity path here, aux losses within 1e-5, and one EP
+     layer's time at T=8. (c) three cells whose dry run on a 1 x 1 mesh
+     holds under 70 GB (mamba2-130m long_500k and decode_32k, zamba2-2.7b
+     long_500k): the bytes their params, cache and inputs ask the card's
+     allocator for equal the dry run's argument bytes, and one real step's
+     peak and CUDA-event time beside the dry run's peak and step bound.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -3272,6 +3293,398 @@ def kernels_only(torch, args, smi, kern, flash, tm, get_config, built, hmma,
             **blocks), indent=1))
 
 
+# ------------- phase 20: the dry run's sharded paths on the card ------------- #
+# (a) llama3.2-1b at full width, static: B prompts of S tokens, NEW decode
+# steps, a MAXLEN-position cache length-sharded over 2 ranks on the card
+SEQ_B, SEQ_S, SEQ_NEW, SEQ_MAXLEN, SEQ_TIMED = 4, 512, 32, 4096, 10
+# (b) arctic-480b at full width cut to EP_LAYERS layers, each of 2 ranks
+# holding half the experts; a forward of EP_FWD tokens
+EP_LAYERS, EP_FWD = 2, (4, 64)
+# one MoE layer at T=8 in phase 7, measured on the H100 at 700 W (CHANGES.md)
+PHASE7_MOE_LAYER_MS = 8.688
+# (c) cells whose dry run on a 1 x 1 mesh holds under 70 GB a rank
+DRYRUN_CELLS = (("mamba2-130m", "long_500k"), ("mamba2-130m", "decode_32k"),
+                ("zamba2-2.7b", "long_500k"))
+PHASE20_TIMEOUT_S = 600.0
+
+
+def _seq_prompts(torch, vocab: int):
+    g = torch.Generator().manual_seed(20)
+    return torch.randint(1, vocab, (SEQ_B, SEQ_S), generator=g,
+                         dtype=torch.int32)
+
+
+def _static_decode(torch, tm, cfg, params, toks, opts, n_new, group=None):
+    """Prefill (replicated) and ``n_new`` greedy decode steps on the card;
+    with ``group`` the cache is cut to this rank's length slice and the
+    steps run the sequence-sharded attention. Returns (logits (n_new, B,
+    V) f32 on the CPU, tokens, the final cache)."""
+    from repro_torch.models.seq_shard_attn import length_slice
+    cache = tm.init_cache(cfg, toks.shape[0], SEQ_MAXLEN, opts, "cuda")
+    logits, cache = tm.prefill(cfg, params, toks, cache, opts)
+    if group is not None:
+        cache = length_slice(cache, group)
+        opts = dataclasses.replace(opts, seq_shard_attn=True,
+                                   seq_shard_mesh=group)
+    tok = logits.argmax(-1).to(torch.int32)
+    rows, out = [], []
+    for j in range(n_new):
+        logits, cache = tm.decode_step(cfg, params, tok, toks.shape[1] + j,
+                                       cache, opts)
+        tok = logits.argmax(-1).to(torch.int32)
+        rows.append(logits.float().cpu())
+        out.append(tok.cpu())
+    return torch.stack(rows), torch.stack(out), cache
+
+
+def _step_ms(torch, tm, cfg, params, toks, opts, group=None):
+    """Median CUDA-event time of one decode step after the prefill (the
+    sequence-sharded one with ``group``), over SEQ_TIMED steps."""
+    from repro_torch.models.seq_shard_attn import length_slice
+    cache = tm.init_cache(cfg, toks.shape[0], SEQ_MAXLEN, opts, "cuda")
+    logits, cache = tm.prefill(cfg, params, toks, cache, opts)
+    if group is not None:
+        cache = length_slice(cache, group)
+        opts = dataclasses.replace(opts, seq_shard_attn=True,
+                                   seq_shard_mesh=group)
+    tok = logits.argmax(-1).to(torch.int32)
+    times = []
+    for j in range(SEQ_TIMED + 3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        logits, cache = tm.decode_step(cfg, params, tok, SEQ_S + j, cache,
+                                       opts)
+        b.record()
+        torch.cuda.synchronize()
+        if j >= 3:
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def seq_rank(rank, n, check_f32):
+    """One rank of phase 20 (a) (spawned): in f32 (when ``check_f32``) the
+    unsharded decode on the card (the dense decode kernel, a launch a
+    layer a step) and the sequence-sharded one on this rank's length
+    slice (no launch); then the bf16 step time of the sharded path, and
+    of the kernel path. Returns what the parent compares."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kern
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels.sharded import ShardGroup
+    import repro_torch.models as tm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = ShardGroup.from_world(n, "cuda")
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+    toks = _seq_prompts(torch, cfg.vocab).to("cuda")
+    out = dict(device=str(group.device))
+    if check_f32:
+        opts = tm.RuntimeOptions(dtype="float32")
+        params = tm.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "float32", "cuda")
+        zero_counts(kern)
+        with count_plain(kern, flash) as plain:
+            ref, ref_tok, whole = _static_decode(torch, tm, cfg, params, toks,
+                                                 opts, SEQ_NEW)
+        n_ref = read_counts(kern)
+        check(n_ref["decode_attention"] == L * SEQ_NEW
+              and n_ref["flash_attention"] == L and not plain,
+              f"rank {rank}: the unsharded decode's launches {n_ref} "
+              f"(plain {plain})")
+        zero_counts(kern)
+        with count_plain(kern, flash) as plain:
+            got, got_tok, mine = _static_decode(torch, tm, cfg, params, toks,
+                                                opts, SEQ_NEW, group)
+        n_got = read_counts(kern)
+        check(n_got["decode_attention"] == 0 and n_got["flash_attention"] == L
+              and not plain,
+              f"rank {rank}: the sequence-sharded decode launched "
+              f"{n_got} (plain {plain}); its attention is no kernel")
+        top2 = ref.topk(2, dim=-1).values
+        tied = (top2[..., 0] - top2[..., 1] < 1e-4).any(dim=-1)
+        prefix = int(tied.nonzero()[0, 0]) if bool(tied.any()) else SEQ_NEW
+        err = float((got[:prefix] - ref[:prefix]).abs().max()) if prefix \
+            else 0.0
+        per = SEQ_MAXLEN // n
+        lo = rank * per
+        bits, cache_err = {}, 0.0
+        for name in ("k", "v"):
+            want = whole["stack"][name][:, :, lo:lo + per]
+            have = mine["stack"][name]
+            pre = max(0, min(SEQ_S - lo, per))
+            new = slice(pre, max(pre, min(SEQ_S + SEQ_NEW - lo, per)))
+            bits[name] = dict(
+                prefill=bool(torch.equal(have[:, :, :pre], want[:, :, :pre])),
+                decoded_layer0=bool(torch.equal(have[0, :, new],
+                                                want[0, :, new])))
+            cache_err = max(cache_err,
+                            float((have - want).abs().max()))
+        out.update(prefix=prefix, logit_err=err,
+                   tokens_equal=bool(torch.equal(got_tok[:prefix],
+                                                 ref_tok[:prefix])),
+                   cache_bits=bits, cache_err=cache_err,
+                   launches_unsharded=n_ref, launches_sharded=n_got)
+        del params, whole, mine
+        torch.cuda.empty_cache()
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "bfloat16", "cuda")
+    opts = tm.RuntimeOptions()
+    out["sharded_step_ms"] = _step_ms(torch, tm, cfg, params, toks, opts,
+                                      group)
+    out["kernel_step_ms"] = _step_ms(torch, tm, cfg, params, toks, opts)
+    return out
+
+
+def seq_shard_on_card(torch, smi):
+    """Phase 20 (a): llama3.2-1b's static decode with the cache length-
+    sharded over 2 ranks on the one card (gloo), against the unsharded
+    decode on the card in f32; the bf16 step at N = 1, 2 and on the
+    kernel path."""
+    from repro_torch.launch.ranks import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (one,) = run_ranks(seq_rank, 1, (1, False), backend="gloo",
+                       timeout=PHASE20_TIMEOUT_S)
+    two = run_ranks(seq_rank, 2, (2, True), backend="gloo",
+                    timeout=PHASE20_TIMEOUT_S)
+    for r, res in enumerate(two):
+        check(res["prefix"] > 0 and res["tokens_equal"],
+              f"seq-shard rank {r}: tokens differ from the unsharded decode "
+              f"within the tie-free prefix of {res['prefix']} steps")
+        check(res["logit_err"] <= 1e-4, f"seq-shard rank {r}: logits "
+              f"{res['logit_err']:.3g} from the unsharded decode > 1e-4")
+        check(all(b["prefill"] and b["decoded_layer0"]
+                  for b in res["cache_bits"].values()),
+              f"seq-shard rank {r}: its cache slice is not bitwise the "
+              f"unsharded cache's ({res['cache_bits']})")
+        check(res["cache_err"] <= 1e-4, f"seq-shard rank {r}: cache slice "
+              f"{res['cache_err']:.3g} from the unsharded cache's > 1e-4")
+    r0 = two[0]
+    log(f"seq-shard llama3.2-1b B={SEQ_B} S={SEQ_S} +{SEQ_NEW} max_len "
+        f"{SEQ_MAXLEN}, 2 ranks on one card (gloo), f32: tokens == "
+        f"unsharded (dense decode kernel, "
+        f"{r0['launches_unsharded']['decode_attention']} launches; sharded "
+        f"0) over the tie-free "
+        f"prefix of {r0['prefix']} steps, logits max err "
+        f"{max(r['logit_err'] for r in two):.2e} (tol 1e-4), cache slices "
+        f"bitwise at the prefilled positions and layer 0's decoded ones, "
+        f"max err {max(r['cache_err'] for r in two):.2e} elsewhere")
+    log(f"seq-shard bf16 decode step ({smi}): N=1 "
+        f"{one['sharded_step_ms']:.3f}ms, N=2 {r0['sharded_step_ms']:.3f}ms "
+        f"(rank 0; rank 1 {two[1]['sharded_step_ms']:.3f}ms), kernel path "
+        f"{one['kernel_step_ms']:.3f}ms ({time.perf_counter() - t0:.1f}s)")
+    return dict(n1=one, n2=two, phase_s=time.perf_counter() - t0)
+
+
+def _ep_inputs(torch, cfg):
+    g = torch.Generator().manual_seed(21)
+    toks = torch.randint(1, cfg.vocab, EP_FWD, generator=g, dtype=torch.int32)
+    x8 = torch.randn((1, 8, cfg.d_model), generator=g).bfloat16()
+    x64 = torch.randn((1, 64, cfg.d_model), generator=g).bfloat16()
+    return toks, x8, x64
+
+
+def ep_rank(rank, n, layers):
+    """One rank of phase 20 (b) (spawned): arctic-480b's full width at
+    ``layers`` layers holding its E/N experts (drawn from the whole
+    init's stream), the forward and one layer's MoE FFN through the
+    expert-parallel path, and that layer's time at T=8."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kern
+    from repro_torch.kernels.sharded import ShardGroup
+    import repro_torch.models as tm
+    from repro_torch.models import moe as tmoe
+    group = ShardGroup.from_world(n, "cuda")
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=layers)
+    E_loc = cfg.moe.n_experts // n
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "bfloat16", "cuda",
+                            experts=slice(rank * E_loc, (rank + 1) * E_loc))
+    held = torch.cuda.memory_allocated()
+    opts = tm.RuntimeOptions(moe_impl="shard_map", moe_shard_map_mesh=group)
+    toks, x8, x64 = (t.to("cuda") for t in _ep_inputs(torch, cfg))
+    zero_counts(kern)
+    with torch.no_grad():
+        logits = tm.forward(cfg, params, toks, opts)
+        p0 = _layer(params["stack"], 0)["moe"]
+        y, aux = tmoe.moe_ffn(p0, x64, cfg, impl="shard_map",
+                              shard_map_mesh=group)
+        ms = median_ms(torch, lambda: tmoe.moe_ffn(
+            p0, x8, cfg, impl="shard_map", shard_map_mesh=group), iters=10)
+    # numpy, not CPU tensors: a tensor crosses the queue as a shared-memory
+    # handle that dies with this process
+    return dict(logits=logits.float().cpu().numpy(),
+                y=y.float().cpu().numpy(),
+                aux=[float(aux["load_balance"]), float(aux["router_z"])],
+                layer_ms=ms, held_bytes=held, experts=E_loc,
+                launches=read_counts(kern))
+
+
+def ep_on_card(torch, tm, get_config, smi):
+    """Phase 20 (b): the capacity path on the whole (cut) model here, then
+    2 spawned ranks each holding half the experts (gloo, one card): the
+    forward's logits within phase 7's bf16 tolerance, one layer's output
+    and aux losses; the EP layer's time beside phase 7's."""
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import moe as tmoe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=EP_LAYERS)
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "bfloat16", "cuda")
+    whole = torch.cuda.memory_allocated()
+    toks, x8, x64 = (t.to("cuda") for t in _ep_inputs(torch, cfg))
+    with torch.no_grad():
+        ref = tm.forward(cfg, params, toks).float().cpu()
+        ref_y, ref_aux = tmoe.moe_ffn(_layer(params["stack"], 0)["moe"], x64,
+                                      cfg)
+    ref_y = ref_y.float().cpu()
+    ref_aux = [float(ref_aux["load_balance"]), float(ref_aux["router_z"])]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(ep_rank, 2, (2, EP_LAYERS), backend="gloo",
+                      timeout=PHASE20_TIMEOUT_S)
+
+    def ulps2(t):
+        # two bf16 ulps at the largest magnitude (phase 7's tolerance)
+        scale = float(t.abs().max())
+        return 2 * 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+    errs = []
+    for r, res in enumerate(ranks):
+        e_log = float((torch.from_numpy(res["logits"]) - ref).abs().max())
+        e_y = float((torch.from_numpy(res["y"]) - ref_y).abs().max())
+        e_aux = max(abs(a - b) for a, b in zip(res["aux"], ref_aux))
+        check(e_log <= ulps2(ref), f"EP rank {r}: logits {e_log:.3g} from "
+              f"the capacity path > {ulps2(ref):.3g}")
+        check(e_y <= ulps2(ref_y), f"EP rank {r}: layer output {e_y:.3g} "
+              f"> {ulps2(ref_y):.3g}")
+        check(e_aux <= 1e-5, f"EP rank {r}: aux {res['aux']} vs {ref_aux}")
+        check(res["held_bytes"] < whole, f"EP rank {r} holds "
+              f"{res['held_bytes']} B, not less than the whole {whole} B")
+        errs.append((e_log, e_y, e_aux))
+    log(f"EP arctic-480b {EP_LAYERS} of 35 layers, 2 ranks x "
+        f"{ranks[0]['experts']} experts on one card (gloo): "
+        f"{ranks[0]['held_bytes'] / 1e9:.1f} GB a rank vs {whole / 1e9:.1f} "
+        f"GB whole; {EP_FWD[0]}x{EP_FWD[1]} forward logits max err "
+        f"{max(e[0] for e in errs):.3g} (tol {ulps2(ref):.3g}), layer "
+        f"{max(e[1] for e in errs):.3g}, aux {max(e[2] for e in errs):.2e} "
+        f"(tol 1e-5) vs the capacity path")
+    log(f"EP one MoE layer T=8 ({smi}): N=2 {ranks[0]['layer_ms']:.3f}ms "
+        f"(rank 0; rank 1 {ranks[1]['layer_ms']:.3f}ms) beside phase 7's "
+        f"{PHASE7_MOE_LAYER_MS}ms on one rank "
+        f"({time.perf_counter() - t0:.1f}s)")
+    for res in ranks:
+        del res["logits"], res["y"]
+    return dict(ranks=ranks, whole_bytes=whole, errs=errs, ref_aux=ref_aux,
+                phase_s=time.perf_counter() - t0)
+
+
+def _requested(torch) -> int:
+    """The bytes the live tensors asked the caching allocator for (before
+    its rounding)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_on_card(torch, tm, get_config, smi):
+    """Phase 20 (c): each DRYRUN_CELLS cell's dry run on a 1 x 1 mesh (this
+    machine's CPU, fake ranks), then its params, cache and inputs built on
+    the card (the bytes they ask the allocator for = the dry run's
+    argument bytes; what it allocates, within its rounding) and one real
+    step (peak and CUDA-event time beside the dry run's peak and step
+    bound)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.tree import leaves
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh_shape=MeshShape(
+            ("data", "model"), (1, 1)), write=False)
+        check("error" not in rec, f"dry run {arch} x {shape}: "
+              f"{rec.get('error')}")
+        mem = rec["memory"]
+        check(mem["peak_bytes"] < 70e9, f"dry run {arch} x {shape}: peak "
+              f"{mem['peak_bytes']} B is not under 70 GB")
+        cfg, sp = get_config(arch), tm.SHAPES[shape]
+        max_len = ((sp.seq_len + 8 + 255) // 256) * 256
+        opts = tm.RuntimeOptions()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base, base_req = torch.cuda.memory_allocated(), _requested(torch)
+        params = tm.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), "bfloat16", "cuda")
+        cache = tm.init_cache(cfg, sp.global_batch, max_len, opts, "cuda")
+        token = torch.zeros((sp.global_batch,), dtype=torch.int32,
+                            device="cuda")
+        pos = torch.tensor(sp.seq_len, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        asked = _requested(torch) - base_req
+        n_t = len(leaves(params)) + len(leaves(cache)) + 2
+        # the bytes the tensors asked for are the dry run's exactly; the
+        # allocator hands out 512-byte multiples, and a block of 1 MiB or
+        # more keeps the unsplit rest of its 2 MiB-rounded segment (< 1
+        # MiB)
+        check(asked == mem["argument_bytes"]
+              and 0 <= grown - asked <= 2 ** 20 * n_t,
+              f"{arch} x {shape}: the card's inputs asked for {asked} B "
+              f"(allocated {grown}), the dry run counts "
+              f"{mem['argument_bytes']} ({n_t} tensors)")
+        torch.cuda.reset_peak_memory_stats()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.no_grad():
+            tm.decode_step(cfg, params, token, int(pos), cache, opts)
+            torch.cuda.synchronize()
+            a.record()
+            logits, _ = tm.decode_step(cfg, params, token, int(pos), cache,
+                                       opts)
+            b.record()
+        torch.cuda.synchronize()
+        step_ms = a.elapsed_time(b)
+        peak = torch.cuda.max_memory_allocated() - base
+        peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
+            - base_req
+        check(bool(torch.isfinite(logits).all()), f"{arch} x {shape}: "
+              f"logits not finite")
+        bound_ms = rec["roofline"]["step_time_lower_bound_s"] * 1e3
+        log(f"dry run vs card {arch} x {shape} (1x1 mesh; {smi}): argument "
+            f"{mem['argument_bytes']} B, card asked +{asked} B (allocated "
+            f"+{grown} B, {n_t} tensors); peak dry "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB vs card "
+            f"{peak_req / 1e9:.3f} GB asked ({peak / 1e9:.3f} allocated); step {step_ms:.3f}ms vs bound "
+            f"{bound_ms:.3f}ms ({rec['roofline']['bottleneck']}); trace "
+            f"{rec['compile_s']:.1f}s ({time.perf_counter() - t0:.1f}s)")
+        out[f"{arch} x {shape}"] = dict(
+            argument_bytes=mem["argument_bytes"], card_asked=asked,
+            card_bytes=grown, tensors=n_t, peak_dry=mem["peak_bytes"],
+            peak_card_asked=peak_req, peak_card=peak,
+            step_ms=step_ms, bound_ms=bound_ms,
+            bottleneck=rec["roofline"]["bottleneck"],
+            trace_s=rec["compile_s"])
+        del params, cache, token, pos, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_paths_phase(torch, kern, tm, get_config, smi) -> dict:
+    """Phase 20: the dry run's two sharded paths on the card and the dry
+    run's byte accounting against the card's allocator. No kernel is on
+    either sharded path (the counts stay 0 there)."""
+    t0 = time.perf_counter()
+    out = dict(seq_shard=seq_shard_on_card(torch, smi),
+               ep=ep_on_card(torch, tm, get_config, smi),
+               dryrun=dryrun_on_card(torch, tm, get_config, smi))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 20 (the dry run's sharded paths) {out['phase_s']:.1f}s")
+    return out
+
+
 # -------------------------------- main ---------------------------------- #
 
 def main() -> None:
@@ -3289,6 +3702,9 @@ def main() -> None:
     ap.add_argument("--train-only", action="store_true",
                     help="only build the kernels and run phase 18 "
                     "(training); prints no result line")
+    ap.add_argument("--shard-paths-only", action="store_true",
+                    help="only build the kernels and run phase 20 (the dry "
+                    "run's sharded paths); prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -3375,6 +3791,14 @@ def main() -> None:
                 smi=smi, sharded=sharded, shard_rows=shard_rows), indent=1,
                 default=str))
         return
+    if args.shard_paths_only:
+        shard_paths = shard_paths_phase(torch, kern, tm, get_config, smi)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(
+                smi=smi, shard_paths=shard_paths), indent=1, default=str))
+        return
     if args.train_only:
         from repro_torch.models import common as cm
         train = train_phase(torch, kern, tm, cm, get_config)
@@ -3455,6 +3879,9 @@ def main() -> None:
                      llava, paligemma, gemma3, deepseek, mamba, zamba,
                      whisper),
         breakdown["device_busy_ms"] / 8)
+
+    # ---- phase 20: the dry run's sharded paths on the card ----
+    shard_paths = shard_paths_phase(torch, kern, tm, get_config, smi)
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -3562,7 +3989,7 @@ def main() -> None:
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
             f32_families=f32_families, sharded=sharded, train=train,
-            analytic=analytic,
+            analytic=analytic, shard_paths=shard_paths,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

@@ -19,10 +19,18 @@ three numbers over the aten ops a step really dispatches, while it runs:
                       nothing.
     collective_bytes  the result bytes of the ``c10d`` ops the dispatcher
                       sees (``dist.all_gather`` reaches it as
-                      ``c10d.allgather_``), as ``hlo_analysis`` counts
-                      collective result bytes.
+                      ``c10d.allgather_``) and of the functional
+                      collectives (``_c10d_functional.all_gather_into_
+                      tensor`` and its kin, which a DTensor's
+                      redistribution dispatches), as ``hlo_analysis``
+                      counts collective result bytes.
 
-All values are per process (a rank's own shapes). The hand-written CUDA
+All values are per process (a rank's own shapes). A DTensor op is counted
+as the local ops it runs on this rank's shards, its redistributions'
+collectives included: the counters step aside for DTensor's own dispatch
+(``NotImplemented``) and see what it dispatches below, and the global-shape
+metadata that DTensor's sharding propagation computes runs outside them.
+The hand-written CUDA
 kernels are ctypes launches that the dispatcher never sees, so the
 extractor runs a step on the plain path: on CPU tensors (or meta tensors,
 which move no data), where every wrapper takes its plain version. A CUDA
@@ -31,13 +39,16 @@ the plain versions, nor misses the kernels' work unseen.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
 
 aten = torch.ops.aten
 
@@ -53,6 +64,20 @@ _COLLECTIVES = {"allgather_": "all-gather", "_allgather_base_": "all-gather",
                 "reduce_scatter_": "reduce-scatter",
                 "_reduce_scatter_base_": "reduce-scatter",
                 "alltoall_": "all-to-all"}
+# the functional collectives (namespaces ``_c10d_functional`` and
+# ``_c10d_functional_autograd``) -> the same kinds
+_FUNCTIONAL = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
+_FUNCTIONAL_NS = ("_c10d_functional", "_c10d_functional_autograd")
+
+
+def _has_dtensor(types) -> bool:
+    return any(issubclass(t, DTensor) for t in types)
 
 
 @dataclass
@@ -95,10 +120,14 @@ class _ByteCounter(TorchDispatchMode):
         self.costs = costs
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented        # count the local ops it runs
         kwargs = kwargs or {}
         leaves = [t for t in tree_leaves((args, kwargs))
                   if isinstance(t, torch.Tensor)]
-        if any(t.is_cuda for t in leaves):
+        # device.type, not is_cuda: a fake tensor answers it without a
+        # dispatch of its own
+        if any(t.device.type == "cuda" for t in leaves):
             raise ValueError(
                 f"cost_analysis counts the plain path: {func} got a CUDA "
                 f"tensor, whose kernels the dispatcher never sees; run the "
@@ -106,10 +135,15 @@ class _ByteCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         c = self.costs
         op = str(func.overloadpacket)
-        if func.namespace == "c10d":
-            kind = _COLLECTIVES.get(func._schema.name.split("::")[-1])
+        if func.namespace == "prim":
+            return out                   # metadata (prim.device): no data
+        if func.namespace in ("c10d",) + _FUNCTIONAL_NS:
+            name = func._schema.name.split("::")[-1]
+            kind = (_COLLECTIVES if func.namespace == "c10d"
+                    else _FUNCTIONAL).get(name)
             if kind:
-                res = _nbytes(out[0])
+                # c10d ops return (results, work); functional ones results
+                res = _nbytes(out[0] if func.namespace == "c10d" else out)
                 c.collective_bytes += res
                 c.collective_counts[kind] = (c.collective_counts.get(kind, 0)
                                              + res)
@@ -132,13 +166,52 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+class _LocalFlopMode(_FlopCounterMode):
+    """``FlopCounterMode``'s mode, stepping aside for DTensor's dispatch so
+    that it counts the local products at a rank's shapes."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+class _LocalFlopCounter(FlopCounterMode):
+    def __enter__(self):
+        self.flop_counts.clear()
+        self.mod_tracker.__enter__()
+        self.mode = _LocalFlopMode(self)
+        self.mode.__enter__()
+        return self
+
+
+@contextlib.contextmanager
+def quiet_sharding_propagation():
+    """DTensor's sharding propagation runs each new (op, placements) once
+    on fake tensors of GLOBAL shapes to learn its output's metadata; inside
+    this block it runs with every dispatch mode set aside, so no counter
+    (nor a memory tracker) mistakes it for the step's work."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def quiet(self, op_schema):
+        with _disable_current_modes():
+            return orig(self, op_schema)
+    ShardingPropagator._propagate_tensor_meta_non_cached = quiet
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+
+
 def analyze(fn: Callable, *args, **kwargs) -> OpCosts:
     """Run ``fn(*args, **kwargs)`` once and count the FLOPs, bytes and
     collective bytes of the aten ops it dispatches. Its tensors must lie
     on the CPU or the meta device (the plain path, see the module's
-    docstring)."""
+    docstring); DTensors are counted at this rank's local shapes."""
     costs = OpCosts()
-    with FlopCounterMode(display=False) as fc, _ByteCounter(costs):
+    with quiet_sharding_propagation(), _LocalFlopCounter(display=False) as fc, \
+            _ByteCounter(costs):
         fn(*args, **kwargs)
     for op, n in fc.get_flop_counts().get("Global", {}).items():
         costs.flops_by_op[str(op)] = float(n)

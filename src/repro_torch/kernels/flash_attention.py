@@ -33,18 +33,33 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 
 
+# query rows x keys of the f32 scores a block of the plain version holds
+_PLAIN_BLOCK = 1 << 25
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float = None):
     """Plain PyTorch version: f32 scores, query position c attends keys
     <= c (causal) or all keys, softmax in f32. q: (B, S, H, dh); k, v:
-    (B, L, Hkv, dh) -> (B, S, H, dh) in q's dtype."""
+    (B, L, Hkv, dh) -> (B, S, H, dh) in q's dtype. A long prompt is taken
+    in blocks of query rows (each row's softmax is its own), so the live
+    scores stay under ``_PLAIN_BLOCK`` rows x keys a (sequence, head), not
+    S x L: at 32k, 1,024 rows a block."""
     B, S = q.shape[:2]
     L = k.shape[1]
-    if causal:
-        hi = torch.arange(1, S + 1, device=q.device)[None].expand(B, S)
-    else:
-        hi = torch.full((B, S), L, device=q.device)
-    return _attend_rows_plain(q, k.float(), v.float(), hi, scale=scale)
+    kf, vf = k.float(), v.float()
+    rows = max(1, _PLAIN_BLOCK // L) if S * L > _PLAIN_BLOCK else S
+    out = []
+    for i in range(0, S, rows):
+        c = min(rows, S - i)
+        if causal:
+            hi = torch.arange(i + 1, i + c + 1, device=q.device)[None]
+            hi = hi.expand(B, c)
+        else:
+            hi = torch.full((B, c), L, device=q.device)
+        out.append(_attend_rows_plain(q[:, i:i + c], kf, vf, hi,
+                                      scale=scale))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):

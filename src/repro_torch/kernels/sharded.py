@@ -128,3 +128,34 @@ def agree_max(group, x: float) -> float:
     t = torch.tensor([x], dtype=torch.float64)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group.host)
     return float(t[0])
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """This process's place on the ranks that split one tensor dim (the
+    reference's mesh axis "model" under ``shard_map``): its index, the
+    number of ranks, and ``reduce(t, op)``, an all-reduce ("sum" or "max")
+    over them as a functional collective (``_c10d_functional``)."""
+    index: int
+    size: int
+    group: object
+
+    def reduce(self, t, op: str):
+        import torch.distributed._functional_collectives as funcol
+        if self.size == 1:
+            return t
+        return funcol.wait_tensor(funcol.all_reduce(t, op, self.group))
+
+
+def model_axis(group) -> ModelAxis:
+    """``ModelAxis`` of a ``ShardGroup`` (real ranks, one process each) or
+    of a ``DeviceMesh``'s "model" dim (the dry run, where a DTensor body
+    runs under ``local_map`` on rank 0's shards)."""
+    if isinstance(group, ShardGroup):
+        return ModelAxis(group.rank, group.size, group.pg)
+    names = group.mesh_dim_names or ()
+    if AXIS not in names:
+        return ModelAxis(0, 1, None)
+    dim = names.index(AXIS)
+    return ModelAxis(group.get_local_rank(AXIS), group.size(dim),
+                     (group, dim))

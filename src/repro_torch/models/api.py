@@ -11,7 +11,8 @@ only ``lm``'s dense and MoE decoders have the paged path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
@@ -28,10 +29,15 @@ def module_for(cfg: ArchConfig):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype="bfloat16", device="cuda"):
+                dtype="bfloat16", device="cuda", experts: slice = None):
     """Random weights of ``cfg``'s family from ``generator``, in the
     reference's layout (to share the reference's weights, convert them
-    with ``models.convert.params_from_numpy``)."""
+    with ``models.convert.params_from_numpy``). ``experts``: an MoE
+    stack keeps only that slice of its experts (an expert-parallel
+    rank's share)."""
+    if experts is not None:
+        return module_for(cfg).init_params(cfg, generator, dtype, device,
+                                           experts=experts)
     return module_for(cfg).init_params(cfg, generator, dtype, device)
 
 
@@ -135,3 +141,60 @@ def decode_steps(cfg: ArchConfig, params, token, pos: int, cache,
             tok = sampling.sample_greedy(logits)
         cols.append(tok)
     return torch.stack(cols, dim=1), cache
+
+
+# --------------------------- input specs ------------------------------- #
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One cell of the assigned (arch x shape) grid."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_runnable(cfg: ArchConfig, shape: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the skip reason."""
+    if shape == "long_500k" and not cfg.has_subquadratic_context:
+        return ("full-attention KV at 500k ctx (sub-quadratic required; "
+                "see DESIGN.md SS5)")
+    return None
+
+
+def input_specs(cfg: ArchConfig, shape: str,
+                opts: RuntimeOptions = RuntimeOptions()) -> Dict:
+    """Shape and dtype stand-ins (``meta`` tensors) for every model input
+    of the cell.
+
+    train: {"tokens","labels"[, "prefix_emb"]}
+    prefill: {"tokens"[, "prefix_emb"]}
+    decode: {"token", "pos"} (the cache and params are built by the
+    launcher)."""
+    sp = SHAPES[shape]
+    B = sp.global_batch
+    dt = opts.tdtype
+    i32 = torch.int32
+    S = sp.seq_len
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if sp.kind in ("train", "prefill"):
+        text_len = S - (cfg.prefix_len or 0) if cfg.family == "vlm" else S
+        d = {"tokens": spec((B, text_len), i32)}
+        if sp.kind == "train":
+            d["labels"] = spec((B, text_len), i32)
+        if cfg.family == "vlm":
+            d["prefix_emb"] = spec((B, cfg.prefix_len, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            d["prefix_emb"] = spec((B, cfg.source_len, cfg.d_model), dt)
+        return d
+    return {"token": spec((B,), i32), "pos": spec((), i32)}

@@ -3,8 +3,9 @@ dense layers (with or without a bias), the embedding table, RMSNorm and
 LayerNorm, rotary and sinusoidal position embeddings, the SwiGLU
 activation, the dense-cache write, the general masked attention (lazy
 causal, sliding-window, prefix-LM and full masks, soft-capping, a query
-offset and a valid length) and the training loss's chunked
-cross-entropy.
+offset and a valid length), the training loss's chunked cross-entropy,
+and the dry run's sharding constraints (``constrain``, ``constrain_tree``)
+and per-shard attention (``per_shard``), all no-ops on plain tensors.
 
 Parameters are plain dicts of tensors in the reference package's layout
 (``dense`` weights are ``(d_in, d_out)`` and apply as ``x @ w``), so weights
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
+from torch.distributed.tensor import DTensor
 
 # the CPU vector exp guard of the kernels' plain versions (see ``_exp``)
 from repro_torch.kernels.decode_attention import _cpu_exp_ready
@@ -105,6 +107,101 @@ def apply_rope(x, positions, theta: float = 10000.0):
     """Split-half rotary embedding in f32. x: (..., seq, heads, head_dim);
     positions: (..., seq)."""
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def constrain(x, sharding):
+    """The reference's ``with_sharding_constraint``: a DTensor ``x`` is
+    redistributed to ``sharding`` (a ``sharding.NamedSharding``); without
+    a sharding, or on a plain tensor, a no-op."""
+    if sharding is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(sharding.mesh, sharding.placements)
+
+
+def per_shard(fn, q, k, v, *, kv_valid=None, **kw):
+    """``fn(q, k, v, **kw)`` (with ``kv_valid=`` when one is given): an
+    attention over q (B, S, H, dh) and k, v (B, L, Hkv, dh). On DTensors
+    (the dry run) it runs on each rank's shards under ``local_map``, as
+    GSPMD partitions the reference's attention as one op: batch split as
+    q's is; q's heads split where k's are split alike, where k has one
+    head, or where a rank's query heads read whole kv heads (or one) of a
+    replicated k, which the rank then slices (Hkv 2 over 4 ranks: each
+    rank's 4 of 16 query heads read one kv head); every other dim
+    replicated. Traced op by op through DTensor, an uneven head split
+    would replicate the batch too, and the blocked softmax's tiles would
+    take minutes a layer at 32k."""
+    if not isinstance(q, DTensor):
+        if kv_valid is not None:
+            kw["kv_valid"] = kv_valid
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    kpl = k.placements if isinstance(k, DTensor) else \
+        (Replicate(),) * mesh.ndim
+    qp, kp, heads = [], [], None     # heads: (first, count) a rank slices
+    for i, (a, b) in enumerate(zip(q.placements, kpl)):
+        h_loc = H // mesh.size(i)
+        if isinstance(a, Shard) and a.dim == 0:
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+        elif isinstance(a, Shard) and a.dim == 2 and (
+                (isinstance(b, Shard) and b.dim == 2) or Hkv == 1):
+            qp.append(Shard(2))
+            kp.append(b if isinstance(b, Shard) else Replicate())
+        elif (isinstance(a, Shard) and a.dim == 2 and heads is None
+              and H % mesh.size(i) == 0
+              and (h_loc % (H // Hkv) == 0 or (H // Hkv) % h_loc == 0)):
+            n = max(h_loc // (H // Hkv), 1)
+            heads = (mesh.get_local_rank(i) * h_loc // (H // Hkv), n)
+            qp.append(Shard(2))
+            kp.append(Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    vb = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in qp]
+
+    def body(q_, k_, v_, *valid):
+        if heads is not None:
+            k_, v_ = k_.narrow(2, *heads), v_.narrow(2, *heads)
+        if valid:
+            return fn(q_, k_, v_, kv_valid=valid[0], **kw)
+        return fn(q_, k_, v_, **kw)
+    ins, args = (tuple(qp), tuple(kp), tuple(kp)), (q, k, v)
+    if kv_valid is not None:
+        if not isinstance(kv_valid, DTensor):
+            kv_valid = DTensor.from_local(kv_valid, mesh,
+                                          [Replicate()] * mesh.ndim,
+                                          run_check=False)
+        ins, args = ins + (tuple(vb),), args + (kv_valid,)
+    return local_map(body, out_placements=list(qp), in_placements=ins,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def constrain_tree(tree, path_shardings):
+    """ZeRO-3 weight gathering: constrain each leaf whose path SUFFIX
+    matches an entry of ``path_shardings`` (tuple of (path, sharding)),
+    paths as "attn/wq/w". Applied to one layer's params as the layer
+    starts, it all-gathers that layer's data-axis weight shards (weight
+    bytes) instead of reducing activation-sized partial products."""
+    if not path_shardings:
+        return tree
+    table = dict(path_shardings)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, path + (str(i),))
+                           for i, v in enumerate(t))
+        ps = "/".join(path)
+        for suffix, sh in table.items():
+            if suffix.endswith(ps) or ps.endswith(suffix):
+                return constrain(t, sh)
+        return t
+    return walk(tree, ())
 
 
 def swiglu(gate, up):
@@ -207,7 +304,14 @@ def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
     With ``S * L <= 1 << 21`` one block: a softmax over the masked scores,
     so a fully masked row gets the mean of V. Larger: the blocked online
     softmax over (``block_q``, ``block_kv``) tiles with an f32 accumulator,
-    where a masked score contributes 0 and a fully masked row gives 0."""
+    where a masked score contributes 0 and a fully masked row gives 0.
+    On DTensors it runs on each rank's shards (``per_shard``)."""
+    if isinstance(q, DTensor):
+        return per_shard(attention, q, k, v, kv_valid=kv_valid,
+                         mask_kind=mask_kind, window=window,
+                         prefix_len=prefix_len, q_offset=q_offset,
+                         scale=scale, softcap=softcap, block_q=block_q,
+                         block_kv=block_kv)
     attention.calls += 1
     B, S, H, dh = q.shape
     L, Hkv = k.shape[1], k.shape[2]

@@ -26,7 +26,10 @@ every layer and device, as the reference trains through its XLA attention
 (no kernel has a backward). With ``RuntimeOptions.kv_shard`` (head-sharded
 serving) the paged pool holds this rank's KV heads only and the paged
 attention runs on them through ``kernels.sharded``; the rest of the model
-is replicated.
+is replicated. With ``seq_shard_attn`` the static decode attends over a
+length-sharded cache (``models/seq_shard_attn.py``); the dry run's
+DTensor shardings (``residual_sharding``, ``zero3_gather``) are applied
+where the reference constrains.
 
 Public surface:
     init_params(cfg, generator, dtype, device)          -> params
@@ -94,6 +97,25 @@ class RuntimeOptions:
     # attend over them, all-gathering head outputs (bitwise identical to
     # the unsharded path). None: the whole pool on one device.
     kv_shard: object = None
+    # The dry run's shardings (launch/dryrun.py), the reference's fields:
+    # a sharding.NamedSharding for the (B, S, d) residual stream (each
+    # layer's start redistributes a DTensor stream to it), and the MoE
+    # capacity path's expert-major (E, C, d) and combine shardings.
+    residual_sharding: object = None
+    moe_expert_sharding: object = None
+    moe_out_sharding: object = None
+    # ZeRO-3 per-layer weight gathering: (param path suffix, sharding
+    # without the data axes) pairs, applied to a layer's params as it starts
+    zero3_gather: tuple = ()
+    # sequence-sharded decode attention over a LENGTH-sharded dense cache
+    # (models/seq_shard_attn.py): seq_shard_mesh is a kernels.sharded
+    # ShardGroup (real ranks, each holding its length slice) or a
+    # DeviceMesh whose "model" dim splits the length (the dry run)
+    seq_shard_attn: bool = False
+    seq_shard_mesh: object = None
+    # shard-local expert-parallel MoE (moe_impl="shard_map"): a ShardGroup
+    # whose ranks each hold E/N experts, or a DeviceMesh (the dry run)
+    moe_shard_map_mesh: object = None
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -149,10 +171,12 @@ def _stack(trees):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
-                device="cuda"):
+                device="cuda", experts: slice = None):
     """Random weights from ``generator`` in the reference layout. The draws
     are PyTorch's, not JAX's: to share weights with the reference package,
-    convert its params with ``models.convert.params_from_numpy``."""
+    convert its params with ``models.convert.params_from_numpy``.
+    ``experts``: an MoE stack keeps only that slice of its experts (an
+    expert-parallel rank's share, ``moe.init_moe``)."""
     reason = static_supported(cfg)
     if reason:
         raise NotImplementedError(reason)
@@ -175,7 +199,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
         for _ in range(n_stack)])
     if stack_moe:
         params["stack"]["moe"] = moe_mod.init_moe(generator, cfg, n_stack,
-                                                  dtype, device)
+                                                  dtype, device, experts)
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(generator, cfg.d_model, cfg.vocab,
                                           dtype, device,
@@ -211,7 +235,10 @@ def _ffn_apply(p, x, cfg: ArchConfig, opts: RuntimeOptions, aux=None):
     else dropped (serving has no use for them)."""
     if "moe" in p:
         y, a = moe_mod.moe_ffn(p["moe"], x, cfg, impl=opts.moe_impl,
-                               capacity_factor=opts.capacity_factor)
+                               capacity_factor=opts.capacity_factor,
+                               expert_sharding=opts.moe_expert_sharding,
+                               out_sharding=opts.moe_out_sharding,
+                               shard_map_mesh=opts.moe_shard_map_mesh)
         if aux is not None:
             for name, val in a.items():
                 aux[name] = aux[name] + val
@@ -528,6 +555,7 @@ def prefill_paged_chunk(cfg: ArchConfig, params, tokens, cache, page_table,
     rows = _kv_rows(page_table, positions, st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
+        x = cm.constrain(x, opts.residual_sharding)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
                                   opts, cl, positions, rope, page_table, rows,
                                   start_b, n_valid, calibrate=calibrate)
@@ -597,6 +625,7 @@ def decode_step_paged(cfg: ArchConfig, params, token, seq_lens, page_table,
     rows = _kv_rows(page_table, seq_lens[:, None], st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
+        x = cm.constrain(x, opts.residual_sharding)
         x = x + _paged_decode_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
                                    opts, cl, seq_lens, rope, page_table, rows)
         x = x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
@@ -706,6 +735,7 @@ def decode_verify_paged(cfg: ArchConfig, params, tokens, seq_lens, n_fed,
     rows = _kv_rows(page_table, positions, st["k"].shape[2])
     for i in range(cfg.n_layers):
         lp, cl = _layer(params["stack"], i), _layer(st, i)
+        x = cm.constrain(x, opts.residual_sharding)
         x = x + _paged_chunk_attn(lp["attn"], cm.rms_norm(x, lp["ln1"]), cfg,
                                   opts, cl, positions, rope, page_table, rows,
                                   seq_lens, n_valid, calibrate=False,
@@ -811,8 +841,8 @@ def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int, *,
     q, k, v = _project_qkv(p, x, cfg, rope)
     mask, window, prefix_len = _prompt_mask(cfg, kind)
     if mask == "causal" and not cfg.logit_softcap and not train:
-        out = flash.flash_attention(q, k, v, causal=True,
-                                    scale=1.0 / math.sqrt(hd))
+        out = cm.per_shard(flash.flash_attention, q, k, v, causal=True,
+                           scale=1.0 / math.sqrt(hd))
     else:
         out = cm.attention(q, k, v, mask_kind=mask, window=window,
                            prefix_len=prefix_len, softcap=cfg.logit_softcap,
@@ -822,6 +852,8 @@ def _attn_apply(p, x, cfg: ArchConfig, rope, kind: int, *,
 
 def _block(lp, x, cfg: ArchConfig, rope, positions, opts: RuntimeOptions,
            kind: int, aux=None, *, train: bool = False):
+    x = cm.constrain(x, opts.residual_sharding)
+    lp = cm.constrain_tree(lp, opts.zero3_gather)
     xn = cm.rms_norm(x, lp["ln1"])
     if cfg.mla is not None:
         h, kv = mla_mod.mla_prefill_attn(lp["attn"], xn, cfg, positions)
@@ -1016,24 +1048,36 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     return _logits(cfg, params, x[:, -1]), cache
 
 
-def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
-                 kv_valid, kind: int):
+def _decode_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions, cache_layer,
+                 pos: int, rope, kv_valid, kind: int):
     """Single-token attention against the dense cache. x: (B, 1, d). The
     new KV lands at ``pos`` first (int8: quantized with the prefill's
     scales). A layer with neither a window nor a soft-cap takes the dense
     decode kernel, which reads positions < kv_valid (= pos + 1) and
     dequantizes int8 itself; a sliding or soft-capped layer takes the
     general masked attention at q_offset = pos over the cache dequantized
-    in q's dtype, as the reference attends every layer."""
+    in q's dtype, as the reference attends every layer.
+
+    With ``opts.seq_shard_attn`` and a native cache, the reference's
+    branch: the cache is LENGTH-sharded (this rank's contiguous range) and
+    ``seq_shard_attn.decode_attn_seq_sharded`` writes the new KV on the
+    rank in range and attends across the ranks; no kernel runs."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _project_qkv(p, x, cfg, rope)
+    window = cfg.sliding_window if kind else 0
+    if opts.seq_shard_attn and "k_scale" not in cache_layer:
+        from repro_torch.models.seq_shard_attn import decode_attn_seq_sharded
+        out, _, _ = decode_attn_seq_sharded(
+            q, k, v, cache_layer["k"], cache_layer["v"], pos,
+            opts.seq_shard_mesh, scale=hd ** -0.5, softcap=cfg.logit_softcap,
+            window=window)
+        return cm.dense(p["wo"], out.reshape(B, 1, H * hd))
     ksc = vsc = None
     if "k_scale" in cache_layer:
         ksc, vsc = cache_layer["k_scale"], cache_layer["v_scale"]
         k, v = _quantize_with(k, ksc), _quantize_with(v, vsc)
     ck, cv = cm.update_cache(cache_layer["k"], cache_layer["v"], k, v, pos)
-    window = cfg.sliding_window if kind else 0
     if not window and not cfg.logit_softcap:
         out = kern.decode_attention(q[:, 0], ck, cv, kv_valid,
                                     scale=1.0 / math.sqrt(hd), k_scale=ksc,
@@ -1052,13 +1096,14 @@ def _decode_attn(p, x, cfg: ArchConfig, cache_layer, pos: int, rope,
 
 def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
                   kv_valid, opts: RuntimeOptions, kind: int):
+    x = cm.constrain(x, opts.residual_sharding)
     xn = cm.rms_norm(x, lp["ln1"])
     if cfg.mla is not None:
         x = x + mla_mod.mla_decode_attn(lp["attn"], xn, cfg, cache_layer,
                                         pos)
     else:
-        x = x + _decode_attn(lp["attn"], xn, cfg, cache_layer, pos, rope,
-                             kv_valid, kind)
+        x = x + _decode_attn(lp["attn"], xn, cfg, opts, cache_layer, pos,
+                             rope, kv_valid, kind)
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
 
 

@@ -40,6 +40,7 @@ def _run(cfg: ArchConfig, params, tokens, opts: RuntimeOptions):
     x = params["embed"]["emb"][tokens.long()]
 
     def body(lp, h):
+        h = cm.constrain(h, opts.residual_sharding)
         return h + ssd.mamba_forward(lp, h, cfg)
     for i in range(cfg.n_layers):
         x = remat(opts, body, _layer(params["stack"], i), x)
@@ -79,6 +80,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     x = params["embed"]["emb"][tokens.long()]
     st = cache["ssm_states"]
     for i in range(cfg.n_layers):
+        x = cm.constrain(x, opts.residual_sharding)
         y, state = ssd.mamba_forward(_layer(params["stack"], i), x, cfg,
                                      return_state=True)
         x = x + y
@@ -93,6 +95,7 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
     position). Returns (logits (B, vocab), cache advanced in place)."""
     x = params["embed"]["emb"][token.long()]
     for i in range(cfg.n_layers):
+        x = cm.constrain(x, opts.residual_sharding)
         x = x + ssd.mamba_decode(_layer(params["stack"], i), x,
                                  _layer(cache["ssm_states"], i), cfg)
     return _logits(params, x), cache

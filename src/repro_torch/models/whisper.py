@@ -113,6 +113,7 @@ def encode(cfg: ArchConfig, params, frames, opts: RuntimeOptions):
         frames.shape[1], cfg.d_model, params["pos_dec"].device).to(dt)[None]
     for i in range(cfg.enc_layers):
         lp = _layer(params["enc_stack"], i)
+        x = cm.constrain(x, opts.residual_sharding)
         hn = _ln(x, lp["ln1"])
         x = x + _mha(lp["attn"], hn, cfg, *_kv(lp["attn"], hn, cfg),
                      mask_kind="full")
@@ -131,14 +132,17 @@ def _dec_layer(lp, x, cfg: ArchConfig, self_kv, cross_kv, *, q_offset=0):
     return x + moe_mod.dense_ffn(lp["mlp"], _ln(x, lp["ln2"]), False)
 
 
-def _dec_forward(cfg: ArchConfig, params, tokens, enc_out, on_layer=None):
+def _dec_forward(cfg: ArchConfig, params, tokens, enc_out, on_layer=None,
+                 residual_sharding=None):
     """The decoder over the prompt (B, S): its final normed hidden state.
     ``on_layer(i, (k, v), (ck, cv))`` receives each layer's self and
-    cross keys and values."""
+    cross keys and values; ``residual_sharding`` constrains the stream
+    at each layer (``RuntimeOptions.residual_sharding``)."""
     S = tokens.shape[1]
     x = params["embed"]["emb"][tokens.long()] + params["pos_dec"][None, :S]
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_stack"], i)
+        x = cm.constrain(x, residual_sharding)
         self_kv = _kv(lp["self"], _ln(x, lp["ln1"]), cfg)
         cross_kv = _kv(lp["cross"], enc_out, cfg)
         if on_layer is not None:
@@ -156,7 +160,9 @@ def forward(cfg: ArchConfig, params, tokens,
     """Decoder logits (B, S, vocab) over the encoded frames
     ``prefix_emb``."""
     enc_out = encode(cfg, params, _frames(prefix_emb), opts)
-    return _logits(params, _dec_forward(cfg, params, tokens, enc_out))
+    return _logits(params, _dec_forward(
+        cfg, params, tokens, enc_out,
+        residual_sharding=opts.residual_sharding))
 
 
 def train_loss(cfg: ArchConfig, params, batch,
@@ -168,7 +174,8 @@ def train_loss(cfg: ArchConfig, params, batch,
     params = dict(params, enc_stack=unstack(params["enc_stack"]),
                   dec_stack=unstack(params["dec_stack"]))
     enc_out = encode(cfg, params, _frames(batch.get("prefix_emb")), opts)
-    h = _dec_forward(cfg, params, batch["tokens"], enc_out)
+    h = _dec_forward(cfg, params, batch["tokens"], enc_out,
+                     residual_sharding=opts.residual_sharding)
     loss = cm.chunked_xent(h[:, :-1], params["embed"]["emb"],
                            batch["labels"][:, 1:], tied=True)
     return loss, {"nll": loss}
@@ -205,7 +212,8 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
         cm.update_cache(cache["self"]["k"][i], cache["self"]["v"][i],
                         *self_kv, 0)
         cross.append(cross_kv)
-    x = _dec_forward(cfg, params, tokens, enc_out, write)
+    x = _dec_forward(cfg, params, tokens, enc_out, write,
+                     opts.residual_sharding)
     dt = cache["cross"]["k"].dtype
     cache["cross"] = {name: torch.stack([kv[j] for kv in cross]).to(dt)
                       for j, name in enumerate(("k", "v"))}
@@ -223,6 +231,7 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
          + pos_dec[min(max(pos, 0), pos_dec.shape[0] - 1)][None, None])
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_stack"], i)
+        x = cm.constrain(x, opts.residual_sharding)
         k, v = _kv(lp["self"], _ln(x, lp["ln1"]), cfg)
         ck, cv = cm.update_cache(cache["self"]["k"][i], cache["self"]["v"][i],
                                  k, v, pos)

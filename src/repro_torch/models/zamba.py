@@ -105,6 +105,7 @@ def _run(cfg: ArchConfig, params, tokens, cache=None,
     n_sites, per = _layout(cfg)
 
     def site_body(s, x):
+        x = cm.constrain(x, opts.residual_sharding)
         site = _layer(params["mamba"], s)
         for j in range(per):
             x = x + ssd.mamba_forward(_layer(site, j), x, cfg)
@@ -114,6 +115,7 @@ def _run(cfg: ArchConfig, params, tokens, cache=None,
         if cache is None:
             x = remat(opts, site_body, s, x)
             continue
+        x = cm.constrain(x, opts.residual_sharding)
         site = _layer(params["mamba"], s)
         for j in range(per):
             y, state = ssd.mamba_forward(_layer(site, j), x, cfg,
@@ -187,6 +189,7 @@ def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     n_sites, per = _layout(cfg)
     for s in range(n_sites):
+        x = cm.constrain(x, opts.residual_sharding)
         site, states = _layer(params["mamba"], s), _layer(cache["mamba"], s)
         for j in range(per):
             y = ssd.mamba_decode(_layer(site, j), x[:, 0], _layer(states, j),

@@ -4,8 +4,8 @@
 Prints ``name,us_per_call,derived`` CSV. ``us_per_call`` times the analytical
 evaluation itself (the paper's artifact is the model, so its evaluation cost
 is the honest per-call number); ``derived`` carries the reproduced claim.
-The reference's ``roofline_tpu`` reads the dry run's artifacts, which the
-port does not write yet: its row says so.
+``roofline_h100`` is the reference's ``roofline_tpu`` on the H100: it
+reads the port's dry-run records (``artifacts/dryrun_torch``).
 
 Run: PYTHONPATH=src python -m repro_torch.paper.run [--only fig1,table1]
 """
@@ -17,10 +17,8 @@ import time
 
 from repro_torch.paper import common
 
-MODULES = ("table1", "fig1", "fig2", "fig3", "fig4", "beyond_gpu_tiers")
-LEFT_OUT = {"roofline_tpu": "not run: it reads the dry run's artifacts, "
-                            "which the port does not write yet (ROADMAP "
-                            "A12b)"}
+MODULES = ("table1", "fig1", "fig2", "fig3", "fig4", "beyond_gpu_tiers",
+           "roofline_h100")
 
 
 def main(argv=None) -> None:
@@ -40,9 +38,6 @@ def main(argv=None) -> None:
             derived = f"ERROR:{type(e).__name__}:{e}"
         us = (time.perf_counter() - t0) * 1e6
         common.emit(f"{name}.total", us, derived)
-    for name, why in LEFT_OUT.items():
-        if not only or name in only:
-            common.emit(f"{name}.total", 0.0, why)
     common.flush()
 
 

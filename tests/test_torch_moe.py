@@ -184,14 +184,6 @@ def test_contested_slot_drops_the_later_token():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
 
 
-def test_shard_map_raises_naming_item_9(ffn):
-    _, tcfg, _, tp = ffn
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmoe.moe_ffn(tp, torch.zeros((1, 2, 64)), tcfg, impl="shard_map")
-    with pytest.raises(ValueError, match="impl"):
-        tmoe.moe_ffn(tp, torch.zeros((1, 2, 64)), tcfg, impl="dense")
-
-
 # ------------------------------- model ---------------------------------- #
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from repro_torch.core.h100_roofline import h100_hierarchy
 from repro_torch.core.memspec import GB, MB, US, ComputeSpec
 from repro_torch.paper import beyond_gpu_tiers
 from repro_torch.paper import concurrency_sweep as tcs
+from repro_torch.paper import roofline_h100
 from repro_torch.paper import run as trun
 from repro_torch.paper import stco_sweep
 from torch_copy_helpers import same_but_imports
@@ -72,20 +73,23 @@ def _csv(text):
     return out
 
 
-def test_run_harness_prints_the_reference_rows(monkeypatch, capsys):
+def test_run_harness_prints_the_reference_rows(monkeypatch, capsys,
+                                              tmp_path):
+    # no dry-run records: the roofline runner's row says so
+    monkeypatch.setattr(roofline_h100, "ART", tmp_path / "none")
     trun.main([])
     port = _csv(capsys.readouterr().out)
     monkeypatch.setattr(sys, "argv", ["run"])
     jrun.main()
     ref = _csv(capsys.readouterr().out)
     # table1 and fig1-4 row for row, then the H100 tiers in place of the
-    # TPU's, and the dry-run table named as left out
+    # TPU's, and the dry-run table on the H100 in place of the TPU pod's
     n = len([r for r in ref if not r[0].startswith(("beyond", "roofline"))])
     assert port[:n] == ref[:n]
     assert [r[0] for r in port[n:]] == (
         [f"beyond.gpu_tiers.{r[0].split('.', 2)[2]}" for r in ref[n:-2]]
-        + ["beyond_gpu_tiers.total", "roofline_tpu.total"])
-    assert "A12b" in port[-1][1]
+        + ["beyond_gpu_tiers.total", "roofline_h100.total"])
+    assert "no dry-run records" in port[-1][1]
 
 
 def test_run_harness_only(capsys):
