@@ -11,7 +11,8 @@ result line. ``--sharded-only`` builds the kernels and runs only phase 17;
 on a machine with a card for every rank (four), its ranks take a card each
 over nccl. It prints no result line either, nor does ``--train-only``,
 which builds the kernels and runs only phase 18, nor
-``--shard-paths-only``, which builds them and runs only phase 20.
+``--shard-paths-only``, which builds them and runs only phase 20, nor
+``--sync-audit-only``, which builds them and runs only phase 21.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -253,6 +254,18 @@ Phases (any failure exits non-zero before the result line):
      long_500k): the bytes their params, cache and inputs ask the card's
      allocator for equal the dry run's argument bytes, and one real step's
      peak and CUDA-event time beside the dry run's peak and step bound.
+  21. the sync audit: ``repro_torch.analysis`` against the syncs the card
+     takes. Under ``torch.cuda.set_sync_debug_mode("warn")``, every
+     warning's Python stack kept: llama3.2-1b at full width, bf16, on
+     phase 4's continuous engine with 4 of its requests and 16 new tokens
+     (greedy, then n-gram k=4), and a static ``generate`` (B=2 x 64, 16
+     new). One line a sync site (its innermost ``repro_torch`` frame:
+     file, line, function; pull, upload or other; the count; the serving
+     statement it came from) and ``ServeStats.host_syncs`` beside the
+     pulls. Every pull must lie at a site the host-sync rule counts; no
+     sync may lie under a ``CAPTURE_ROOTS`` entry unless its site carries
+     a justified pragma or baseline entry; each root the runs called runs
+     once more, at its first call's arguments, under "error".
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -3685,6 +3698,210 @@ def shard_paths_phase(torch, kern, tm, get_config, smi) -> dict:
     return out
 
 
+# ------------------ phase 21: the sync audit on the card ------------------ #
+
+# the requests (of phase 4's 16) and new tokens of the audit's two
+# continuous serves; the static wave (B, S) and its new tokens
+AUDIT_REQS, AUDIT_NEW, AUDIT_WAVE = 4, 16, (2, 64)
+SYNC_MSG = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def sync_warnings(torch):
+    """Sync debug mode "warn" while entered; yields the list that gets each
+    of its warnings' Python frames (file, line, qualname). No warning is
+    dropped: any other goes on to the old handler."""
+    import warnings
+    records = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        old = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if SYNC_MSG not in str(message):
+                return old(message, category, filename, lineno, file, line)
+            frames, f = [], sys._getframe(1)
+            while f is not None:
+                frames.append((f.f_code.co_filename, f.f_lineno,
+                               f.f_code.co_qualname.replace(".<locals>", "")))
+                f = f.f_back
+            records.append(frames)
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield records
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def root_calls(modules, names):
+    """Wrap ``names`` in each of ``modules`` (where the engines look them
+    up): count each wrapped root's calls and keep its first call's
+    arguments, to run it again under sync debug mode "error"."""
+    calls, saved = {}, []
+    for mod in modules:
+        for name in names:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                rec = calls.setdefault(_name, {"n": 0, "fn": _fn})
+                rec["n"] += 1
+                rec.setdefault("args", (a, kw))
+                return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def audit_table(project, host_sync, purity, records, src, label) -> dict:
+    """Each recorded sync by its innermost ``repro_torch`` site (file, line,
+    function, class) and the serving statement that led to it; the pulls
+    at no counted site; the syncs under a capture root at a site with no
+    justified pragma or baseline entry."""
+    from repro_torch.analysis.core import load_baseline
+    counted = host_sync.counted_sites(project)
+    pkg = str(src / "repro_torch") + "/"
+    roots = set()
+    for r in purity.CAPTURE_ROOTS:
+        roots.add((str(src / r.path), r.qualname))
+    justified = {(e.get("path"), e.get("line"))
+                 for e in load_baseline(ROOT / "analysis_baseline_torch.json")
+                 .values() if e.get("rule") == purity.RULE}
+    sites, bad_pulls, bad_roots = {}, [], []
+    for frames in records:
+        ours = [(f, ln, q) for f, ln, q in frames if f.startswith(pkg)]
+        if not ours:
+            bad_pulls.append(f"{label}: a sync outside repro_torch at "
+                             f"{frames[0][:2]}")
+            continue
+        f, ln, q = ours[0]
+        rel = f[len(str(src)) + 1:]
+        mod = project.module(rel)
+        cls = host_sync.sync_class(mod, ln) if mod is not None else "other"
+        # the serving statement it came from (an upload's caller of _dev)
+        via = next(((g[len(str(src)) + 1:], m, r) for g, m, r in ours
+                    if "/serving/" in g and not r.endswith("._dev")),
+                   ("", 0, ""))
+        key = (rel, ln, q, cls, f"{via[0].split('/')[-1]}:{via[1]}")
+        sites[key] = sites.get(key, 0) + 1
+        if cls == "pull" and not any(
+                s.path == rel and s.line <= ln <= s.end_line
+                for s in counted):
+            bad_pulls.append(f"{label}: pull at {rel}:{ln} ({q}) is no "
+                             f"counted site of the host-sync rule")
+        in_root = [r for g, m, r in frames if (g, r) in roots]
+        if in_root and not ((mod is not None
+                             and mod.allowed(purity.RULE, ln))
+                            or (rel, ln) in justified):
+            bad_roots.append(f"{label}: {cls} at {rel}:{ln} ({q}) inside "
+                             f"capture root {in_root[-1]}")
+    return dict(sites=sites, bad_pulls=bad_pulls, bad_roots=bad_roots)
+
+
+def sync_audit(torch, tm, ServeEngine, get_config, smi) -> dict:
+    """Phase 21: the host-sync checker and the capture roots of
+    ``repro_torch.analysis`` against the syncs the card takes (sync debug
+    mode "warn", every warning's Python stack kept) on llama3.2-1b at
+    full width, bf16: phase 4's continuous engine on 4 of its requests (16
+    new tokens), greedy and n-gram k=4, and a static ``generate`` (B=2 x
+    64, 16 new). Every pull must lie at a site the checker counts, no
+    sync may lie under a capture root unless its site is justified, and
+    each root these paths call runs once more, at its first call's
+    arguments, under sync debug mode "error"."""
+    import numpy as np
+
+    import repro_torch.serving.engine as eng_mod
+    from repro_torch.analysis import load_project
+    from repro_torch.analysis.checkers import host_sync, purity
+    t0 = time.perf_counter()
+    src = Path(tm.__file__).resolve().parents[2]
+    project = load_project(src)
+    cfg = get_config("llama3.2-1b")
+    reqs = requests(cfg.vocab)[:AUDIT_REQS]
+    B, S = AUDIT_WAVE
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab, size=(B, S))
+    names = sorted({r.qualname for r in purity.CAPTURE_ROOTS
+                    if "." not in r.qualname})
+    runs, params, calls_all = {}, None, {}
+    for label, kw in (("continuous", {}),
+                      ("ngram", dict(spec_mode="ngram", spec_k=4)),
+                      ("static", None)):
+        opts = tm.RuntimeOptions(dtype="bfloat16")
+        if kw is None:
+            eng = ServeEngine(cfg, params, opts, device="cuda", seed=0,
+                              scheduler="static", decode_lookahead=8,
+                              max_len=S + AUDIT_NEW + 8)
+        else:
+            eng = ServeEngine(cfg, params, opts, device="cuda", seed=0,
+                              scheduler="continuous", page_size=PS,
+                              max_batch=8, prefill_chunk=C,
+                              decode_lookahead=8, max_len=MAX_LEN, **kw)
+        params = eng.params
+        torch.cuda.synchronize()
+        with root_calls((eng_mod, tm.sampling), names) as calls, \
+                sync_warnings(torch) as records:
+            if kw is None:
+                outs = eng.generate(prompts, AUDIT_NEW)
+            else:
+                outs = eng.serve([r[:] for r in reqs], AUDIT_NEW)
+        check(all(len(o) == AUDIT_NEW and all(0 <= t < cfg.vocab for t in o)
+                  for o in outs), f"audit {label}: malformed outputs")
+        tab = audit_table(project, host_sync, purity, records, src, label)
+        pulls = sum(n for k, n in tab["sites"].items() if k[3] == "pull")
+        ups = sum(n for k, n in tab["sites"].items() if k[3] == "upload")
+        other = sum(n for k, n in tab["sites"].items() if k[3] == "other")
+        for (rel, ln, q, cls, via), n in sorted(tab["sites"].items()):
+            log(f"sync {label} {rel}:{ln} {q} {cls} x{n} (via {via})")
+        log(f"sync audit {label}: host_syncs={eng.stats.host_syncs} "
+            f"pulls={pulls} uploads={ups} other={other} root calls "
+            + " ".join(f"{k}={v['n']}" for k, v in sorted(calls.items())))
+        for msg in tab["bad_pulls"] + tab["bad_roots"]:
+            log(f"FAIL {msg}")
+        check(not tab["bad_pulls"], f"audit {label}: pulls outside the "
+              f"host-sync rule's counted sites: {tab['bad_pulls']}")
+        check(not tab["bad_roots"], f"audit {label}: unjustified syncs "
+              f"under a capture root: {tab['bad_roots']}")
+        runs[label] = dict(
+            host_syncs=eng.stats.host_syncs, pulls=pulls, uploads=ups,
+            other=other, root_calls={k: v["n"] for k, v in calls.items()},
+            sites=[dict(path=k[0], line=k[1], function=k[2], cls=k[3],
+                        via=k[4], count=n)
+                   for k, n in sorted(tab["sites"].items())])
+        for name, rec_call in calls.items():
+            calls_all.setdefault(name, rec_call)
+        del eng
+    # every root these paths call, once more under "error", at its first
+    # call's arguments (the pool it writes is the finished serve's)
+    for name, rec_call in sorted(calls_all.items()):
+        a, kw = rec_call["args"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec_call["fn"](*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"capture root {name}: no host sync under sync debug mode "
+            f"\"error\"")
+    check({"prefill_paged_chunk", "decode_steps_paged", "spec_decode_verify",
+           "prefill", "decode_steps"} <= set(calls_all),
+          f"the audit's paths called only the roots {sorted(calls_all)}")
+    del params, calls_all
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(runs=runs, smi=smi, phase_s=time.perf_counter() - t0)
+    log(f"phase 21 (the sync audit) {out['phase_s']:.1f}s")
+    return out
+
+
 # -------------------------------- main ---------------------------------- #
 
 def main() -> None:
@@ -3705,6 +3922,9 @@ def main() -> None:
     ap.add_argument("--shard-paths-only", action="store_true",
                     help="only build the kernels and run phase 20 (the dry "
                     "run's sharded paths); prints no result line")
+    ap.add_argument("--sync-audit-only", action="store_true",
+                    help="only build the kernels and run phase 21 (the "
+                    "sync audit); prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -3799,6 +4019,14 @@ def main() -> None:
             Path(args.out).write_text(json.dumps(dict(
                 smi=smi, shard_paths=shard_paths), indent=1, default=str))
         return
+    if args.sync_audit_only:
+        audit = sync_audit(torch, tm, ServeEngine, get_config, smi)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(smi=smi, audit=audit),
+                                                 indent=1, default=str))
+        return
     if args.train_only:
         from repro_torch.models import common as cm
         train = train_phase(torch, kern, tm, cm, get_config)
@@ -3882,6 +4110,9 @@ def main() -> None:
 
     # ---- phase 20: the dry run's sharded paths on the card ----
     shard_paths = shard_paths_phase(torch, kern, tm, get_config, smi)
+
+    # ---- phase 21: the sync audit ----
+    audit = sync_audit(torch, tm, ServeEngine, get_config, smi)
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -3989,7 +4220,7 @@ def main() -> None:
             paligemma=paligemma, gemma3=gemma3, f32_masked=f32_masked,
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
             f32_families=f32_families, sharded=sharded, train=train,
-            analytic=analytic, shard_paths=shard_paths,
+            analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
             build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
             paged_ptxas=paged_regs, dense_ptxas=dense_regs,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),

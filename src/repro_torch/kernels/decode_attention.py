@@ -341,6 +341,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_attention launch failed (rc={rc})")
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     paged_decode_attention.launches += 1
     return out
 
@@ -365,6 +367,7 @@ def _start_vector(start, B: int, device) -> torch.Tensor:
     copy)."""
     if isinstance(start, torch.Tensor):
         return start.to(device, torch.int32).reshape(-1).expand(B).contiguous()
+    # repro: allow(traced-purity): a host int here; a tensor returned above
     return torch.full((B,), int(start), dtype=torch.int32, device=device)
 
 
@@ -441,6 +444,7 @@ def _launch_chunk(name, q, k_pages, v_pages, page_table, start, *, n_valid=None,
     vec_start = isinstance(start, torch.Tensor)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), _ptr(start) if vec_start else None,
+            # repro: allow(traced-purity): int(start) runs for a host int only
             0 if vec_start else int(start), _ptr(n_valid), _ptr(n_fed),
             _ptr(k_scale), _ptr(v_scale), _ptr(part), out.data_ptr(), B, C, H,
             Hkv, dh, ps, n_pp, n_pages, split, n_split, _DTYPE_CODE[q.dtype],
@@ -543,6 +547,8 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
                         page_table, start, n_valid=n_valid, scale=scale,
                         k_scale=k_scale, v_scale=v_scale,
                         split_kv_heads=split_kv_heads)
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     chunk_prefill_attention.launches += 1
     return out
 
@@ -594,6 +600,8 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
                         page_table, seq_lens, n_fed=n_fed, scale=scale,
                         k_scale=k_scale, v_scale=v_scale,
                         split_kv_heads=split_kv_heads)
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     spec_verify_attention.launches += 1
     return out
 
@@ -729,6 +737,8 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention launch failed (rc={rc})")
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     decode_attention.launches += 1
     return out
 

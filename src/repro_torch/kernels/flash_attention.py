@@ -94,6 +94,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention launch failed (rc={rc})")
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     flash_attention.launches += 1
     return out
 

@@ -115,6 +115,9 @@ def sharded_attend(group, attend, q, k_pages, v_pages, k_scale, v_scale,
             + (head_slice(group, q.shape[q_head_axis]),)].contiguous()
     out = attend(q_l, k_pages, v_pages, k_scale, v_scale, *extras)
     parts = [torch.empty_like(out) for _ in range(group.size)]
+    # gloo (ranks sharing one card) stages a CUDA all_gather through the
+    # host; nccl's is a device collective, which a CUDA graph can capture
+    # repro: allow(traced-purity): a host hop under gloo only
     dist.all_gather(parts, out.contiguous(), group=group.pg)
     return torch.cat(parts, dim=q_head_axis)
 

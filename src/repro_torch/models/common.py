@@ -77,7 +77,8 @@ def sinusoid(n: int, d: int, device=None):
     their cos (Whisper's encoder table)."""
     pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
-    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    # the base filled on the device: no host-to-device copy
+    ang = pos / torch.pow(torch.full((), 10000.0, device=device), 2 * dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
@@ -312,6 +313,8 @@ def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
                          prefix_len=prefix_len, q_offset=q_offset,
                          scale=scale, softcap=softcap, block_q=block_q,
                          block_kv=block_kv)
+    # a host counter: CUDA-graph capture runs it once, a replay never
+    # repro: allow(traced-purity): P1 adds graph replays to the count
     attention.calls += 1
     B, S, H, dh = q.shape
     L, Hkv = k.shape[1], k.shape[2]

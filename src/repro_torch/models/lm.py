@@ -533,7 +533,8 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions,
 
 
 def prefill_paged_chunk(cfg: ArchConfig, params, tokens, cache, page_table,
-                        start, n_valid, opts: RuntimeOptions = RuntimeOptions(),
+                        start: int, n_valid,
+                        opts: RuntimeOptions = RuntimeOptions(),
                         *, calibrate: bool = False):
     """One fixed-size prefill chunk against the paged pool.
 

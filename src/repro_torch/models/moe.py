@@ -132,6 +132,7 @@ def _ragged_path(p, xf, expert_ids, gate_vals, m, gated: bool):
     order = torch.argsort(flat, stable=True)
     inv = torch.argsort(order)
     xs = xf.repeat_interleave(k, dim=0)[order]
+    # repro: allow(traced-purity): ragged is not the serving default
     ends = torch.cumsum(_counts(flat, m.n_experts), 0).tolist()
     ys = torch.empty_like(xs)
     lo = 0
