@@ -12,7 +12,9 @@ on a machine with a card for every rank (four), its ranks take a card each
 over nccl. It prints no result line either, nor does ``--train-only``,
 which builds the kernels and runs only phase 18, nor
 ``--shard-paths-only``, which builds them and runs only phase 20, nor
-``--sync-audit-only``, which builds them and runs only phase 21.
+``--sync-audit-only``, which builds them and runs only phase 21, nor
+``--head256-only``, which builds them, runs phase 3's head-width-256
+cases and phase 22.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -25,9 +27,9 @@ Phases (any failure exits non-zero before the result line):
      the flash and chunk libraries' bf16/f16 kernels (cuobjdump -sass),
      which must hold some (64 in each dh=128 flash kernel), and checks
      that the paged decode library is built anew from its split-K header
-     (not the library of its earlier body); prints the dense decode's
-     head-width-256 instances (pass 1 and combine: registers, shared
-     memory, spills), which must exist.
+     (not the library of its earlier body); prints every library's
+     head-width-256 instances by kernel template (registers, shared
+     memory, spill stores; each library must hold some).
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -66,8 +68,14 @@ Phases (any failure exits non-zero before the result line):
      it (H = Hkv = 32, dh=64, bf16): flash (causal) on its longest wave
      (B=1, S=60) and its widest (B=2, S=11), and the dense decode over
      their caches (L = 77 and 28, ragged; B=12 at L=77 on the split
-     edges). Every kernel entry must give bitwise the same result on a
-     second call.
+     edges). At head width 256 (``head256_cases``): the paged entries at
+     paligemma-3b's width (H=8, Hkv=1, group 8; verify C = 1, 5, 8) and
+     gemma3-1b's (H=4, group 4; C=5) over pages of 32 keys, f32, bf16 and
+     f16 queries over their own pool and bf16 and f16 over int8, ragged,
+     on the split edges and with chunk and window frontiers on them;
+     flash (B=4) at group 8, bf16 at S = 512, 300, 17, f16 and f32 at
+     300, and group 4, bf16 and f32 at 300, causal and full. Every kernel
+     entry must give bitwise the same result on a second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -266,13 +274,28 @@ Phases (any failure exits non-zero before the result line):
      sync may lie under a ``CAPTURE_ROOTS`` entry unless its site carries
      a justified pragma or baseline entry; each root the runs called runs
      once more, at its first call's arguments, under "error".
+  22. head width 256: paligemma-3b's Gemma-2B decoder served as a
+     text-only causal LM (``PALI_TEXT``: 18 layers, d_model 2048, 8
+     heads over 1 KV head at dh 256, 2.51 B parameters) at full width and
+     depth in bf16: the continuous engine (8 of phase 4's requests, 32
+     new, pages of 32; native, int8, n-gram k=4) and the static engine
+     (phase 5's waves, 32 new; native, int8), each run twice and required
+     to repeat its tokens, launch each kernel exactly n_layers times a
+     micro-step, prefill chunk, verify pass or wave, call no plain version
+     and never the masked attention; prints each spec-off run's decode
+     micro-step and tokens/s beside its byte bound (every parameter, the
+     tied head reading the whole table, plus the KV its tokens read, over
+     3.35 TB/s). Then in f32 at 4 layers the continuous and static
+     engines' tokens on the card equal the CPU's over each request's
+     tie-free prefix.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
 flash at llava's group 1, the three paged entries at a head shard
 of 2 and of 4, the verify entry there with 0 launches, and the four
 entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
-sweep's launches) and, last, the device JSON line.
+sweep's launches, and the five at head width 256 with phase 22's
+launches) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -352,6 +375,17 @@ SHARD_RUNS = {2: ("native", "int8", "ngram"), 4: ("native",)}
 SHARD_TIMEOUT_S = 300.0
 # paper.concurrency_sweep's runtime halves: new tokens a request
 SWEEP_NEW = 16
+# the head-width-256 phase: paligemma-3b's Gemma-2B decoder served text-only
+# (no image prefix: a causal dense LM, 18 layers, 8 heads over 1 KV head at
+# head width 256), at full width in bf16 on both engines; pages of 32 keys
+# (the reference's _page_tile_ok takes them for bf16 and int8 pools); 8 of
+# phase 4's requests with 32 new tokens on the continuous engine, phase 5's
+# waves with 32 on the static one; the f32 card-vs-CPU check at 4 layers
+PALI_TEXT = dict(family="dense", prefix_len=0, prefix_bidirectional=False)
+PALI_TEXT_PS, PALI_TEXT_REQS, PALI_TEXT_NEW, PALI_TEXT_F32_LAYERS = (
+    32, 8, 32, 4)
+# gemma3-1b's attention width (heads, head_dim, kv heads): group 4 at 256
+GEMMA3_WIDTH = (4, 256, 1)
 # the training phase: llama3.2-1b at full width in f32, (B, S, n_micro,
 # steps, the step saved and resumed from); the families whose reduced twins
 # train on the card against the CPU
@@ -409,13 +443,13 @@ def ptxas_entries(text: str) -> dict:
             for part in text.split("Compiling entry function '")[1:]}
 
 
-def pass_ptxas(ents: dict, label: str, keep=lambda name: True) -> dict:
+def pass_ptxas(ents: dict, label: str) -> dict:
     """Registers, shared memory and spills of the split kernels' pass 1 and
-    combine among the ptxas entries ``ents`` whose names pass ``keep``."""
+    combine among the ptxas entries ``ents``."""
     report = {}
     for part, pick in (("pass 1", lambda n: "combine" not in n),
                        ("combine", lambda n: "combine" in n)):
-        sel = [v for n, v in ents.items() if keep(n) and pick(n)]
+        sel = [v for n, v in ents.items() if pick(n)]
         report[part] = dict(
             kernels=len(sel), registers=[min((v[0] for v in sel), default=0),
                                          max((v[0] for v in sel), default=0)],
@@ -445,13 +479,37 @@ def paged_ptxas(kbuild) -> dict:
     return report
 
 
-def dense_ptxas(kbuild) -> dict:
-    """The dense decode library's instances at head width 256 (pass 1 and
-    its combine), which must exist."""
-    report = pass_ptxas(ptxas_entries(kbuild.build_log("decode_attention")),
-                        "dense decode dh=256", lambda n: "Li256E" in n)
-    check(report["pass 1"]["kernels"] and report["combine"]["kernels"],
-          "the dense decode library has no head-width-256 instances")
+def head256_ptxas(kbuild) -> dict:
+    """Every head-width-256 instance of the four libraries: registers,
+    shared memory and spill stores by library and kernel template, from
+    the build's ptxas report. Each library must hold some; spills are
+    reported, not refused."""
+    report = {}
+    for lib in kbuild.SOURCES:
+        ents = {n: v for n, v in ptxas_entries(kbuild.build_log(lib)).items()
+                if "Li256E" in n}
+        check(ents, f"{lib} has no head-width-256 instances")
+        by_kernel = {}
+        for name, v in ents.items():
+            tmpl = re.search(r"\d+([a-z_]+_kernel)I", name)
+            key = tmpl.group(1) if tmpl else name[:40]
+            by_kernel.setdefault(key, []).append((name, *v))
+        rows = {}
+        for key, vs in sorted(by_kernel.items()):
+            rows[key] = dict(
+                kernels=len(vs), registers=[min(v[1] for v in vs),
+                                            max(v[1] for v in vs)],
+                smem_max=max(v[2] for v in vs),
+                spill_max=max(v[3] for v in vs),
+                spilling=[v[0] for v in vs if v[3]])
+            log(f"ptxas {lib} dh=256 {key}: {len(vs)} kernels, registers "
+                f"{rows[key]['registers'][0]}-{rows[key]['registers'][1]}, "
+                f"smem max {rows[key]['smem_max']} B, spill stores max "
+                f"{rows[key]['spill_max']} B ({len(rows[key]['spilling'])} "
+                f"spilling)")
+            for n in rows[key]["spilling"]:
+                log(f"  spills: {n}")
+        report[lib] = rows
     return report
 
 
@@ -504,29 +562,35 @@ def kernel_cases(torch, kern, flash):
 
 def paged_cases(torch, kern, H, DH, Hkv,
                 pools=("float32", "bfloat16", "float16", "int8"),
-                verify_c=VERIFY_C, chunk_edges=True, split_kv_heads=None):
-    """The paged entries at one width and over ``pools``: decode, the chunk
-    at a scalar and a per-sequence start, the verify windows of
-    ``verify_c``, and (with ``chunk_edges``, where the chunk kernel splits
-    its keys) chunks and windows whose frontiers fall on and beside its
-    split edges. With ``split_kv_heads``, a head shard's calls: the
-    kernels split as a pool of that many KV heads would (no edge cases)."""
+                verify_c=VERIFY_C, chunk_edges=True, split_kv_heads=None,
+                ps=PS):
+    """The paged entries at one width and over ``pools`` ("int8" with bf16
+    queries, "int8/float16" with f16 ones): decode, the chunk at a scalar
+    and a per-sequence start, the verify windows of ``verify_c``, and
+    (with ``chunk_edges``, where the chunk kernel splits its keys) chunks
+    and windows whose frontiers fall on and beside its split edges, over
+    pages of ``ps`` keys. With ``split_kv_heads``, a head shard's calls:
+    the kernels split as a pool of that many KV heads would (no edge
+    cases)."""
     sk = {} if split_kv_heads is None else dict(split_kv_heads=split_kv_heads)
     shard = ("" if split_kv_heads is None
              else f" shard=1/{split_kv_heads // Hkv}")
     import torch.nn.functional as F
     dev = "cuda"
     B = 8
-    n_pp = -(-MAX_LEN // PS)
+    n_pp = -(-MAX_LEN // ps)
     P = B * n_pp + 1
     g = torch.Generator(device=dev).manual_seed(0)
-    wide = ("" if DH == 64 else f" dh={DH}") + shard
+    wide = (("" if DH == 64 else f" dh={DH}") + shard
+            + ("" if ps == PS else f" ps={ps}"))
     grp = H // Hkv
-    pos = torch.arange(n_pp * PS, device=dev)
+    pos = torch.arange(n_pp * ps, device=dev)
     for pool in pools:
-        qdt = torch.bfloat16 if pool == "int8" else getattr(torch, pool)
-        ops_type = pool if pool != "int8" else "bfloat16"
-        kp, vp, sc = _pools(torch, g, (P, PS, Hkv, DH), pool, qdt)
+        kind, _, q_name = pool.partition("/")
+        q_name = q_name or ("bfloat16" if kind == "int8" else kind)
+        qdt = getattr(torch, q_name)
+        ops_type = q_name
+        kp, vp, sc = _pools(torch, g, (P, ps, Hkv, DH), kind, qdt)
         elem = kp.element_size()
         # shuffled pages; entries past each sequence's last page are
         # stale ids of other pages, which must stay masked
@@ -580,10 +644,10 @@ def paged_cases(torch, kern, H, DH, Hkv,
             # generator of their own (the other cases draw as before)
             ge = torch.Generator(device=dev).manual_seed(16)
             Be = 16
-            split = kern.paged_split(Be, Hkv, n_pp * PS, grp, PS,
+            split = kern.paged_split(Be, Hkv, n_pp * ps, grp, ps,
                                      kern._sm_count(
                                          torch.cuda.current_device()))
-            lens_e = torch.tensor(decode_boundaries(Be, n_pp * PS, split),
+            lens_e = torch.tensor(decode_boundaries(Be, n_pp * ps, split),
                                   dtype=torch.int32, device=dev)
             pt_e = torch.randint(1, P, (Be, n_pp), generator=ge, device=dev,
                                  dtype=torch.int32)
@@ -662,15 +726,15 @@ def paged_cases(torch, kern, H, DH, Hkv,
         if not chunk_edges or not hasattr(kern, "chunk_split"):
             continue
         n_sm = kern._sm_count(torch.cuda.current_device())
-        for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * PS, n_sm),
-                     2 * kern.chunk_split(4, Hkv, C, grp, n_pp * PS, n_sm)):
+        for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm),
+                     2 * kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm)):
             # the last row's frontier one key before, on and past the
             # edge, the last two right-padded, and a chunk at 0
             starts = [0] + [min(max(edge - C + d, 0), MAX_LEN - C)
                             for d in (-1, 0, 1)]
             yield chunk(f"start=edge {edge}", starts, [C, C, C - 3, C - 1])
         Cv = VERIFY_C[3]
-        edge = kern.chunk_split(B, Hkv, Cv, grp, n_pp * PS, n_sm)
+        edge = kern.chunk_split(B, Hkv, Cv, grp, n_pp * ps, n_sm)
         sl = torch.tensor([0, edge - Cv, edge - 3, edge - 1, edge, edge + 1,
                            2 * edge - 1, 2 * edge - Cv], dtype=torch.int32,
                           device=dev).clamp(0, MAX_LEN - Cv)
@@ -926,6 +990,47 @@ def check_kernels(torch, kern, flash, cases=None):
             f"sdpa={row['library_ms']:.4f}ms{extra} "
             f"bound={row['bound_ms']:.4f}ms ({row['bound_by']})")
     return rows
+
+
+def head256_cases(torch, kern, flash):
+    """Kernels 1, 2, 3 and 5 at head width 256: the paged entries at
+    paligemma-3b's width (H=8 over Hkv=1, group 8) and gemma3-1b's (H=4,
+    group 4) over pages of 32 keys, f32, bf16 and f16 queries over their
+    own pool and bf16 and f16 over int8, ragged and with lengths on the
+    split (whole-page) edges (``paged_cases``); flash at both widths, B=4,
+    bf16 at S = 512, 300 and 17, f16 at 300 and f32 (the FMA body) at 300
+    (group 8), bf16 and f32 at 300 (group 4), causal and full."""
+    pools = ("float32", "bfloat16", "float16", "int8", "int8/float16")
+    for (H, DH, Hkv), verify_c in ((PALIGEMMA_WIDTH, (1, 5, 8)),
+                                   (GEMMA3_WIDTH, (5,))):
+        yield from paged_cases(torch, kern, H, DH, Hkv, pools=pools,
+                               verify_c=verify_c, ps=PALI_TEXT_PS)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B = 4
+    for (H, DH, Hkv), waves in (
+            (PALIGEMMA_WIDTH, ((512, "bfloat16"), (300, "bfloat16"),
+                               (17, "bfloat16"), (300, "float16"),
+                               (300, "float32"))),
+            (GEMMA3_WIDTH, ((300, "bfloat16"), (300, "float32")))):
+        for S, dt in waves:
+            q, k, v = (torch.randn((B, S, h, DH), generator=g, device="cuda")
+                       .to(getattr(torch, dt)) for h in (H, Hkv, Hkv))
+            for causal in (True, False):
+                yield _flash_case(flash, q, k, v, causal, dt,
+                                  f"group={H // Hkv} {dt} S={S} dh={DH}")
+
+
+# the head-width-256 phase's kernel cases at its main path's shapes: the
+# continuous engine's bf16 pool at 8 slots, scalar-start chunks and the
+# C=5 window of spec_k 4; the static engine's 512-token wave of 4 (flash)
+# and the dense decode at paligemma-3b's width (phase 3's dh-256 case)
+PALI_TEXT_MAIN = {
+    "paged_decode_attention": "group=8 pool=bfloat16 dh=256 ps=32",
+    "chunk_prefill_attention":
+        "group=8 pool=bfloat16 start=scalar dh=256 ps=32",
+    "spec_verify_attention": "group=8 pool=bfloat16 C=5 dh=256 ps=32",
+    "decode_attention": "group=8 pool=bfloat16 L=545 dh=256",
+    "flash_attention": "group=8 bfloat16 S=512 dh=256 causal"}
 
 
 # ------------------------------ phase 4 --------------------------------- #
@@ -1515,18 +1620,21 @@ def n_prefill_chunks(eng) -> int:
                for e in eng.trace.to_chrome()["traceEvents"])
 
 
-def arctic_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
-               label, scheduler, new, **kw):
-    """One full-width bf16 serve of ``reqs`` on arctic-480b, twice: the two
-    runs must emit the same tokens. The continuous engine runs its streams
-    serialized (``overlap=False``): overlapped, a decode block's slots
-    depend on measured wall times, and under capacity routing the tokens
-    a step holds decide which replicas drop. Each run must launch its
-    path's kernels exactly n_layers times a micro-step, prefill chunk,
+def engine_twice(torch, kern, ServeEngine, RuntimeOptions, cfg, params,
+                 reqs, label, scheduler, new, model="arctic", page_size=PS,
+                 cm=None, **kw):
+    """One full-width bf16 serve of ``reqs`` (arctic-480b's, or ``model``'s),
+    twice: the two runs must emit the same tokens. The continuous engine
+    runs its streams serialized (``overlap=False``): overlapped, a decode
+    block's slots depend on measured wall times, and under capacity
+    routing the tokens a step holds decide which replicas drop (and a
+    bf16 product's rounding may follow its batch). Each run must launch
+    its path's kernels exactly n_layers times a micro-step, prefill chunk,
     verify pass or static wave (counts set to 0 just before it), call no
-    plain version, reconcile its trace (continuous), free every page and
-    emit in-vocabulary tokens. Returns (launches of the first run, the
-    runs' rows)."""
+    plain version (nor, given the models' ``cm``, the masked attention),
+    reconcile its trace (continuous), free every page and emit
+    in-vocabulary tokens. Returns (launches of the first run, the runs'
+    rows)."""
     from repro_torch.kernels import flash_attention as flash
     L = cfg.n_layers
     outs, runs = [], []
@@ -1538,10 +1646,12 @@ def arctic_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
         else:
             eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
                               device="cuda", scheduler="continuous",
-                              page_size=PS, max_batch=8, prefill_chunk=C,
-                              decode_lookahead=8, max_len=MAX_LEN,
-                              overlap=False, **kw)
+                              page_size=page_size, max_batch=8,
+                              prefill_chunk=C, decode_lookahead=8,
+                              max_len=MAX_LEN, overlap=False, **kw)
         zero_counts(kern)
+        if cm is not None:
+            cm.attention.calls = 0
         with count_plain(kern, flash) as plain:
             t0 = time.perf_counter()
             out = eng.serve([r[:] for r in reqs], new)
@@ -1568,6 +1678,8 @@ def arctic_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
         check(n == want, f"{label}: launches {n} != {want}")
         check(not plain, f"{label}: plain versions called on the card: "
               f"{plain}")
+        check(cm is None or cm.attention.calls == 0,
+              f"{label}: the masked attention ran on a kernel path")
         check(all(len(o) == new and all(0 <= t < cfg.vocab for t in o)
                   for o in out), f"{label}: malformed outputs")
         outs.append(out)
@@ -1580,7 +1692,7 @@ def arctic_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
             acceptance=s.acceptance_rate, decode_compiles=s.decode_compiles,
             prefill_tokens_saved=s.cached_prefix_tokens, wall_s=wall,
             launches=n))
-        log(f"arctic {label:16s} tokens/s={s.tps:.1f} "
+        log(f"{model} {label:16s} tokens/s={s.tps:.1f} "
             f"ttft p50={s.ttft_p50*1e3:.1f}ms itl p50={s.itl_p50*1e3:.2f}ms "
             f"prefill_s={s.prefill_s:.3f} decode_s={s.decode_s:.3f} "
             f"host_syncs={s.host_syncs} decode_steps={s.decode_steps} "
@@ -1698,7 +1810,7 @@ def serve_arctic(torch, kern, tm, ServeEngine, get_config):
             ("static native", "static", ARCTIC_STATIC_NEW, {}),
             ("static int8", "static", ARCTIC_STATIC_NEW,
              dict(kv_policy="int8"))):
-        launches[label], runs[label] = arctic_run(
+        launches[label], runs[label] = engine_twice(
             torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
             static_reqs if sched == "static" else reqs, label, sched, new,
             **kw)
@@ -3902,6 +4014,124 @@ def sync_audit(torch, tm, ServeEngine, get_config, smi) -> dict:
     return out
 
 
+# -------- phase 22: head width 256, paligemma-3b's decoder text-only -------- #
+
+def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config):
+    """paligemma-3b's Gemma-2B decoder served as a text-only causal LM
+    (``PALI_TEXT``: 18 layers, d_model 2048, 8 heads over 1 KV head at
+    head width 256) at full width and depth in bf16, the port's seeded
+    init: the continuous engine (native, int8, n-gram k=4; pages of 32
+    keys) and the static engine (serve_bucketed, native and int8), each
+    run twice through ``engine_twice`` (the same tokens, exact launches,
+    no plain version, no masked attention). Prints each spec-off run's
+    decode micro-step and tokens/s beside its byte bound over 3.35 TB/s:
+    the weights a step reads (every parameter: the tied head reads the
+    whole embedding table) and the KV its tokens read, averaged over the
+    run's micro-steps. Then ``f32_text_card_vs_cpu``."""
+    cfg = get_config("paligemma-3b").replace(**PALI_TEXT)
+    for path in ("paged", "static"):
+        check(tm.kernel_width_reason(cfg, path) is None,
+              f"{cfg.name} text-only: the {path} path refuses head width "
+              f"{cfg.head_dim}")
+    t_phase = time.perf_counter()
+    params = _init_on_card(torch, tm, cfg, "bfloat16")
+    L = cfg.n_layers
+    w_bytes = _param_bytes(params)
+    kv_pos = 2 * L * cfg.n_kv_heads * cfg.head_dim        # a position, x1 B
+    reqs = requests(cfg.vocab, PALI_TEXT_REQS)
+    static_reqs = qwen_requests(cfg.vocab)
+    runs, launches = {}, {}
+    for label, sched, kw in (
+            ("native", "continuous", {}),
+            ("int8", "continuous", dict(kv_policy="int8")),
+            ("ngram", "continuous", dict(spec_mode="ngram", spec_k=4)),
+            ("static native", "static", {}),
+            ("static int8", "static", dict(kv_policy="int8"))):
+        launches[label], runs[label] = engine_twice(
+            torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
+            static_reqs if sched == "static" else reqs, label, sched,
+            PALI_TEXT_NEW, model="paligemma text", page_size=PALI_TEXT_PS,
+            cm=cm, **kw)
+        if "ngram" in label:
+            continue
+        row = runs[label]["runs"][0]
+        # every decoded token reads its own sequence's KV once: the
+        # prompt and the tokens before it (the first comes from prefill)
+        elem = 1 if "int8" in label else 2
+        kv = elem * kv_pos * sum(len(r) + j for r in
+                                 (static_reqs if sched == "static" else reqs)
+                                 for j in range(1, PALI_TEXT_NEW))
+        steps = max(row["decode_steps"], 1)
+        row.update(step_ms=1e3 * row["decode_s"] / steps,
+                   bound_ms=(w_bytes * steps + kv) / steps
+                   / HBM_BYTES_PER_S * 1e3,
+                   weight_bytes=w_bytes, kv_bytes_per_step=kv / steps)
+        log(f"paligemma text {label}: decode micro-step {row['step_ms']:.2f}"
+            f"ms (host clock, mean of {steps}), tokens/s "
+            f"{row['tokens_per_s']:.1f}, against its byte bound "
+            f"{row['bound_ms']:.3f}ms ({w_bytes / 1e9:.2f} GB weights + "
+            f"{kv / steps / 1e6:.1f} MB KV a step)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 22 (paligemma-3b text-only, head width 256) {phase_s:.1f}s")
+    return dict(runs=runs, n_layers=L, params_bytes=w_bytes,
+                kv_bytes_per_position=kv_pos * 2, f32=f32,
+                phase_s=phase_s), launches
+
+
+def f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg_full):
+    """The text-only decoder at full width cut to ``PALI_TEXT_F32_LAYERS``
+    layers, in f32 (the kernels' FMA bodies at head width 256): the
+    continuous engine and the static engine on the card against the same
+    engines on the CPU (plain versions), the
+    same seeded weights; tokens equal over each request's tie-free prefix
+    (``tie_free_prefix``, on the card's spec-off logits)."""
+    import numpy as np
+    cfg = dataclasses.replace(cfg_full, n_layers=PALI_TEXT_F32_LAYERS)
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                            "float32", "cuda")
+    opts = tm.RuntimeOptions(dtype="float32")
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+            for n in (72, 33, 50, 17)]
+    new = 16
+    cont = dict(scheduler="continuous", page_size=PALI_TEXT_PS, max_batch=8,
+                prefill_chunk=C, max_len=MAX_LEN, overlap=False)
+    runs = (("continuous", cont),
+            ("static", dict(scheduler="static", decode_lookahead=8,
+                            max_len=MAX_LEN)))
+    outs = {}
+    cpu_params = _to(params, "cpu")
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else cpu_params
+        for label, kw in runs:
+            eng = ServeEngine(cfg, p, opts, device=dev, **kw)
+            outs[dev, label] = eng.serve([r[:] for r in reqs], new)
+    result = {}
+    for label, _ in runs:
+        n_tie = 0
+        for prompt, got, want in zip(reqs, outs["cuda", label],
+                                     outs["cpu", label]):
+            if got != want:
+                n = tie_free_prefix(torch, tm, cfg, params, opts, prompt,
+                                    want)
+                check(n < len(want) and got[:n] == want[:n],
+                      f"f32 {cfg.name} text {label}: card tokens diverged "
+                      f"from the CPU's before any near-tie: {got} vs {want}")
+                n_tie += 1
+        result[label] = dict(near_tie_requests=n_tie)
+        log(f"f32 paligemma text ({cfg.n_layers} layers, full width) "
+            f"{label}: card == CPU on {len(reqs)} x {new} tokens "
+            f"({n_tie} requests differ after a top-2 gap < 1e-4)")
+    del params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # -------------------------------- main ---------------------------------- #
 
 def main() -> None:
@@ -3925,6 +4155,10 @@ def main() -> None:
     ap.add_argument("--sync-audit-only", action="store_true",
                     help="only build the kernels and run phase 21 (the "
                     "sync audit); prints no result line")
+    ap.add_argument("--head256-only", action="store_true",
+                    help="only build the kernels, report their head-width-"
+                    "256 instances, check and time the head-width-256 "
+                    "kernel cases and run phase 22; prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -3941,6 +4175,14 @@ def main() -> None:
         sys.exit(1)
     sys.path.insert(0, str(src))
     t_start = time.perf_counter()
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        """Log and keep the seconds of the phases that just ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"phases {name}: {phase_s[name]:.1f}s (at {now - t_start:.1f}s)")
 
     # ---- phase 1 ----
     smi = subprocess.run(
@@ -3997,7 +4239,22 @@ def main() -> None:
           f"the paged decode library {paged_lib} is not built from the "
           f"redesigned source and its headers {sorted(paged_hdrs)}")
     paged_regs = paged_ptxas(kbuild)
+    regs256 = head256_ptxas(kbuild)
 
+    if args.head256_only:
+        from repro_torch.models import common as cm
+        rows = check_kernels(torch, kern, flash,
+                             head256_cases(torch, kern, flash))
+        pali_text, _ = serve_paligemma_text(torch, kern, tm, cm,
+                                            ServeEngine, get_config)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(
+                smi=smi, build_s=built, head256_ptxas=regs256,
+                kernel_cases=rows, paligemma_text=pali_text), indent=1,
+                default=str))
+        return
     if args.kernels_only:
         kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
                      hmma, chunk_hmma, paged_regs, t_start)
@@ -4036,7 +4293,7 @@ def main() -> None:
             Path(args.out).write_text(json.dumps(dict(smi=smi, train=train),
                                                  indent=1, default=str))
         return
-    dense_regs = dense_ptxas(kbuild)
+    mark("1-2")
 
     # ---- phase 3 ----
     n_sm = kern._sm_count(torch.cuda.current_device())
@@ -4046,6 +4303,10 @@ def main() -> None:
         f"pass-1 blocks on {n_sm} SMs")
     check(blocks >= n_sm, f"dense decode fills {blocks} < {n_sm} blocks")
     rows = check_kernels(torch, kern, flash)
+    mark("3")
+    rows += check_kernels(torch, kern, flash,
+                          head256_cases(torch, kern, flash))
+    mark("3 dh=256")
 
     # ---- phase 4 ----
     cfg = get_config("llama3.2-1b")
@@ -4059,6 +4320,7 @@ def main() -> None:
     verify_block = profile_verify_block(torch, tm, cfg, params)
     del params
     torch.cuda.empty_cache()
+    mark("4")
 
     # ---- phase 5: the static engine ----
     qwen = get_config("qwen2.5-3b")
@@ -4070,14 +4332,17 @@ def main() -> None:
                                                     ("int8", "int8"))}
     del params
     torch.cuda.empty_cache()
+    mark("5")
 
     # ---- phase 6 ----
     f32_err = f32_checks(torch, tm, ServeEngine, cfg)
     f32_static = f32_static_checks(torch, tm, ServeEngine, qwen)
+    mark("6")
 
     # ---- phase 7: arctic-480b (MoE, group 7) on both engines ----
     arctic, arctic_launches = serve_arctic(torch, kern, tm, ServeEngine,
                                            get_config)
+    mark("7")
 
     # ---- phases 8-11: the VLMs and the masked attention ----
     from repro_torch.models import common as cm
@@ -4085,6 +4350,7 @@ def main() -> None:
     paligemma = serve_paligemma(torch, kern, tm, cm, ServeEngine, get_config)
     gemma3 = serve_gemma3(torch, kern, tm, cm, ServeEngine, get_config)
     f32_masked = f32_masked_checks(torch, tm, ServeEngine, get_config)
+    mark("8-11")
 
     # ---- phases 12-16: MLA, Mamba-2, Zamba2, Whisper ----
     deepseek = serve_deepseek(torch, kern, tm, cm, ServeEngine, get_config)
@@ -4092,13 +4358,16 @@ def main() -> None:
     zamba = serve_zamba(torch, kern, tm, cm, ServeEngine, get_config)
     whisper = serve_whisper(torch, kern, tm, cm, ServeEngine, get_config)
     f32_families = f32_family_checks(torch, tm, ServeEngine, get_config)
+    mark("12-16")
 
     # ---- phase 17: head-sharded continuous serving ----
     sharded, shard_rows, shard_launches = serve_sharded(
         torch, kern, tm, ServeEngine, get_config)
+    mark("17")
 
     # ---- phase 18: training ----
     train = train_phase(torch, kern, tm, cm, get_config)
+    mark("18")
 
     # ---- phase 19: the analytic model against the card ----
     analytic = analytic_phase(
@@ -4107,12 +4376,21 @@ def main() -> None:
                      llava, paligemma, gemma3, deepseek, mamba, zamba,
                      whisper),
         breakdown["device_busy_ms"] / 8)
+    mark("19")
 
     # ---- phase 20: the dry run's sharded paths on the card ----
     shard_paths = shard_paths_phase(torch, kern, tm, get_config, smi)
+    mark("20")
 
     # ---- phase 21: the sync audit ----
     audit = sync_audit(torch, tm, ServeEngine, get_config, smi)
+    mark("21")
+
+    # ---- phase 22: head width 256, paligemma-3b's decoder text-only ----
+    pali_text, pali_text_launches = serve_paligemma_text(
+        torch, kern, tm, cm, ServeEngine, get_config)
+
+    mark("22")
 
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
@@ -4196,6 +4474,18 @@ def main() -> None:
                       f"group=1 bfloat16 S={S} dh=64 B={B} causal"}
     entries += [(name, case, sweep[name], "llama3.2-1b concurrency sweep")
                 for name, case in sweep_case.items()]
+    # the head-width-256 paths (phase 22): each kernel at its main-path
+    # case, with the launches of the spec-off continuous run (paged decode,
+    # chunk), the n-gram run (verify) and the static native run (flash,
+    # dense decode)
+    pali_run = {"paged_decode_attention": "native",
+                "chunk_prefill_attention": "native",
+                "spec_verify_attention": "ngram",
+                "decode_attention": "static native",
+                "flash_attention": "static native"}
+    entries += [(name, PALI_TEXT_MAIN[name],
+                 pali_text_launches[run][name], "paligemma-3b text-only")
+                for name, run in pali_run.items()]
     rows = rows + shard_rows
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
@@ -4221,8 +4511,10 @@ def main() -> None:
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
             f32_families=f32_families, sharded=sharded, train=train,
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
-            build_s=built, flash_hmma=hmma, chunk_hmma=chunk_hmma,
-            paged_ptxas=paged_regs, dense_ptxas=dense_regs,
+            paligemma_text=pali_text, phase_s=phase_s, build_s=built,
+            flash_hmma=hmma,
+            chunk_hmma=chunk_hmma, paged_ptxas=paged_regs,
+            head256_ptxas=regs256,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,7 +8,7 @@ of its source, of the headers it includes (followed transitively through
 ``#include "..."``) and of the compiler flags, so an edited source or
 header rebuilds exactly the libraries that use it. ``build_kernels``
 compiles every missing library at once, one ``nvcc`` per source, all in
-parallel.
+parallel, each spreading its kernels over threads (``--split-compile``).
 """
 from __future__ import annotations
 
@@ -27,8 +27,11 @@ _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {name: f"{name}.cu" for name in (
     "paged_decode_attention", "chunk_prefill_attention", "decode_attention",
     "flash_attention")}
+# --split-compile: each nvcc optimizes and assembles its kernels on up to 8
+# threads (the paged decode's 108 instances are the longest build)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "--split-compile=8", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 

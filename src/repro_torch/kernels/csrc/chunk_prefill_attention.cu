@@ -31,6 +31,9 @@
 //     rounded to the query dtype for the PV product, V through
 //     ldmatrix.trans; K/V tiles in a ring of three cp.async stages with
 //     rows padded by 16 bytes, Q passing through a stage before the walk;
+//     at dh 256 Q keeps a shared-memory region of its own, read with
+//     ldmatrix each step, beside a ring of two stages (Cfg: 64 Q registers
+//     beside O's 128 f32 would crowd the 255 a thread);
 //   * key rows through the page table: a block first turns its key range
 //     into pool rows (pid * ps + kpos % ps, one page-table read a key) in
 //     shared memory; every 16-byte copy then addresses its row of the
@@ -59,7 +62,8 @@
 //     only on steps that cross one of its rows' frontiers, and skips steps
 //     past all of them.
 // f32 queries, and pools of another float type, keep the shared FMA
-// row-tile body (attend_rows, one pass). Next: wgmma with TMA, which needs
+// row-tile body (attend_rows, one pass; 8 rows a block at dh 256). Head
+// widths 64, 128 and 256 (dispatch.cuh). Next: wgmma with TMA, which needs
 // 64-row warpgroup tiles and a gather of paged rows per TMA box.
 #include <type_traits>
 
@@ -94,9 +98,10 @@ chunk_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                      T* __restrict__ out, int C, int H, int Hkv, int ps, int n_pp,
                      int n_pages, float scale) {
   const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int ROWS = FmaRows<DH>::value;
   const int rows = C * (H / Hkv);
-  const int r0 = blockIdx.z * MAX_ROWS;
-  const int nrows = min(MAX_ROWS, rows - r0);
+  const int r0 = blockIdx.z * ROWS;
+  const int nrows = min(ROWS, rows - r0);
   attend_rows<T, KV, DH>(q, kp, vp, PagedRows{pt + static_cast<size_t>(b) * n_pp, n_pp,
                                               n_pages, ps},
                          ksc, vsc, out, b, h, r0, nrows, C, H, Hkv, win.start_of(b),
@@ -109,7 +114,6 @@ namespace chunk_tc {
 
 constexpr int NWARP = 4;
 constexpr int NTHR = NWARP * 32;
-constexpr int STAGES = 3;        // ring of K/V stages: two in flight while one is used
 constexpr int MAX_SPLIT = 4096;  // keys a split at most (their pool rows sit in shared memory)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -117,9 +121,15 @@ constexpr float LN2 = 0.6931471805599453f;
 // shared memory of a split's pool rows (4 bytes a key), 16-byte aligned
 __host__ __device__ constexpr int row_bytes(int split) { return (split * 4 + 15) / 16 * 16; }
 
-// WR warps along the rows (16 rows each), NWARP / WR along the keys.
+// WR warps along the rows (16 rows each), NWARP / WR along the keys. Up to
+// dh 128 Q stays in registers and passes through a stage (or the converted
+// tile) of a ring of three; at 256 its 64 registers beside O's 128 f32
+// would crowd 255, so Q keeps a region of its own, each key step reads its
+// fragments with ldmatrix, and the ring holds two stages.
 template <typename T, typename KV, int DH, int WR>
 struct Cfg {
+  static constexpr bool Q_SMEM = DH >= 256;         // Q's fragments from shared memory
+  static constexpr int STAGES = Q_SMEM ? 2 : 3;     // ring of K/V stages in flight
   static constexpr int WK = NWARP / WR;             // warps along the keys
   static constexpr int BM = 16 * WR;                // rows a block
   static constexpr int KW = WK == 1 ? 32 : 16;      // keys a warp takes a step
@@ -132,10 +142,13 @@ struct Cfg {
   static constexpr int RAW_TILE = SK * RAW_LD * static_cast<int>(sizeof(KV));  // bytes
   static constexpr int RING = STAGES * 2 * RAW_TILE;
   static constexpr int CVT = QUANT ? 2 * SK * LD * 2 : 0;   // int8 K and V as T
+  static constexpr int QS = Q_SMEM ? BM * LD * 2 : 0;       // Q's own region
   static constexpr int MERGE = WK > 1 ? WK * 16 * (DH + 2) * 4 : 0;
-  static constexpr int BODY = RING + CVT > MERGE ? RING + CVT : MERGE;
+  static constexpr int BODY = RING + CVT + QS > MERGE ? RING + CVT + QS : MERGE;
   static constexpr int SMEM_MAX = MAX_SPLIT * 4 + BODY;
-  static_assert(BM <= 2 * SK, "Q is staged in one stage's (or the converted tile's) place");
+  static_assert(Q_SMEM || BM <= 2 * SK,
+                "Q is staged in one stage's (or the converted tile's) place");
+  static_assert(SMEM_MAX <= 232448, "within a block's opt-in shared memory");
 };
 
 // Block (split, kv head h, row tile, sequence b): rows [r0, r0 + nrows)
@@ -153,7 +166,7 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
                  int n_pages, int split, float scale_log2) {
   static_assert(sizeof(T) == 2, "tensor-core tiles take bf16 or f16");
   using G = Cfg<T, KV, DH, WR>;
-  constexpr int BM = G::BM, KW = G::KW, SK = G::SK, LD = G::LD;
+  constexpr int BM = G::BM, KW = G::KW, SK = G::SK, LD = G::LD, STAGES = G::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* s_row = reinterpret_cast<int*>(smem_raw);   // pool row of each key of the split
   unsigned char* ring = smem_raw + row_bytes(split);
@@ -207,8 +220,12 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
     if (pid < 0 || pid >= n_pages) pid = 0;   // never leave the pool
     s_row[j] = pid * ps + kpos % ps;
   }
-  // Q rows of the tile (zero past the last row) join the first stage's group
-  T* sq = G::QUANT ? cvt : reinterpret_cast<T*>(ring + (STAGES - 1) * 2 * G::RAW_TILE);
+  // Q rows of the tile (zero past the last row) join the first stage's
+  // group: past the ring and the converted tile (Q_SMEM), else in the
+  // converted tile (int8) or the last stage until the walk takes it
+  T* sq = G::Q_SMEM ? reinterpret_cast<T*>(ring + G::RING + G::CVT)
+          : G::QUANT ? cvt
+                     : reinterpret_cast<T*>(ring + (STAGES - 1) * 2 * G::RAW_TILE);
   for (int i = tid; i < BM * G::CPR; i += NTHR) {
     const int r = i / G::CPR, c = (i % G::CPR) * 8;
     const bool ok = r < nrows;
@@ -265,12 +282,16 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
     if (t < n_steps) load_stage(t);
     cp_async_commit();
   }
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();
-  unsigned qf[DH / 16][4];   // Q stays in registers for the whole walk
+  const T* sq_frag = sq + (wr0 + (lane & 15)) * LD + ((lane >> 4) << 3);
+  // Q's fragments: in registers for the whole walk, or (Q_SMEM) loaded
+  // from shared memory at each key step, after that step's barrier
+  unsigned qf[DH / 16][4];
+  if constexpr (!G::Q_SMEM) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldsm_x4(qf[kk], sq + (wr0 + (lane & 15)) * LD + kk * 16 + ((lane >> 4) << 3));
+    for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], sq_frag + kk * 16);
+  }
 
   float o[DH / 8][4];
 #pragma unroll
@@ -317,6 +338,7 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      if constexpr (G::Q_SMEM) ldsm_x4(qf[kk], sq_frag + kk * 16);
 #pragma unroll
       for (int nn = 0; nn < KW / 16; ++nn) {
         unsigned bk[4];  // two 8-key tiles: keys nn*16 + (0..7 | 8..15)
@@ -527,7 +549,8 @@ struct ChunkLaunch {
                                                      B, C, H, Hkv, ps, n_pp, n_pages, split,
                                                      n_split, scale, stream);
     } else {
-      dim3 grid(Hkv, B, (rows + MAX_ROWS - 1) / MAX_ROWS);
+      constexpr int ROWS = FmaRows<DH>::value;
+      dim3 grid(Hkv, B, (rows + ROWS - 1) / ROWS);
       chunk_prefill_kernel<T, KV, DH><<<grid, NT, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
           static_cast<const int*>(pt), win, static_cast<const float*>(ksc),

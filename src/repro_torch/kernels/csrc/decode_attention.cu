@@ -26,11 +26,10 @@
 // rows against a split is a few FLOP a byte. Any L is taken, as in the
 // earlier design.
 //
-// Head widths 64, 128 and 256 (paligemma-3b's, gemma3-1b's). The 256
-// instances have a dispatch of their own, so the kernels that share
-// dispatch.cuh are not built at 256; at 256 a pass-1 block stages 16-key
-// tiles and takes 8 query rows at a time (split_decode.cuh, SplitRows),
-// and the combine runs 256 threads a block.
+// Head widths 64, 128 and 256 (paligemma-3b's, gemma3-1b's); at 256 a
+// pass-1 block stages 16-key tiles and takes 8 query rows at a time
+// (paged_attention.cuh, FmaRows), and the combine runs 256 threads a
+// block.
 #include "dispatch.cuh"
 #include "split_decode.cuh"
 
@@ -84,13 +83,7 @@ extern "C" int decode_attention(const void* q, const void* k_cache, const void* 
                                 const void* v_scale, void* part, void* out, int B, int H,
                                 int Hkv, int dh, int L, int split, int n_split, int q_dtype,
                                 int kv_dtype, float scale, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (dh == 256)
-    return repro_paged::launch_status(
-        repro_paged::by_query<repro_paged::DenseDecodeLaunch, 256>(
-            q_dtype, kv_dtype, q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out, B,
-            H, Hkv, L, split, n_split, scale, st));
   return repro_paged::dispatch<repro_paged::DenseDecodeLaunch>(
       dh, q_dtype, kv_dtype, q, k_cache, v_cache, kv_valid, k_scale, v_scale, part, out, B, H,
-      Hkv, L, split, n_split, scale, st);
+      Hkv, L, split, n_split, scale, static_cast<cudaStream_t>(stream));
 }

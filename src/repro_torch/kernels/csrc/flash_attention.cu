@@ -22,14 +22,16 @@
 //     positions x 8 heads); the grid is (Hkv, B, row tiles), the tile
 //     index reversed so that the heaviest causal tiles start first;
 //   * S = Q K^T and O += P V with mma.sync.m16n8k16 (bf16/f16 in, f32
-//     accumulate); Q stays in registers for the whole walk; P goes from
+//     accumulate); Q stays in registers for the whole walk up to dh 128
+//     (at 256 it is read from shared memory each key step: Cfg); P goes from
 //     the score accumulators to the PV product in registers, rounded to
 //     the input dtype (the Pallas kernel and the plain version keep it in
 //     f32); V is read through ldmatrix.trans;
 //   * K and V tiles of BN = 32 keys go into a ring of three shared-memory
 //     stages with cp.async (16 bytes a thread), so the next two tiles'
 //     loads overlap this tile's products (52 KB at dh=128); Q passes
-//     through the last stage before the walk starts; rows are padded by
+//     through the last stage before the walk starts (at dh 256: two stages
+//     and a Q region of its own, 99 KB); rows are padded by
 //     16 bytes, which makes every ldmatrix free of bank conflicts; keys at
 //     or past S are zero-filled, never loaded. 32-key tiles waste less of
 //     the diagonal tile than 64-key ones, where a 64-row tile at group 8
@@ -41,7 +43,8 @@
 //     and only tiles that cross the diagonal (or the end of the keys) mask
 //     per element. Any S == L is taken: the last row tile is short.
 // f32 has no tensor-core product without TF32, so it keeps the shared
-// FMA row-tile body (attend_rows). Next (ROADMAP A14): 32 rows a warp,
+// FMA row-tile body (attend_rows; 8 rows a block at dh 256). Head widths
+// 64, 128 and 256 (dispatch.cuh). Next (ROADMAP A14): 32 rows a warp,
 // then wgmma with TMA.
 #include <type_traits>
 
@@ -57,9 +60,10 @@ __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
              T* __restrict__ out, int S, int H, int Hkv, int causal, float scale) {
   const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int ROWS = FmaRows<DH>::value;
   const int rows = S * (H / Hkv);
-  const int r0 = blockIdx.z * MAX_ROWS;
-  const int nrows = min(MAX_ROWS, rows - r0);
+  const int r0 = blockIdx.z * ROWS;
+  const int nrows = min(ROWS, rows - r0);
   // causal: the prompt is a chunk at start 0 (row c sees keys < c + 1);
   // full: start S puts every row's causal frontier past the keys, so
   // n_valid = S binds for all
@@ -76,16 +80,22 @@ constexpr int BM = 64;         // query rows a block
 constexpr int BN = 32;         // keys a staged tile
 constexpr int NWARP = BM / 16; // 16 rows a warp
 constexpr int NTHR = NWARP * 32;
-constexpr int STAGES = 3;      // ring of K/V tiles: two in flight while one is used
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Up to dh 128 Q stays in registers and passes through the last stage of
+// a ring of three; at 256 its 64 registers beside O's 128 f32 would crowd
+// 255, so Q keeps a region of its own and each key step reads its
+// fragments with ldmatrix, beside a ring of two (99 KB: two blocks an SM).
 template <int DH>
 struct Cfg {
+  static constexpr bool Q_SMEM = DH >= 256;   // Q's fragments from shared memory
+  static constexpr int STAGES = Q_SMEM ? 2 : 3;  // ring of K/V tiles in flight
   static constexpr int LD = DH + 8;        // padded row, elements (+16 bytes)
   static constexpr int CPR = DH / 8;       // 16-byte chunks a row
   static constexpr int TILE = BN * LD;     // one K or V tile, elements
-  static constexpr int SMEM_BYTES = STAGES * 2 * TILE * 2;
-  static_assert(BM <= 2 * BN, "Q is staged in one stage's place");
+  static constexpr int SMEM_BYTES = (STAGES * 2 * TILE + (Q_SMEM ? BM * LD : 0)) * 2;
+  static_assert(Q_SMEM || BM <= 2 * BN, "Q is staged in one stage's place");
+  static_assert(SMEM_BYTES <= 232448, "within a block's opt-in shared memory");
 };
 
 template <typename T, int DH>
@@ -94,11 +104,12 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  T* __restrict__ out, int S, int H, int Hkv, int causal, float scale_log2) {
   static_assert(sizeof(T) == 2, "tensor-core tiles take bf16 or f16");
   using C = Cfg<DH>;
-  constexpr int LD = C::LD;
+  constexpr int LD = C::LD, STAGES = C::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* skv = reinterpret_cast<T*>(smem_raw);  // stage s: K at 2s * TILE, V after it
-  T* sq = skv + 2 * (STAGES - 1) * C::TILE; // Q, in the last stage until its
-                                            // first tile is loaded
+  // Q: past the ring (Q_SMEM), else in the last stage until its first tile
+  // is loaded
+  T* sq = skv + 2 * (C::Q_SMEM ? STAGES : STAGES - 1) * C::TILE;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int group = H / Hkv;
@@ -140,13 +151,17 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (t < n_tiles) load_tile(t);
     cp_async_commit();
   }
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();
   const int wr0 = warp * 16;
-  unsigned qf[DH / 16][4];  // Q stays in registers for the whole walk
+  const T* sq_frag = sq + (wr0 + (lane & 15)) * LD + ((lane >> 4) << 3);
+  // Q's fragments: in registers for the whole walk, or (Q_SMEM) loaded
+  // from shared memory at each key step, after that step's barrier
+  unsigned qf[DH / 16][4];
+  if constexpr (!C::Q_SMEM) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldsm_x4(qf[kk], sq + (wr0 + (lane & 15)) * LD + kk * 16 + ((lane >> 4) << 3));
+    for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], sq_frag + kk * 16);
+  }
 
   float o[DH / 8][4];
 #pragma unroll
@@ -177,6 +192,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      if constexpr (C::Q_SMEM) ldsm_x4(qf[kk], sq_frag + kk * 16);
 #pragma unroll
       for (int nn = 0; nn < BN / 16; ++nn) {
         unsigned bk[4];  // two 8-key tiles: keys nn*16 + (0..7 | 8..15)
@@ -278,7 +294,8 @@ struct FlashLaunch {
                   int Hkv, int causal, float scale, cudaStream_t stream) {
     const int rows = S * (H / Hkv);
     if constexpr (std::is_same<T, float>::value) {
-      dim3 grid(Hkv, B, (rows + MAX_ROWS - 1) / MAX_ROWS);
+      constexpr int ROWS = FmaRows<DH>::value;
+      dim3 grid(Hkv, B, (rows + ROWS - 1) / ROWS);
       flash_kernel<T, KV, DH><<<grid, NT, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
           static_cast<T*>(out), S, H, Hkv, causal, scale);

@@ -19,7 +19,8 @@
 // Design (every KV byte is read once per row tile and reused across the
 // tile's rows from shared memory; measured latency bound on the H100, by
 // the serial tile walk, not by bandwidth):
-//   * one thread block of NT threads per (sequence, kv head, row tile);
+//   * one thread block of NT threads per (sequence, kv head, row tile) of
+//     FmaRows<DH> rows (16, 8 at head width 256);
 //   * the keys are walked in tiles of TK = 4096 / DH positions, which may
 //     span several pages: with PagedRows each staged vector reads its own
 //     page id from the page table (there is no scalar prefetch) and the id
@@ -92,9 +93,18 @@ struct Tile {
   static constexpr int KSTRIDE = DH + 1; // padded K row: conflict-free dots
 };
 
-// ROWS query rows against a K and a V tile. Static shared memory stops at
-// 48 KB: at DH = 256 that holds 8 rows (41.6 KB), not 16 (50.4 KB).
-template <int DH, int ROWS = MAX_ROWS>
+// Query rows an FMA block takes at a time: MAX_ROWS, and 8 at head width
+// 256, where 16 f32 rows beside a K and a V tile (Smem, 50.4 KB) would
+// pass the 48 KB of static shared memory; 8 take 41.6 KB. The accumulator
+// stays at 16 f32 a thread. The grids that launch attend_rows divide
+// their rows by it.
+template <int DH>
+struct FmaRows {
+  static constexpr int value = DH >= 256 ? 8 : MAX_ROWS;
+};
+
+// ROWS query rows against a K and a V tile.
+template <int DH, int ROWS>
 struct Smem {
   float k[Tile<DH>::TK * Tile<DH>::KSTRIDE];
   float v[Tile<DH>::TK * DH];
@@ -104,6 +114,9 @@ struct Smem {
   float l[ROWS];
   float corr[ROWS];
 };
+static_assert(sizeof(Smem<256, FmaRows<256>::value>) <= 48 * 1024 &&
+                  sizeof(Smem<128, FmaRows<128>::value>) <= 48 * 1024,
+              "an FMA block's tiles fit the 48 KB of static shared memory");
 
 // Stage key positions [base, base + TK) of kv head h into shared memory as
 // f32 (scaled when int8). Positions >= limit, or that rows_at places
@@ -147,7 +160,8 @@ __device__ __forceinline__ void stage_kv(Smem<DH, ROWS>& sm, const KV* __restric
   }
 }
 
-// Attend rows [r0, r0 + nrows) of sequence b's query block for kv head h.
+// Attend rows [r0, r0 + nrows) (nrows <= FmaRows<DH>) of sequence b's
+// query block for kv head h.
 // Row r (in (position, head-in-group) order) is position c = r / group of
 // the chunk and query head h * group + r % group; it may attend key
 // positions < min(start + c + 1, n_valid). q/out: (B, C, H, DH); rows_at
@@ -160,8 +174,9 @@ __device__ void attend_rows(const T* __restrict__ q, const KV* __restrict__ kp,
                             int H, int Hkv, int start, int n_valid, float scale) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int KS = Tile<DH>::KSTRIDE;
-  constexpr int APT = MAX_ROWS * DH / NT;   // accumulator elements per thread
-  __shared__ Smem<DH> sm;
+  constexpr int ROWS = FmaRows<DH>::value;
+  constexpr int APT = ROWS * DH / NT;       // accumulator elements per thread
+  __shared__ Smem<DH, ROWS> sm;
   const int group = H / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -176,7 +191,7 @@ __device__ void attend_rows(const T* __restrict__ q, const KV* __restrict__ kp,
     const int c = gr / group, hq = h * group + gr % group;
     sm.q[i] = to_f32(q[((static_cast<size_t>(b) * C + c) * H + hq) * DH + d]);
   }
-  if (tid < MAX_ROWS) {
+  if (tid < ROWS) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }

@@ -47,7 +47,10 @@
 //     multiplies the accumulator, outside the products (the plain version
 //     scales in f32 before its dots: the last f32 places may differ).
 // Query rows past what the registers hold (R: 4 rows, 2 over int8) are
-// further row tiles of the grid.
+// further row tiles of the grid. Head widths 64, 128 and 256 (dispatch.cuh):
+// at 256 a bf16/f16 key row spans all 32 lanes (a dot is a five-level
+// shuffle), an int8 row 16, and an f32 row (1 KB) 32 lanes of two loads
+// each, with half the keys a step (Geo); the combine runs 256 threads.
 #include "dispatch.cuh"
 #include "split_decode.cuh"
 
@@ -60,25 +63,34 @@ constexpr int MAX_SPLIT = 4096;   // keys a split at most (their pool rows sit i
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// How a key row of dh elements of KV lies across a warp's lanes.
+// How a key row of dh elements of KV lies across a warp's lanes. A row of
+// up to 512 bytes spans DH / VEC lanes, one 16-byte load each; a wider one
+// (f32 at dh 256: 1 KB) spans all 32, NV loads each, and a lane then takes
+// fewer keys a step, so that its loads in flight stay at 4 a buffer.
 template <typename KV, int DH>
 struct Geo {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(KV));  // elements a load
-  static constexpr int LPK = DH / VEC;        // lanes a key row
+  static constexpr int NV = DH / VEC > 32 ? DH / VEC / 32 : 1;   // loads a lane's slice
+  static constexpr int EPL = NV * VEC;        // elements of a key row a lane holds
+  static constexpr int LPK = DH / EPL;        // lanes a key row
   static constexpr int KPL = 32 / LPK;        // keys a warp-wide load
-  static constexpr int U = KPL >= 8 ? 2 : 4;  // loads of K (and of V) a lane takes a step
+  static constexpr int U = KPL >= 8 ? 2 : 4 / NV;  // keys of K (and of V) a lane takes a step
   static constexpr int KW = U * KPL;          // keys a warp takes a step
   static constexpr int KB = KW * NWARP;       // keys a block takes a step
-  static constexpr int RMAX = VEC > 8 ? 2 : 4;  // query rows a block at most
+  static constexpr int RMAX = EPL > 8 ? 2 : 4;  // query rows a block at most
   static_assert(LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "a key row spans 1 to 32 lanes");
+  static_assert(LPK * EPL == DH && U >= 1, "a lane's slice tiles the row");
 };
 
-// 16 bytes of KV -> f32
-template <typename KV, int N>
-__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[N]) {
-  const KV* e = reinterpret_cast<const KV*>(&raw);
+// NV x 16 bytes of KV -> f32
+template <typename KV, int NV, int N>
+__device__ __forceinline__ void unpack(const uint4 (&raw)[NV], float (&f)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) f[i] = to_f32(e[i]);
+  for (int v = 0; v < NV; ++v) {
+    const KV* e = reinterpret_cast<const KV*>(&raw[v]);
+#pragma unroll
+    for (int i = 0; i < N / NV; ++i) f[v * (N / NV) + i] = to_f32(e[i]);
+  }
 }
 
 // Block (split, kv head h, sequence b and row tile): query rows [r0, r0 +
@@ -96,7 +108,8 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                    float* __restrict__ part_l, int H, int Hkv, int ps, int n_pp, int n_pages,
                    int split, float scale_log2) {
   using G = Geo<KV, DH>;
-  constexpr int VEC = G::VEC, LPK = G::LPK, KPL = G::KPL, U = G::U;
+  constexpr int VEC = G::VEC, NV = G::NV, EPL = G::EPL, LPK = G::LPK, KPL = G::KPL,
+                U = G::U;
   extern __shared__ int s_row[];            // pool row of each key of the split
   __shared__ float s_acc[NWARP][R][DH];     // the warps' partials, merged at the end
   __shared__ float s_m[NWARP][R];
@@ -143,17 +156,17 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     return;
   }
 
-  // this lane's dims [c, c + VEC) of key group g's rows; its query slice,
+  // this lane's dims [c, c + EPL) of key group g's rows; its query slice,
   // pre-scaled by scale * k scale * log2(e) (zero past the tile's rows)
-  const int c = (lane % LPK) * VEC;
+  const int c = (lane % LPK) * EPL;
   const int g = lane / LPK;
   const float sl = scale_log2 * (ksc_p ? ksc_p[h] : 1.f);
   const float vsc = vsc_p ? vsc_p[h] : 1.f;
-  float qs[R][VEC];
+  float qs[R][EPL];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
+    for (int e = 0; e < EPL; ++e)
       qs[r][e] = r < nrows ? to_f32(q[out_row(r) * DH + c + e]) * sl : 0.f;
   __syncthreads();   // s_row visible
 
@@ -162,43 +175,47 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const KV* vbase = vp + static_cast<size_t>(h) * DH + c;
   // key of load j at step t: lo + t * KB + warp * KW + j * KPL + g
   const int wfirst = lo + warp * G::KW;
-  auto load = [&](uint4 (&kr)[U], uint4 (&vr)[U], int t) {
+  auto load = [&](uint4 (&kr)[U][NV], uint4 (&vr)[U][NV], int t) {
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       const int kpos = wfirst + t * G::KB + j * KPL + g;
-      if (kpos < hi) {
-        const size_t off = static_cast<size_t>(s_row[kpos - lo]) * kv_stride;
-        kr[j] = __ldg(reinterpret_cast<const uint4*>(kbase + off));
-        vr[j] = __ldg(reinterpret_cast<const uint4*>(vbase + off));
-      } else {
-        kr[j] = make_uint4(0u, 0u, 0u, 0u);
-        vr[j] = make_uint4(0u, 0u, 0u, 0u);
+      const size_t off =
+          kpos < hi ? static_cast<size_t>(s_row[kpos - lo]) * kv_stride : 0;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (kpos < hi) {
+          kr[j][v] = __ldg(reinterpret_cast<const uint4*>(kbase + off + v * VEC));
+          vr[j][v] = __ldg(reinterpret_cast<const uint4*>(vbase + off + v * VEC));
+        } else {
+          kr[j][v] = make_uint4(0u, 0u, 0u, 0u);
+          vr[j][v] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
   };
 
-  float m[R], l[R], acc[R][VEC];   // l: this lane's keys only until the end
+  float m[R], l[R], acc[R][EPL];   // l: this lane's keys only until the end
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
-  auto compute = [&](const uint4 (&kr)[U], const uint4 (&vr)[U], int t) {
+  auto compute = [&](const uint4 (&kr)[U][NV], const uint4 (&vr)[U][NV], int t) {
     const int k0 = wfirst + t * G::KB;
     if (k0 >= hi) return;   // no key of this warp's step is live (warp-uniform)
     float s[U][R];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      float kf[VEC];
+      float kf[EPL];
       unpack<KV>(kr[j], kf);
       const bool live = k0 + j * KPL + g < hi;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) d = fmaf(qs[r][e], kf[e], d);
+        for (int e = 0; e < EPL; ++e) d = fmaf(qs[r][e], kf[e], d);
 #pragma unroll
         for (int o = LPK / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
         s[j][r] = live ? d : NEG_INF;
@@ -215,11 +232,11 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       m[r] = mx;
       l[r] *= corr;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[r][e] *= corr;
+      for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
     }
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      float vf[VEC];
+      float vf[EPL];
       unpack<KV>(vr[j], vf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -227,7 +244,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
         const float p = x <= NEG_INF / 2 ? 0.f : exp2f(x - m[r]);
         l[r] += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
       }
     }
   };
@@ -235,7 +252,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   // two register buffers: step t + 1's loads are in flight while step t
   // is computed
   const int n_steps = (hi - lo + G::KB - 1) / G::KB;
-  uint4 ka[U], va[U], kb[U], vb[U];
+  uint4 ka[U][NV], va[U][NV], kb[U][NV], vb[U][NV];
   load(ka, va, 0);
   for (int t = 0; t < n_steps; t += 2) {
     if (t + 1 < n_steps) load(kb, vb, t + 1);
@@ -252,13 +269,13 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     for (int o = LPK; o < 32; o <<= 1) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+      for (int e = 0; e < EPL; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
     }
   if (g == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) s_acc[warp][r][c + e] = acc[r][e];
+      for (int e = 0; e < EPL; ++e) s_acc[warp][r][c + e] = acc[r][e];
   }
   if (lane == 0) {
 #pragma unroll

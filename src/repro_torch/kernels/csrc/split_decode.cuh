@@ -27,17 +27,9 @@
 
 namespace repro_paged {
 
-// Query rows a pass-1 block takes at a time: MAX_ROWS, and 8 at head width
-// 256, where 16 f32 rows beside a K and a V tile would pass the 48 KB of
-// static shared memory (Smem). The accumulator stays at 16 f32 a thread.
-template <int DH>
-struct SplitRows {
-  static constexpr int value = DH >= 256 ? 8 : MAX_ROWS;
-};
-
 // Pass 1 for sequence b, kv head h, split `split` of n_split: the group's
 // query rows (query heads h * group + r of q (B, H, DH)) against keys
-// [lo, hi). Rows are taken SplitRows<DH> at a time.
+// [lo, hi). Rows are taken FmaRows<DH> at a time (paged_attention.cuh).
 template <typename T, typename KV, int DH, typename Rows>
 __device__ void split_partial(const T* __restrict__ q, const KV* __restrict__ kp,
                               const KV* __restrict__ vp, const Rows& rows_at,
@@ -47,7 +39,7 @@ __device__ void split_partial(const T* __restrict__ q, const KV* __restrict__ kp
                               int H, int Hkv, int lo, int hi, float scale) {
   constexpr int TK = Tile<DH>::TK;
   constexpr int KS = Tile<DH>::KSTRIDE;
-  constexpr int ROWS = SplitRows<DH>::value;
+  constexpr int ROWS = FmaRows<DH>::value;
   constexpr int APT = ROWS * DH / NT;       // accumulator elements per thread
   __shared__ Smem<DH, ROWS> sm;
   const int group = H / Hkv;

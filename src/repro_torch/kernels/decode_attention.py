@@ -15,8 +15,11 @@ cache attention, reached through four entries:
   too it launches the chunk kernel);
 * ``decode_attention`` — one query token per sequence against a dense
   ``(B, L, Hkv, dh)`` cache, masked at a per-row valid length: the static
-  engine's decode (replaces ``decode_attention`` there), at head widths
-  64, 128 and 256; the other kernels take 64 and 128.
+  engine's decode (replaces ``decode_attention`` there).
+
+Every kernel here, and flash attention (``flash_attention.py``), takes
+head widths 64, 128 and 256 (``_HEAD_DIMS``): paligemma-3b's and
+gemma3-1b's 256 as well as the common 64 and 128.
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
@@ -51,10 +54,8 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-# head widths each kernel is built for: the dense decode also at 256
-# (paligemma-3b); the others stop at 128 (ROADMAP.md queue B, item 6)
-_HEAD_DIMS = (64, 128)
-_DENSE_HEAD_DIMS = (64, 128, 256)
+# head widths every kernel is built for (csrc/dispatch.cuh)
+_HEAD_DIMS = (64, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,18 +81,16 @@ def _fn(name: str):
 
 # ---------------------------- validation -------------------------------- #
 
-def _check(q, k_pages, v_pages, k_scale, v_scale, ints, *, q_ndim: int,
-           head_dims=_HEAD_DIMS):
+def _check(q, k_pages, v_pages, k_scale, v_scale, ints, *, q_ndim: int):
     """Raise on anything the CUDA kernel does not take. k/v_pages: the K/V
-    pools, dense caches or key/value tensors (4-D, kv heads on dim 2);
-    head_dims: the head widths the kernel is built for."""
+    pools, dense caches or key/value tensors (4-D, kv heads on dim 2)."""
     if q.dim() != q_ndim or k_pages.dim() != 4:
         raise ValueError(f"q must be {q_ndim}-D and the pools 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
     dh = q.shape[-1]
-    if dh not in head_dims:
+    if dh not in _HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not supported by this CUDA kernel "
-                         f"(supported: {head_dims})")
+                         f"(supported: {_HEAD_DIMS})")
     if q.dtype not in _Q_DTYPES:
         raise ValueError(f"query dtype {q.dtype} not supported")
     if k_pages.dtype not in _DTYPE_CODE or v_pages.dtype != k_pages.dtype:
@@ -631,10 +630,10 @@ def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int) -> int:
     A pure function of the shapes and the card's SM count, never of
     ``kv_valid`` (which lies on the device: reading it would cost a
     device-to-host sync a layer). A pass-1 block takes one split of one
-    (sequence, kv head) for the GQA group, MAX_ROWS (16) rows at a time (8
-    at head width 256, where the rule stays the same: paligemma-3b's group
-    of 8 is one pass either way), so the card holds ``B * Hkv * ceil(group
-    / 16)`` units of work a split.
+    (sequence, kv head) for the GQA group, 16 rows at a time (FmaRows: 8
+    at head width 256, where the rule stays the same, since paligemma-3b's
+    group of 8 is one pass either way), so the card holds ``B * Hkv *
+    ceil(group / 16)`` units of work a split.
     The cache is cut into the number of splits that brings that nearest to
     two an SM, and into at least enough that no split exceeds 128 keys, in
     multiples of 16 keys. ``ceil(L / split)`` splits then cover ``L``."""
@@ -714,8 +713,7 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
         return decode_attention_plain(q, k_cache, v_cache, kv_valid,
                                       scale=scale, k_scale=k_scale,
                                       v_scale=v_scale)
-    _check(q, k_cache, v_cache, k_scale, v_scale, (kv_valid,), q_ndim=3,
-           head_dims=_DENSE_HEAD_DIMS)
+    _check(q, k_cache, v_cache, k_scale, v_scale, (kv_valid,), q_ndim=3)
     B, H, dh = q.shape
     L, Hkv = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != B or kv_valid.shape != (B,):

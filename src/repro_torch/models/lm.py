@@ -309,7 +309,10 @@ def _kernel_layers(cfg: ArchConfig, path: str):
     verify, on every layer of a ``paged_supported`` config), "prefill"
     (flash on a causal layer without a soft-cap), "decode" (the dense
     decode on a layer with neither a window nor a soft-cap) or "static"
-    (both). Masked, windowed, soft-capped and MLA layers reach none."""
+    (both). Masked, windowed, soft-capped and MLA layers reach none. Every
+    kernel takes head widths 64, 128 and 256 (``kernels._HEAD_DIMS``), so
+    a width is refused only where it is none of these (the reduced twins'
+    16, or 80, 96, 192)."""
     if path == "paged":
         return [("paged decode / chunk prefill / spec verify",
                  kern._HEAD_DIMS)]
@@ -324,7 +327,7 @@ def _kernel_layers(cfg: ArchConfig, path: str):
     if path != "decode" and not prefix and 0 in kinds:
         out.append(("flash attention", kern._HEAD_DIMS))
     if path != "prefill" and 0 in kinds:
-        out.append(("dense decode", kern._DENSE_HEAD_DIMS))
+        out.append(("dense decode", kern._HEAD_DIMS))
     return out
 
 

@@ -1,10 +1,10 @@
 """The refusal of a head width that no kernel of a path takes
 (``models.kernel_width_reason``), on the CPU: which layers reach which
-kernel on a CUDA device (the paged path's three kernels take head widths
-64 and 128, flash 64 and 128 on causal layers without a soft-cap, the
-dense decode 64, 128 and 256 on layers with neither a window nor a
-soft-cap; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper
-layers reach none), and that ``ServeEngine``, the dense and paged cache
+kernel on a CUDA device (the paged path's three kernels on every layer,
+flash on causal layers without a soft-cap, the dense decode on layers
+with neither a window nor a soft-cap, each at head widths 64, 128 and
+256; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper layers
+reach none), and that ``ServeEngine``, the dense and paged cache
 constructors, the static forward and the serve CLI refuse such a config
 on "cuda" before any weights are drawn, and never on "cpu"."""
 import pytest
@@ -17,6 +17,7 @@ from repro_torch.configs import all_configs, get_config
 from repro_torch.configs.reduce import reduced
 from repro_torch.models import lm as tlm
 from repro_torch.serving import ServeEngine
+from torch_kernel_inputs import PALI_TEXT
 
 torch.set_num_threads(2)
 
@@ -48,10 +49,10 @@ def test_reduced_twins(arch):
 
 def test_refusal_names_each_kernel_and_its_widths():
     cfg = reduced(get_config("llama3.2-1b"))
-    assert "paged decode / chunk prefill / spec verify takes [64, 128]" in (
-        tm.kernel_width_reason(cfg, "paged"))
+    assert ("paged decode / chunk prefill / spec verify takes [64, 128, 256]"
+            in tm.kernel_width_reason(cfg, "paged"))
     static = tm.kernel_width_reason(cfg, "static")
-    assert "flash attention takes [64, 128]" in static
+    assert "flash attention takes [64, 128, 256]" in static
     assert "dense decode takes [64, 128, 256]" in static
     # paligemma's prompt is prefix-LM (no flash): only its dense decode
     pali = reduced(get_config("paligemma-3b"))
@@ -65,8 +66,9 @@ def test_refusal_names_each_kernel_and_its_widths():
                                   "llava15-13b", "paligemma-3b", "gemma3-1b",
                                   "deepseek-v2-236b", "yi-6b"])
 def test_full_width_not_refused(arch):
-    """Full width takes every kernel it reaches: head width 64 or 128, and
-    paligemma-3b's 256 at the dense decode only."""
+    """Full width takes every kernel it reaches: head width 64, 128 or
+    256 (paligemma-3b's prompt is prefix-LM, so its static path reaches
+    the dense decode alone)."""
     cfg = get_config(arch)
     for path in ("paged", "prefill", "decode", "static"):
         assert tm.kernel_width_reason(cfg, path) is None, path
@@ -77,14 +79,71 @@ def test_full_width_not_refused(arch):
 
 
 def test_a_width_no_kernel_takes_is_refused_at_full_width():
-    """A full-width config at head width 96 reaches flash and the dense
-    decode; at 256 (no window, no soft-cap) flash alone refuses it."""
+    """A full-width config at head width 96 reaches flash, the dense decode
+    and the paged kernels, and each refuses it; at 256 (no window, no
+    soft-cap) every kernel takes it, on both engines."""
     cfg = get_config("qwen2.5-3b").replace(head_dim=96)
-    assert "head_dim 96" in tm.kernel_width_reason(cfg, "static")
+    reason = tm.kernel_width_reason(cfg, "static")
+    assert "head_dim 96" in reason
+    assert "flash attention" in reason and "dense decode" in reason
+    assert "head_dim 96" in tm.kernel_width_reason(cfg, "paged")
     wide = get_config("qwen2.5-3b").replace(head_dim=256)
-    reason = tm.kernel_width_reason(wide, "static")
-    assert "flash attention" in reason and "dense decode" not in reason
-    assert tm.kernel_width_reason(wide, "decode") is None
+    for path in ("paged", "prefill", "decode", "static"):
+        assert tm.kernel_width_reason(wide, path) is None, path
+    assert [name for name, _ in tlm._kernel_layers(wide, "static")] == [
+        "flash attention", "dense decode"]
+
+
+
+# the kernels each path reaches on the derived text decoder
+TEXT_KERNELS = {"paged": ["paged decode / chunk prefill / spec verify"],
+                "prefill": ["flash attention"], "decode": ["dense decode"],
+                "static": ["flash attention", "dense decode"]}
+
+
+@pytest.mark.parametrize("path", sorted(TEXT_KERNELS))
+def test_paligemma_text_decoder_reaches_every_kernel_at_256(path):
+    """paligemma-3b's Gemma-2B decoder as a text-only causal LM (18 layers,
+    8 query heads over 1 KV head, dh 256) runs on the paged path and takes
+    flash on the static one; no path refuses it on the card."""
+    cfg = get_config("paligemma-3b").replace(**PALI_TEXT)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim) == (18, 2048, 8, 1, 256)
+    assert tm.paged_supported(cfg) is None
+    # the image-prefixed model itself stays off the paged path
+    assert tm.paged_supported(get_config("paligemma-3b")) is not None
+    assert tm.kernel_width_reason(cfg, path) is None
+    assert tlm._kernel_layers(cfg, path) == [
+        (name, (64, 128, 256)) for name in TEXT_KERNELS[path]]
+
+
+@pytest.mark.parametrize("path", ["paged", "prefill", "decode", "static"])
+@pytest.mark.parametrize("dh", [16, 64, 80, 96, 128, 192, 256, 512])
+def test_only_the_built_widths_are_taken(dh, path):
+    """On each path a full-width dense config is taken at 64, 128 and 256
+    and refused at any other width (16, 80, 96, 192, and 512, which the
+    reference's flash route would take: ROADMAP queue B)."""
+    cfg = get_config("qwen2.5-3b").replace(head_dim=dh)
+    reason = tm.kernel_width_reason(cfg, path)
+    if dh in (64, 128, 256):
+        assert reason is None
+    else:
+        assert f"head_dim {dh}" in reason and "[64, 128, 256]" in reason
+
+
+def test_the_refusal_comes_before_weights_for_the_text_decoder_twin(no_init):
+    """The derived decoder's reduced twin (head width 16) is refused on the
+    card before any weights are drawn; with head_dim set back to 256 it
+    passes the width check and goes on to the device."""
+    twin = reduced(get_config("paligemma-3b")).replace(**PALI_TEXT)
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        ServeEngine(twin, device="cuda", scheduler="continuous")
+    wide = twin.replace(head_dim=256)
+    want = ("init_params was called" if torch.cuda.is_available()
+            else "CUDA is not available")
+    for scheduler in ("continuous", "static"):
+        with pytest.raises((AssertionError, RuntimeError), match=want):
+            ServeEngine(wide, device="cuda", scheduler=scheduler)
 
 
 @pytest.fixture

@@ -23,6 +23,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.lm import init_params
 from torch_kernel_inputs import ARCTIC_WIDTH
 from torch_kernel_inputs import CHUNK_HEADERS
+from torch_kernel_inputs import GEMMA3_WIDTH
 from torch_kernel_inputs import LLAVA_WIDTH
 from torch_kernel_inputs import OLD_PAGED_DECODE_LIB
 from torch_kernel_inputs import PAGED_DECODE_HEADERS
@@ -269,40 +270,73 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, causal, Hkv, S):
 
 
 @pytest.mark.cuda
-def test_cuda_head_width_256_is_the_dense_decode_s_only(cuda_device):
-    """At head width 256 the dense decode launches; flash, the paged
-    decode, the chunk and the verify window raise on the card (they are
-    not built for it) instead of falling back."""
-    rng = np.random.default_rng(25)
+@pytest.mark.parametrize("qdt,pool", [("float32", "float32"),
+                                      ("float32", "bfloat16"),
+                                      ("bfloat16", "float32"),
+                                      ("float16", "int8"),
+                                      ("float32", "int8")])
+@pytest.mark.parametrize("H,Hkv,dh", [PALIGEMMA_WIDTH, GEMMA3_WIDTH])
+def test_cuda_head_width_256_takes_every_kernel(cuda_device, H, Hkv, dh,
+                                                qdt, pool):
+    """At head width 256 (paligemma-3b's group 8, gemma3-1b's group 4)
+    every entry launches on the FMA bodies and the mixed query/pool pairs
+    (f32 queries, pools of another type): the paged decode, the chunk, the
+    verify window and the dense decode; flash on f32. A width none is
+    built for (96) raises on the card instead of falling back."""
+    rng = np.random.default_rng(25 + H)
     dev = dict(device=cuda_device)
-    H, Hkv, dh = PALIGEMMA_WIDTH
-    B, L, ps, npp = 2, 40, 16, 3
+    B, L, ps, npp, C = 3, 40, 16, 3, 8
+    qt = getattr(torch, qdt)
 
-    def rand(*shape):
-        return _t(rng.standard_normal(shape, dtype=np.float32)).to(**dev)
-    q = rand(B, H, dh)
-    kc = rand(B, L, Hkv, dh)
-    valid = torch.tensor([L, 7], dtype=torch.int32, **dev)
-    n = tk.decode_attention.launches
-    got = tk.decode_attention(q, kc, kc, valid)
+    def rand(*shape, dtype=qt):
+        return _t(rng.standard_normal(shape, dtype=np.float32)).to(
+            dtype=dtype, **dev)
+    q3, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
+                                       npp, C, pool)
+    q3 = q3.to(qt)
+    ptt = _t(pt).to(cuda_device)
+    lens = torch.tensor([L, 7, 1], dtype=torch.int32, **dev)
+    tol = 1e-4 if "float32" == qdt == pool else 2e-2
+    n = [f.launches for f in (tk.paged_decode_attention,
+                              tk.chunk_prefill_attention,
+                              tk.spec_verify_attention, tk.decode_attention)]
+    q = q3[:, 0].contiguous()
+    got = [tk.paged_decode_attention(q, kp, vp, ptt, lens, **kw),
+           tk.chunk_prefill_attention(q3, kp, vp, ptt, 0, lens, **kw),
+           tk.spec_verify_attention(q3[:, :5].contiguous(), kp, vp, ptt,
+                                    lens - 1, torch.ones_like(lens), **kw)]
+    want = [tk.paged_decode_attention_plain(q, kp, vp, ptt, lens, **kw),
+            tk.chunk_prefill_attention_plain(q3, kp, vp, ptt, 0, lens, **kw),
+            tk.spec_verify_attention_plain(q3[:, :5].contiguous(), kp, vp,
+                                           ptt, lens - 1,
+                                           torch.ones_like(lens), **kw)]
+    kc = kp[ptt.long()].reshape(B, npp * ps, Hkv, dh)
+    vc = vp[ptt.long()].reshape(B, npp * ps, Hkv, dh)
+    got.append(tk.decode_attention(q, kc, vc, lens, **kw))
+    want.append(tk.decode_attention_plain(q, kc, vc, lens, **kw))
     torch.cuda.synchronize()
-    assert tk.decode_attention.launches == n + 1
-    assert float((got - tk.decode_attention_plain(q, kc, kc, valid))
-                 .abs().max()) <= 1e-4
-    kp = rand(B * npp + 1, ps, Hkv, dh)
-    pt = torch.arange(1, B * npp + 1, dtype=torch.int32, **dev).reshape(
-        B, npp)
-    qs = rand(B, 4, H, dh)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tkf.flash_attention(qs, qs[:, :, :Hkv].contiguous(),
-                            qs[:, :, :Hkv].contiguous())
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tk.paged_decode_attention(q, kp, kp, pt, valid)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tk.chunk_prefill_attention(qs, kp, kp, pt, 0, valid)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tk.spec_verify_attention(qs, kp, kp, pt, valid - 4,
-                                 torch.full_like(valid, 4))
+    assert [f.launches for f in (tk.paged_decode_attention,
+                                 tk.chunk_prefill_attention,
+                                 tk.spec_verify_attention,
+                                 tk.decode_attention)] == [k + 1 for k in n]
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= tol
+    if qdt == pool == "float32":
+        qf, kf = rand(B, 33, H, dh), rand(B, 33, Hkv, dh)
+        for causal in (True, False):
+            g = tkf.flash_attention(qf, kf, kf, causal=causal)
+            w = tkf.flash_attention_plain(qf, kf, kf, causal=causal)
+            assert float((g - w).abs().max()) <= 1e-4
+    narrow = [x[..., :96].contiguous() for x in (q3, kp, vp)]
+    with pytest.raises(ValueError, match="head_dim 96"):
+        tk.chunk_prefill_attention(*narrow, ptt, 0, lens, **kw)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        tk.paged_decode_attention(narrow[0][:, 0].contiguous(), *narrow[1:],
+                                  ptt, lens, **kw)
+    if pool == qdt:
+        with pytest.raises(ValueError, match="head_dim 96"):
+            tkf.flash_attention(narrow[0], narrow[0][:, :, :Hkv].contiguous(),
+                                narrow[0][:, :, :Hkv].contiguous())
 
 
 @pytest.mark.cuda
@@ -392,13 +426,15 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 17, 64, 300])
 @pytest.mark.parametrize("H,Hkv,dh", [(16, 2, 128), (8, 8, 64), (12, 4, 64),
-                                      ARCTIC_WIDTH, LLAVA_WIDTH])
+                                      ARCTIC_WIDTH, LLAVA_WIDTH,
+                                      PALIGEMMA_WIDTH, GEMMA3_WIDTH])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
                                                   H, Hkv, dh, S):
-    """The tensor-core flash tiles at both head widths and groups 8, 1, 3
-    and 7, and llava15-13b's 40 heads at group 1, at prompt lengths shorter than a tile, one tile, and not a multiple
+    """The tensor-core flash tiles at head widths 64, 128 and 256 (Q read
+    from shared memory each key step) and groups 8, 1, 3, 7 and 4, and
+    llava15-13b's 40 heads at group 1, at prompt lengths shorter than a tile, one tile, and not a multiple
     of either the 64-row or the 64-key tile; causal and full; bitwise
     repeatable."""
     rng = np.random.default_rng(S + H + dh)
@@ -467,8 +503,10 @@ def _poison_past(kp, vp, pt, limits, ps, quant):
             vp[page, off] = -127 if quant else float("nan")
 
 
-# groups 1, 4, 8 and 7
-PAGED_TC_WIDTHS = [(32, 32, 64), (8, 2, 64), (16, 2, 128), ARCTIC_WIDTH]
+# groups 1, 4, 8 and 7; paligemma-3b's group 8 and gemma3-1b's group 4 at
+# head width 256
+PAGED_TC_WIDTHS = [(32, 32, 64), (8, 2, 64), (16, 2, 128), ARCTIC_WIDTH,
+                   PALIGEMMA_WIDTH, GEMMA3_WIDTH]
 # bf16/f16 round P to the input dtype for the tensor-core value product
 # (the plain version keeps it in f32): one ulp of the output; f32 runs the
 # FMA body in f32
@@ -481,7 +519,7 @@ PAGED_TC_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2,
 @pytest.mark.parametrize("H,Hkv,dh", PAGED_TC_WIDTHS)
 def test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool):
     """The chunk on its tensor-core tiles (bf16/f16/int8 pools; f32 on the
-    FMA body) at groups 1, 4, 8 and 7 and head_dim 64 and 128: the last row's
+    FMA body) at groups 1, 4, 8 and 7 and head_dim 64, 128 and 256: the last row's
     frontier one key before, on and past a split edge, right-padded
     chunks, keys past each chunk's frontier poisoned; bitwise repeatable."""
     rng = np.random.default_rng(H + dh)
@@ -561,7 +599,7 @@ def _stale_tails(pt, seq_lens, ps, n_pages):
 def test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
                                                    pool):
     """The paged decode split over pages, at groups 1, 4, 8 and 7 and head_dim
-    64 and 128: seq_lens at 1, the full table and every split edge +-1
+    64, 128 and 256: seq_lens at 1, the full table and every split edge +-1
     (B=16 sequences a call, the edges over as many calls as they need);
     stale table entries and the keys past each sequence poisoned (NaN;
     int8: extreme values); bitwise repeatable; one launch counted a call."""

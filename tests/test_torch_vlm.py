@@ -143,18 +143,22 @@ def test_dense_decode_plain_at_256_matches_pallas(quant):
 
 
 def test_head_width_check_is_per_kernel():
-    """Only the dense decode is built for head width 256: the shared check
-    takes 256 for it and refuses it for the others (flash, the paged decode,
-    the chunk and the verify window), which then raise on the card."""
+    """Every kernel is built for head width 256 (the dense decode, flash,
+    the paged decode, the chunk and the verify window share one check and
+    one tuple of widths): the check takes paligemma-3b's width for a decode
+    query and for a chunk or prompt, and refuses a width no kernel is built
+    for (96), on which the wrappers then raise on the card."""
     H, Hkv, dh = PALIGEMMA_WIDTH
     q = torch.zeros((2, H, dh))
     kc = torch.zeros((2, 16, Hkv, dh))
     valid = torch.ones((2,), dtype=torch.int32)
-    tk._check(q, kc, kc, None, None, (valid,), q_ndim=3,
-              head_dims=tk._DENSE_HEAD_DIMS)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tk._check(q, kc, kc, None, None, (valid,), q_ndim=3)
-    assert 256 not in tk._HEAD_DIMS
+    tk._check(q, kc, kc, None, None, (valid,), q_ndim=3)
+    tk._check(torch.zeros((2, 16, H, dh)), kc, kc, None, None, (valid,),
+              q_ndim=4)
+    assert tk._HEAD_DIMS == (64, 128, 256)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        tk._check(q[..., :96], kc[..., :96], kc[..., :96], None, None,
+                  (valid,), q_ndim=3)
 
 
 # -------------------------------- model --------------------------------- #

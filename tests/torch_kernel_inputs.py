@@ -25,10 +25,15 @@ CHUNK_HEADERS = {"dispatch.cuh", "paged_attention.cuh", "mma_tile.cuh",
 # group's rows 4 + 3, the tensor-core tiles hold 16 // 7 positions)
 ARCTIC_WIDTH = (56, 8, 128)
 # llava15-13b's (MHA: 40 query heads over 40 KV heads, group 1) and
-# paligemma-3b's (8 query heads over 1 KV head, head width 256: only the
-# dense decode is built for it)
+# paligemma-3b's (8 query heads over 1 KV head, head width 256)
 LLAVA_WIDTH = (40, 40, 128)
 PALIGEMMA_WIDTH = (8, 1, 256)
+# gemma3-1b's (4 query heads over 1 KV head, head width 256: group 4)
+GEMMA3_WIDTH = (4, 1, 256)
+# paligemma-3b's Gemma-2B decoder served as a text-only causal LM
+# (``cfg.replace(**PALI_TEXT)``): the one derivation of a config file that
+# the paged path and flash reach at head width 256
+PALI_TEXT = dict(family="dense", prefix_len=0, prefix_bidirectional=False)
 
 
 def t(a):
