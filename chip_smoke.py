@@ -14,7 +14,9 @@ which builds the kernels and runs only phase 18, nor
 ``--shard-paths-only``, which builds them and runs only phase 20, nor
 ``--sync-audit-only``, which builds them and runs only phase 21, nor
 ``--head256-only``, which builds them, runs phase 3's head-width-256
-cases and phase 22.
+cases and phase 22, nor ``--wide-heads-only``, which builds them, prints
+the head-width-384 and -512 instances' ptxas report, runs phase 3's cases
+at those widths and phase 23.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -28,8 +30,9 @@ Phases (any failure exits non-zero before the result line):
      which must hold some (64 in each dh=128 flash kernel), and checks
      that the paged decode library is built anew from its split-K header
      (not the library of its earlier body); prints every library's
-     head-width-256 instances by kernel template (registers, shared
-     memory, spill stores; each library must hold some).
+     head-width-256, -384 and -512 instances by kernel template
+     (registers, shared memory, spill stores; each library must hold
+     some at each width).
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -74,8 +77,15 @@ Phases (any failure exits non-zero before the result line):
      f16 queries over their own pool and bf16 and f16 over int8, ragged,
      on the split edges and with chunk and window frontiers on them;
      flash (B=4) at group 8, bf16 at S = 512, 300, 17, f16 and f32 at
-     300, and group 4, bf16 and f32 at 300, causal and full. Every kernel
-     entry must give bitwise the same result on a second call.
+     300, and group 4, bf16 and f32 at 300, causal and full. At head
+     widths 384 and 512 (``wide_cases``), at groups 8 and 4 over one KV
+     head: the paged entries over pages of 32 keys as at 256 (verify C =
+     1, 5, 8 at dh 512 group 4, the served width, else C = 5), the dense
+     decode (L=545; B=4 ragged, B=12 on the split edges; f32, bf16, f16,
+     int8 with bf16 and with f16 queries) and flash (B=4; bf16 at S =
+     512, 300, 17 at the served width, else 300; f16 and f32 at 300;
+     causal and full). Every kernel entry must give bitwise the same
+     result on a second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -86,7 +96,9 @@ Phases (any failure exits non-zero before the result line):
      (temperature 0.8, top-k 50, top-p 0.9, n-gram spec, one
      sample_seed: the two runs must agree). Every run must launch its
      path's kernels, reconcile its trace, free every page and emit
-     in-vocabulary tokens. The sampler's counter-based draws on the card
+     in-vocabulary tokens. The native run's Chrome trace must pass the
+     port's ``check_trace --strict-vocab``. The sampler's counter-based
+     draws on the card
      must equal the CPU's, and its tokens follow the filtered softmax.
      Then torch.profiler splits by kernel the time of one fused decode
      block (the paged decode's pass 1 and its combine apart), one prefill
@@ -174,7 +186,8 @@ Phases (any failure exits non-zero before the result line):
      whisper 4 + 4 layers): prefill and decode logits on the card against
      the CPU, and static K=8 == K=1.
   17. head-sharded continuous serving (``ServeEngine(shards=N)``):
-     llama3.2-1b at full width (bf16, 32 KV heads, page 16, K=8), 8 of
+     llama3.2-1b at full width cut to 4 of its 16 layers (``CUT_LAYERS``;
+     bf16, 32 KV heads, page 16, K=8), 8 of
      phase 4's requests with 32 new tokens, at 2 shards (native, int8,
      n-gram k=4) and at 4 (native), the ranks spawned here
      (``launch.ranks.run_ranks``) and sharing the one card over gloo
@@ -198,7 +211,8 @@ Phases (any failure exits non-zero before the result line):
      times; prints ``[smoke] train llama3.2-1b f32 step_ms=... tokens/s=...
      peak_GB=... flop_bound_ms=...`` (the median of steps 2-7; the bound
      is the step's operations over 67 TFLOP/s f32), then 2 steps in bf16
-     (the params stay bf16, each its master's round trip). (b) the step-4
+     (the params stay bf16, each its master's round trip). (b) the same
+     8 steps at full width cut to 4 layers (``CUT_LAYERS``): the step-4
      state saved with ``save_checkpoint`` under build/, restored onto the
      CPU and bitwise the card's; ``train()`` resumes from it on the card
      and must repeat the straight run's losses of steps 4-7 (rel 1e-5;
@@ -244,10 +258,11 @@ Phases (any failure exits non-zero before the result line):
      it.
   20. the dry run's two sharded paths on the card, and its bytes against
      the card's allocator; no kernel is on either sharded path (the counts
-     stay 0 there). (a) llama3.2-1b at full width, static, B=4 x 512 + 32
-     steps, a 4,096-position cache length-sharded over 2 ranks on the one
-     card (gloo, ``models.seq_shard_attn``): in f32 its tokens equal the
-     unsharded decode's on the card (the dense decode kernel, a launch a
+     stay 0 there). (a) llama3.2-1b at full width cut to 4 layers
+     (``CUT_LAYERS``), static, B=4 x 512 + 32 steps, a 4,096-position
+     cache length-sharded over 2 ranks on the one card (gloo,
+     ``models.seq_shard_attn``): in f32 its tokens equal the unsharded
+     decode's on the card (the dense decode kernel, a launch a
      layer a step) over the tie-free prefix, logits within 1e-4, and each
      rank's cache slice is bitwise the unsharded cache's at the prefilled
      positions and at layer 0's decoded ones (later layers' decoded KV
@@ -288,6 +303,15 @@ Phases (any failure exits non-zero before the result line):
      3.35 TB/s). Then in f32 at 4 layers the continuous and static
      engines' tokens on the card equal the CPU's over each request's
      tie-free prefix.
+  23. head width 512: the same decoder with its 8 heads of 256 regrouped
+     as 4 query heads of 512 over its 1 KV head (``WIDE_TEXT``: K and V
+     projections 2048 x 512, 2.53 B parameters; no published checkpoint
+     has this width), served, checked and timed as phase 22.
+  24. the port's examples on the card: ``examples.serve_batched`` at its
+     defaults (no plain version; continuous == bucketed) and
+     ``examples.train_100m --tiny`` for 8 steps, restarted from step 4
+     (the step-8 checkpoint removed): the resumed losses and the step-8
+     checkpoint bitwise the straight run's.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -295,7 +319,8 @@ flash at llava's group 1, the three paged entries at a head shard
 of 2 and of 4, the verify entry there with 0 launches, and the four
 entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
 sweep's launches, and the five at head width 256 with phase 22's
-launches) and, last, the device JSON line.
+launches, and the five at head width 512 with phase 23's) and, last,
+the device JSON line.
 """
 from __future__ import annotations
 
@@ -386,10 +411,26 @@ PALI_TEXT_PS, PALI_TEXT_REQS, PALI_TEXT_NEW, PALI_TEXT_F32_LAYERS = (
     32, 8, 32, 4)
 # gemma3-1b's attention width (heads, head_dim, kv heads): group 4 at 256
 GEMMA3_WIDTH = (4, 256, 1)
+# head widths 384 and 512 (phase 3's wide cases): (heads, head_dim, kv
+# heads) at groups 8 and 4 over one KV head
+WIDE_DIMS = (384, 512)
+WIDE_WIDTHS = tuple((H, dh, 1) for dh in WIDE_DIMS for H in (8, 4))
+# the dh-512 phase: paligemma-3b's Gemma-2B decoder text-only with its 8
+# heads of 256 regrouped as 4 query heads of 512 over its 1 KV head (K and
+# V projections 2048 x 512; no published checkpoint has this width); its
+# runs as phase 22's
+WIDE_TEXT = dict(PALI_TEXT, n_heads=4, head_dim=512)
 # the training phase: llama3.2-1b at full width in f32, (B, S, n_micro,
 # steps, the step saved and resumed from); the families whose reduced twins
 # train on the card against the CPU
 TRAIN_RUN = (4, 1024, 2, 8, 4)
+# llama3.2-1b's depth in phase 17, phase 18's checkpoint part and phase 20
+# (a), cut from its 16 layers at full width so that the script keeps
+# within its time as later phases join it; phase 18's training steps keep
+# all 16
+CUT_LAYERS = 4
+# train_100m --tiny's steps in phase 24, restarted at half of them
+EXAMPLE_STEPS = 8
 TRAIN_FAMILIES = ("llama3.2-1b", "arctic-480b", "llava15-13b",
                   "paligemma-3b", "gemma3-1b", "deepseek-v2-236b",
                   "mamba2-130m", "zamba2-2.7b", "whisper-medium")
@@ -479,16 +520,16 @@ def paged_ptxas(kbuild) -> dict:
     return report
 
 
-def head256_ptxas(kbuild) -> dict:
-    """Every head-width-256 instance of the four libraries: registers,
+def width_ptxas(kbuild, dh: int) -> dict:
+    """Every head-width-``dh`` instance of the four libraries: registers,
     shared memory and spill stores by library and kernel template, from
     the build's ptxas report. Each library must hold some; spills are
     reported, not refused."""
     report = {}
     for lib in kbuild.SOURCES:
         ents = {n: v for n, v in ptxas_entries(kbuild.build_log(lib)).items()
-                if "Li256E" in n}
-        check(ents, f"{lib} has no head-width-256 instances")
+                if f"Li{dh}E" in n}
+        check(ents, f"{lib} has no head-width-{dh} instances")
         by_kernel = {}
         for name, v in ents.items():
             tmpl = re.search(r"\d+([a-z_]+_kernel)I", name)
@@ -502,7 +543,7 @@ def head256_ptxas(kbuild) -> dict:
                 smem_max=max(v[2] for v in vs),
                 spill_max=max(v[3] for v in vs),
                 spilling=[v[0] for v in vs if v[3]])
-            log(f"ptxas {lib} dh=256 {key}: {len(vs)} kernels, registers "
+            log(f"ptxas {lib} dh={dh} {key}: {len(vs)} kernels, registers "
                 f"{rows[key]['registers'][0]}-{rows[key]['registers'][1]}, "
                 f"smem max {rows[key]['smem_max']} B, spill stores max "
                 f"{rows[key]['spill_max']} B ({len(rows[key]['spilling'])} "
@@ -726,15 +767,16 @@ def paged_cases(torch, kern, H, DH, Hkv,
         if not chunk_edges or not hasattr(kern, "chunk_split"):
             continue
         n_sm = kern._sm_count(torch.cuda.current_device())
-        for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm),
-                     2 * kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm)):
+        for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm, DH),
+                     2 * kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm,
+                                          DH)):
             # the last row's frontier one key before, on and past the
             # edge, the last two right-padded, and a chunk at 0
             starts = [0] + [min(max(edge - C + d, 0), MAX_LEN - C)
                             for d in (-1, 0, 1)]
             yield chunk(f"start=edge {edge}", starts, [C, C, C - 3, C - 1])
         Cv = VERIFY_C[3]
-        edge = kern.chunk_split(B, Hkv, Cv, grp, n_pp * ps, n_sm)
+        edge = kern.chunk_split(B, Hkv, Cv, grp, n_pp * ps, n_sm, DH)
         sl = torch.tensor([0, edge - Cv, edge - 3, edge - 1, edge, edge + 1,
                            2 * edge - 1, 2 * edge - Cv], dtype=torch.int32,
                           device=dev).clamp(0, MAX_LEN - Cv)
@@ -1033,6 +1075,60 @@ PALI_TEXT_MAIN = {
     "flash_attention": "group=8 bfloat16 S=512 dh=256 causal"}
 
 
+def wide_cases(torch, kern, flash):
+    """Every kernel entry at head widths 384 and 512, at groups 8 and 4
+    over one KV head (``WIDE_WIDTHS``): the paged entries over pages of 32
+    keys, f32, bf16 and f16 queries over their own pool and bf16 and f16
+    over int8, ragged and with lengths, chunk and window frontiers on and
+    beside the split edges (``paged_cases``; verify windows C = 1, 5, 8 at
+    the served width, dh 512 group 4, and C = 5 elsewhere); the dense
+    decode at L=545 over the same five query/cache pairs, ragged (B=4) and
+    with kv_valid on its split edges (B=12, f32/bf16/f16/int8); flash at
+    B=4, bf16 at S = 512, 300, 17 (the served width) or 300, f16 and f32
+    (the FMA body) at 300, causal and full."""
+    pools = ("float32", "bfloat16", "float16", "int8", "int8/float16")
+    for H, DH, Hkv in WIDE_WIDTHS:
+        served = (H, DH) == (WIDE_TEXT["n_heads"], WIDE_TEXT["head_dim"])
+        yield from paged_cases(torch, kern, H, DH, Hkv, pools=pools,
+                               verify_c=(1, 5, 8) if served else (5,),
+                               ps=PALI_TEXT_PS)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    L = QWEN_PROMPTS[-1] + QWEN_NEW + 1
+    for H, DH, Hkv in WIDE_WIDTHS:
+        for B, edges in ((4, False), (12, True)):
+            yield from _dense_decode_pools(
+                torch, kern, g, B, H, DH, Hkv, L,
+                ("float32", "bfloat16", "float16", "int8"), edges)
+        yield _dense_decode_case(torch, kern, g, 4, H, DH, Hkv, L, "int8",
+                                 torch.float16, label=" q=float16")
+    for H, DH, Hkv in WIDE_WIDTHS:
+        served = (H, DH) == (WIDE_TEXT["n_heads"], WIDE_TEXT["head_dim"])
+        waves = (((512, "bfloat16"), (17, "bfloat16")) if served else ())
+        for S, dt in waves + ((300, "bfloat16"), (300, "float16"),
+                              (300, "float32")):
+            q, k, v = (torch.randn((4, S, h, DH), generator=g, device="cuda")
+                       .to(getattr(torch, dt)) for h in (H, Hkv, Hkv))
+            for causal in (True, False):
+                yield _flash_case(flash, q, k, v, causal, dt,
+                                  f"group={H // Hkv} {dt} S={S} dh={DH}")
+
+
+# phase 23's kernel cases at its main path's shapes (as PALI_TEXT_MAIN):
+# dh 512, group 4 over one KV head
+WIDE_MAIN = {
+    "paged_decode_attention": "group=4 pool=bfloat16 dh=512 ps=32",
+    "chunk_prefill_attention":
+        "group=4 pool=bfloat16 start=scalar dh=512 ps=32",
+    "spec_verify_attention": "group=4 pool=bfloat16 C=5 dh=512 ps=32",
+    "decode_attention": "group=4 pool=bfloat16 L=545 dh=512",
+    "flash_attention": "group=4 bfloat16 S=512 dh=512 causal"}
+# the dh-384 row of PERF.md's kernel table (off every served path)
+WIDE_384 = {name: case.replace("group=4", "group=8").replace("dh=512",
+                                                             "dh=384")
+            .replace("S=512", "S=300")
+            for name, case in WIDE_MAIN.items()}
+
+
 # ------------------------------ phase 4 --------------------------------- #
 
 def requests(vocab: int, n_reqs: int = 16):
@@ -1142,7 +1238,8 @@ def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
 
 
 def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
-    """The spec-off path: greedy, native and int8 KV."""
+    """The spec-off path: greedy, native and int8 KV; the native run's
+    Chrome trace through ``check_trace_on``."""
     reqs = requests(cfg.vocab)
     results = {}
     params = None
@@ -1152,7 +1249,27 @@ def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
             torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
             policy, PAGED[:2], kv_policy=policy)
         params = eng.params                 # one seeded init for every run
+        if policy == "native":
+            results[policy]["trace_check"] = check_trace_on(eng)
     return results, read_counts(kern), params
+
+
+def check_trace_on(eng) -> str:
+    """Write ``eng``'s Chrome trace of its last serve under build/ and pass
+    it through the port's ``check_trace --strict-vocab`` (structure, each
+    request's phases summing to its latency, the channel vocabulary),
+    which must exit 0. Returns its line."""
+    from repro_torch.serving import check_trace
+    path = ROOT / "build" / "smoke_serve_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    eng.trace.save(str(path))
+    try:
+        rc, line = check_trace.main(["--strict-vocab", str(path)])
+    finally:
+        path.unlink()
+    check(rc == 0, f"check_trace --strict-vocab failed: {line}")
+    log(f"check_trace on the native serve's trace: {line}")
+    return line
 
 
 def sampling_on_card(torch):
@@ -2348,6 +2465,12 @@ def f32_family_checks(torch, tm, ServeEngine, get_config):
 
 # --------------------- phase 17: head-sharded serving -------------------- #
 
+def cut_llama(get_config):
+    """llama3.2-1b at full width cut to ``CUT_LAYERS`` layers: the model of
+    phase 17 and phase 20 (a)."""
+    return dataclasses.replace(get_config("llama3.2-1b"), n_layers=CUT_LAYERS)
+
+
 def _shard_engine(ServeEngine, RuntimeOptions, cfg, params, run, shards):
     """Phase 17's continuous engine: full-width bf16 llama3.2-1b as phase 4
     serves it, with native or int8 KV or n-gram speculation (k=4)."""
@@ -2450,7 +2573,7 @@ def shard_rank(rank, shards, reqs, runs):
     import repro_torch.models as tm
     from repro_torch.serving import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("llama3.2-1b")
+    cfg = cut_llama(get_config)
     L, n_kv = cfg.n_layers, cfg.n_kv_heads // shards
     out, params = {}, None
     for run in runs:
@@ -2505,7 +2628,7 @@ def serve_sharded(torch, kern, tm, ServeEngine, get_config):
     from repro_torch.launch.ranks import backend_for, run_ranks
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3.2-1b")
+    cfg = cut_llama(get_config)
     reqs = requests(cfg.vocab, SHARD_REQS)
     want, params = {}, None
     for run in SHARD_RUNS[2]:
@@ -2609,25 +2732,22 @@ def _same_bits(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
-def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
-    """(a) and (b): llama3.2-1b at full width and depth in f32, remat
-    "block", B x S = 4 x 1,024 in 2 micro-batches, 8 AdamW steps through
-    ``build_train_step``; the step-4 state saved, restored onto the CPU and
-    held bitwise against the card's; then ``train()`` resumes from that
-    checkpoint on the card and must repeat steps 4-7's losses."""
+def _train_run(torch, kern, tm, cm, cfg, tcfg, opts, ckpt_dir=None):
+    """``tcfg.steps`` AdamW steps of ``cfg`` in f32 on the card through
+    ``build_train_step``, the loss read once a step; with ``ckpt_dir`` the
+    step-``tcfg.ckpt_every`` state is saved there, restored onto the CPU
+    and held bitwise against the card's. Checks every loss and grad_norm
+    finite, the loss falling, no kernel launch, the masked attention
+    called n_layers x (forward + remat) x micro-batches x steps times and
+    the params f32 beside a separate master. Returns the run's numbers."""
     from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                         save_checkpoint)
     from repro_torch.data import for_arch
-    from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.train import TrainConfig, build_train_step, train
-    cfg = get_config("llama3.2-1b")
-    B, S, n_micro, steps, save_at = TRAIN_RUN
-    tcfg = TrainConfig(steps=steps, seq_len=S, global_batch=B,
-                       n_micro=n_micro, ckpt_every=save_at, keep=1,
-                       ckpt_dir=str(ckpt_dir), seed=0, log_every=1,
-                       optimizer=AdamWConfig(lr=3e-4, warmup_steps=1,
-                                             total_steps=steps))
-    opts = tm.RuntimeOptions(dtype="float32", remat="block")
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    B, S, n_micro, steps = (tcfg.global_batch, tcfg.seq_len, tcfg.n_micro,
+                            tcfg.steps)
+    save_at = tcfg.ckpt_every
     params = _init_on_card(torch, tm, cfg, "float32", seed=tcfg.seed)
     n_params = sum(t.numel() for t in _leaves(params))
     state = adamw_init(params)
@@ -2637,7 +2757,7 @@ def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
     calls0 = cm.attention.calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s, gnorms, io = [], [], [], {}
+    losses, step_s, gnorms, io, peak = [], [], [], {}, 0
     for step in range(steps):
         t0 = time.perf_counter()
         batch = {k: v.to("cuda") for k, v in ds.batch_at(step).items()}
@@ -2645,7 +2765,7 @@ def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
         losses.append(float(loss))              # the step's one host read
         step_s.append(time.perf_counter() - t0)
         gnorms.append(om["grad_norm"])
-        if step + 1 == save_at:
+        if ckpt_dir is not None and step + 1 == save_at:
             peak = torch.cuda.max_memory_allocated()
             t0 = time.perf_counter()
             save_checkpoint(ckpt_dir, save_at, (params, state), keep=1)
@@ -2661,8 +2781,8 @@ def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
             check(len(host) == len(card) and all(
                 h.device.type == "cpu" and _same_bits(torch, h, c.cpu())
                 for h, c in zip(host, card)),
-                "the step-4 checkpoint restored onto the CPU is not "
-                "bitwise the card's state")
+                f"the step-{save_at} checkpoint restored onto the CPU is "
+                f"not bitwise the card's state")
             io["leaves"] = len(host)
             io["bytes"] = sum(t.numel() * t.element_size() for t in host)
             del cp, cs, host
@@ -2686,28 +2806,58 @@ def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
         check(p.dtype == torch.float32 and m.dtype == torch.float32
               and p.data_ptr() != m.data_ptr(),
               "params left f32, or the master aliases them")
+    del params, state, step_fn, gnorms, om, loss, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, losses=losses, grad_norm=gn,
+                step_s=step_s, peak_bytes=peak, attention_calls=calls, io=io)
+
+
+def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
+    """(a) llama3.2-1b at full width and depth in f32, remat "block", B x
+    S = 4 x 1,024 in 2 micro-batches, 8 AdamW steps through
+    ``build_train_step``: step time, tokens/s, peak memory, FLOP bound.
+    (b) the same run at full width cut to ``CUT_LAYERS`` layers: the
+    step-4 state saved, restored onto the CPU and held bitwise against the
+    card's; then ``train()`` resumes from that checkpoint on the card and
+    must repeat steps 4-7's losses."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, train
+    cfg = get_config("llama3.2-1b")
+    B, S, n_micro, steps, save_at = TRAIN_RUN
+    tcfg = TrainConfig(steps=steps, seq_len=S, global_batch=B,
+                       n_micro=n_micro, ckpt_every=save_at, keep=1,
+                       ckpt_dir=str(ckpt_dir), seed=0, log_every=1,
+                       optimizer=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                             total_steps=steps))
+    opts = tm.RuntimeOptions(dtype="float32", remat="block")
+    full = _train_run(torch, kern, tm, cm, cfg, tcfg, opts)
+    n_params, losses, step_s = (full["n_params"], full["losses"],
+                                full["step_s"])
     med = statistics.median(step_s[2:steps])
     tokens = B * S
     flops = train_flops(cfg, n_params, B, S)
     bound_ms = flops["total"] / PEAK_OPS["float32"] * 1e3
     log(f"train llama3.2-1b f32 step_ms={med * 1e3:.1f} "
-        f"tokens/s={tokens / med:.0f} peak_GB={peak / 1e9:.2f} "
+        f"tokens/s={tokens / med:.0f} peak_GB={full['peak_bytes'] / 1e9:.2f} "
         f"flop_bound_ms={bound_ms:.1f}")
     log(f"train llama3.2-1b: {n_params} parameters, losses "
         + " ".join(f"{x:.4f}" for x in losses) + ", grad_norm "
-        + " ".join(f"{x:.3f}" for x in gn) + f", step_ms "
-        + " ".join(f"{x * 1e3:.1f}" for x in step_s)
+        + " ".join(f"{x:.3f}" for x in full["grad_norm"]) + ", step_ms "
+        + " ".join(f"{x * 1e3:.1f}" for x in step_s))
+
+    # (b) the checkpoint part at CUT_LAYERS layers: save, restore onto the
+    # CPU, and the loop's own resume from the step-4 checkpoint, on the card
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    part = _train_run(torch, kern, tm, cm, cut, tcfg, opts, ckpt_dir)
+    straight, io = part["losses"], part["io"]
+    log(f"train llama3.2-1b at {CUT_LAYERS} layers: {part['n_params']} "
+        f"parameters, losses " + " ".join(f"{x:.4f}" for x in straight)
         + f"; checkpoint {io['bytes'] / 1e9:.2f} GB in {io['leaves']} "
         f"leaves: save {io['save_s']:.1f}s, restore onto the CPU "
         f"{io['restore_cpu_s']:.1f}s (bitwise)")
-    straight = losses
-    del params, state, step_fn, gnorms, om, loss, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (b) the loop's own resume from the step-4 checkpoint, on the card
     t0 = time.perf_counter()
-    out = train(cfg, tcfg, opts, log_fn=log, device="cuda")
+    out = train(cut, tcfg, opts, log_fn=log, device="cuda")
     io["resume_s"] = time.perf_counter() - t0
     resumed = out["losses"]
     check(out["last_step"] == steps and len(resumed) == steps - save_at,
@@ -2717,19 +2867,22 @@ def train_full_width(torch, kern, tm, cm, get_config, ckpt_dir):
                                                   straight[save_at:]))
     check(rel <= 1e-5, f"resumed losses {resumed} differ from the straight "
           f"run's {straight[save_at:]} (rel {rel:.2e})")
-    log(f"train resume from step {save_at}: losses "
+    log(f"train resume from step {save_at} ({CUT_LAYERS} layers): losses "
         + " ".join(f"{x:.6f}" for x in resumed)
         + f" {'bitwise equal to' if bitwise else f'within rel {rel:.2e} of'}"
         f" the straight run's; train() took {io['resume_s']:.1f}s (init, "
         f"restore, {steps - save_at} steps, step-{steps} checkpoint)")
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(n_params=n_params, losses=straight, grad_norm=gn,
+    return dict(n_params=n_params, losses=losses, grad_norm=full["grad_norm"],
                 step_ms=[x * 1e3 for x in step_s], step_ms_median=med * 1e3,
-                tokens_per_s=tokens / med, peak_bytes=peak, flops=flops,
-                flop_bound_ms=bound_ms, attention_calls=calls,
-                resumed_losses=resumed, resume_bitwise=bitwise,
-                resume_rel=rel, io=io)
+                tokens_per_s=tokens / med, peak_bytes=full["peak_bytes"],
+                flops=flops, flop_bound_ms=bound_ms,
+                attention_calls=full["attention_calls"],
+                checkpoint_layers=CUT_LAYERS,
+                checkpoint_n_params=part["n_params"],
+                checkpoint_losses=straight, resumed_losses=resumed,
+                resume_bitwise=bitwise, resume_rel=rel, io=io)
 
 
 def train_bf16(torch, tm, get_config):
@@ -3500,7 +3653,7 @@ def seq_rank(rank, n, check_f32):
     import repro_torch.models as tm
     torch.backends.cuda.matmul.allow_tf32 = False
     group = ShardGroup.from_world(n, "cuda")
-    cfg = get_config("llama3.2-1b")
+    cfg = cut_llama(get_config)
     L = cfg.n_layers
     toks = _seq_prompts(torch, cfg.vocab).to("cuda")
     out = dict(device=str(group.device))
@@ -4016,19 +4169,21 @@ def sync_audit(torch, tm, ServeEngine, get_config, smi) -> dict:
 
 # -------- phase 22: head width 256, paligemma-3b's decoder text-only -------- #
 
-def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config):
+def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config,
+                         derive=PALI_TEXT, name="paligemma text", phase=22):
     """paligemma-3b's Gemma-2B decoder served as a text-only causal LM
-    (``PALI_TEXT``: 18 layers, d_model 2048, 8 heads over 1 KV head at
-    head width 256) at full width and depth in bf16, the port's seeded
-    init: the continuous engine (native, int8, n-gram k=4; pages of 32
-    keys) and the static engine (serve_bucketed, native and int8), each
-    run twice through ``engine_twice`` (the same tokens, exact launches,
-    no plain version, no masked attention). Prints each spec-off run's
-    decode micro-step and tokens/s beside its byte bound over 3.35 TB/s:
-    the weights a step reads (every parameter: the tied head reads the
-    whole embedding table) and the KV its tokens read, averaged over the
-    run's micro-steps. Then ``f32_text_card_vs_cpu``."""
-    cfg = get_config("paligemma-3b").replace(**PALI_TEXT)
+    (``derive``: ``PALI_TEXT``, 18 layers, d_model 2048, 8 heads over 1 KV
+    head at head width 256; or ``WIDE_TEXT``, its heads regrouped as 4 of
+    512) at full width and depth in bf16, the port's seeded init: the
+    continuous engine (native, int8, n-gram k=4; pages of 32 keys) and the
+    static engine (serve_bucketed, native and int8), each run twice
+    through ``engine_twice`` (the same tokens, exact launches, no plain
+    version, no masked attention). Prints each spec-off run's decode
+    micro-step and tokens/s beside its byte bound over 3.35 TB/s: the
+    weights a step reads (every parameter: the tied head reads the whole
+    embedding table) and the KV its tokens read, averaged over the run's
+    micro-steps. Then ``f32_text_card_vs_cpu``."""
+    cfg = get_config("paligemma-3b").replace(**derive)
     for path in ("paged", "static"):
         check(tm.kernel_width_reason(cfg, path) is None,
               f"{cfg.name} text-only: the {path} path refuses head width "
@@ -4050,7 +4205,7 @@ def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config):
         launches[label], runs[label] = engine_twice(
             torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
             static_reqs if sched == "static" else reqs, label, sched,
-            PALI_TEXT_NEW, model="paligemma text", page_size=PALI_TEXT_PS,
+            PALI_TEXT_NEW, model=name, page_size=PALI_TEXT_PS,
             cm=cm, **kw)
         if "ngram" in label:
             continue
@@ -4066,7 +4221,7 @@ def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config):
                    bound_ms=(w_bytes * steps + kv) / steps
                    / HBM_BYTES_PER_S * 1e3,
                    weight_bytes=w_bytes, kv_bytes_per_step=kv / steps)
-        log(f"paligemma text {label}: decode micro-step {row['step_ms']:.2f}"
+        log(f"{name} {label}: decode micro-step {row['step_ms']:.2f}"
             f"ms (host clock, mean of {steps}), tokens/s "
             f"{row['tokens_per_s']:.1f}, against its byte bound "
             f"{row['bound_ms']:.3f}ms ({w_bytes / 1e9:.2f} GB weights + "
@@ -4074,17 +4229,17 @@ def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    f32 = f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg)
+    f32 = f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg, name)
     phase_s = time.perf_counter() - t_phase
-    log(f"phase 22 (paligemma-3b text-only, head width 256) {phase_s:.1f}s")
+    log(f"phase {phase} ({name}, head width {cfg.head_dim}) {phase_s:.1f}s")
     return dict(runs=runs, n_layers=L, params_bytes=w_bytes,
                 kv_bytes_per_position=kv_pos * 2, f32=f32,
                 phase_s=phase_s), launches
 
 
-def f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg_full):
+def f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg_full, name):
     """The text-only decoder at full width cut to ``PALI_TEXT_F32_LAYERS``
-    layers, in f32 (the kernels' FMA bodies at head width 256): the
+    layers, in f32 (the kernels' FMA bodies at its head width): the
     continuous engine and the static engine on the card against the same
     engines on the CPU (plain versions), the
     same seeded weights; tokens equal over each request's tie-free prefix
@@ -4119,17 +4274,88 @@ def f32_text_card_vs_cpu(torch, tm, ServeEngine, cfg_full):
                 n = tie_free_prefix(torch, tm, cfg, params, opts, prompt,
                                     want)
                 check(n < len(want) and got[:n] == want[:n],
-                      f"f32 {cfg.name} text {label}: card tokens diverged "
+                      f"f32 {name} {label}: card tokens diverged "
                       f"from the CPU's before any near-tie: {got} vs {want}")
                 n_tie += 1
         result[label] = dict(near_tie_requests=n_tie)
-        log(f"f32 paligemma text ({cfg.n_layers} layers, full width) "
+        log(f"f32 {name} ({cfg.n_layers} layers, full width) "
             f"{label}: card == CPU on {len(reqs)} x {new} tokens "
             f"({n_tie} requests differ after a top-2 gap < 1e-4)")
     del params, cpu_params
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+# ------------------- phase 24: the port's examples (A16) ------------------- #
+
+def _ckpt_leaves(step_dir):
+    import numpy as np
+    with np.load(step_dir / "leaves.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def examples_on_card(torch, kern) -> dict:
+    """``repro_torch.examples.serve_batched`` at its defaults on the card
+    (8 x 64 prompt tokens, 64 new, native and int8, then the ragged
+    requests bucketed and continuous, which must agree; no plain version
+    of a kernel); then ``train_100m --tiny`` for ``EXAMPLE_STEPS`` steps
+    with a checkpoint every half of them, and the same command restarted
+    from the middle (the last checkpoint removed, the command run again):
+    the resumed steps' losses and the last checkpoint must equal the
+    straight run's bitwise. The checkpoints live under build/ and are
+    removed."""
+    import json as _json
+    import shutil
+    from repro_torch.examples import serve_batched, train_100m
+    from repro_torch.kernels import flash_attention as flash
+    t0 = time.perf_counter()
+    zero_counts(kern)
+    with count_plain(kern, flash) as plain:
+        served = serve_batched.main(["--device", "cuda"])
+    check(not plain, f"serve_batched called plain versions: {plain}")
+    launched = read_counts(kern)
+    check(all(v > 0 for k, v in launched.items()
+              if k != "spec_verify_attention"),
+          f"serve_batched did not launch its paths' kernels: {launched}")
+    serve_s = time.perf_counter() - t0
+    base = ROOT / "build" / "smoke_train100m"
+    straight, restarted = base / "straight", base / "restarted"
+    half = EXAMPLE_STEPS // 2     # the example checkpoints every half run
+    argv = ["--tiny", "--steps", str(EXAMPLE_STEPS), "--device", "cuda"]
+
+    def losses(d):
+        return [_json.loads(x)["loss"]
+                for x in (d / "metrics.jsonl").read_text().splitlines()]
+    t0 = time.perf_counter()
+    try:
+        train_100m.main(argv + ["--ckpt-dir", str(straight), "--fresh"])
+        train_100m.main(argv + ["--ckpt-dir", str(restarted), "--fresh"])
+        shutil.rmtree(restarted / f"step_{EXAMPLE_STEPS}")
+        text = train_100m.main(argv + ["--ckpt-dir", str(restarted)])
+        first, again = losses(straight), losses(restarted)
+        a = _ckpt_leaves(straight / f"step_{EXAMPLE_STEPS}")
+        b = _ckpt_leaves(restarted / f"step_{EXAMPLE_STEPS}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check(f"resumed from step {half}" in text, "train_100m did not resume")
+    check(first[-1] < first[0], f"train_100m's loss did not fall: {first}")
+    check(again[:EXAMPLE_STEPS] == first and again[EXAMPLE_STEPS:]
+          == first[half:], f"the restarted run's losses {again} are not "
+          f"the straight run's {first} bitwise")
+    check(a.keys() == b.keys() and all(
+        (a[k] == b[k]).all() and a[k].dtype == b[k].dtype for k in a),
+        f"the restarted run's step-{EXAMPLE_STEPS} checkpoint is not the "
+        f"straight run's bitwise")
+    train_s = time.perf_counter() - t0
+    log(f"examples: serve_batched {serve_s:.1f}s (launches "
+        + " ".join(f"{k.split('_')[0]}={v}" for k, v in launched.items())
+        + f"); train_100m --tiny {EXAMPLE_STEPS} steps, restarted at step "
+        f"{half}: losses and the step-{EXAMPLE_STEPS} checkpoint ({len(a)} "
+        f"leaves) bitwise the straight run's, {train_s:.1f}s")
+    return dict(serve_batched=served, launches=launched, serve_s=serve_s,
+                train_losses=first, resumed_losses=again[EXAMPLE_STEPS:],
+                train_s=train_s)
 
 
 # -------------------------------- main ---------------------------------- #
@@ -4159,6 +4385,10 @@ def main() -> None:
                     help="only build the kernels, report their head-width-"
                     "256 instances, check and time the head-width-256 "
                     "kernel cases and run phase 22; prints no result line")
+    ap.add_argument("--wide-heads-only", action="store_true",
+                    help="only build the kernels, report their head-width-"
+                    "384 and -512 instances, check and time the wide-head "
+                    "kernel cases and run phase 23; prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -4239,7 +4469,8 @@ def main() -> None:
           f"the paged decode library {paged_lib} is not built from the "
           f"redesigned source and its headers {sorted(paged_hdrs)}")
     paged_regs = paged_ptxas(kbuild)
-    regs256 = head256_ptxas(kbuild)
+    regs256 = width_ptxas(kbuild, 256)
+    regs_wide = {dh: width_ptxas(kbuild, dh) for dh in WIDE_DIMS}
 
     if args.head256_only:
         from repro_torch.models import common as cm
@@ -4253,6 +4484,23 @@ def main() -> None:
             Path(args.out).write_text(json.dumps(dict(
                 smi=smi, build_s=built, head256_ptxas=regs256,
                 kernel_cases=rows, paligemma_text=pali_text), indent=1,
+                default=str))
+        return
+    if args.wide_heads_only:
+        from repro_torch.models import common as cm
+        t0 = time.perf_counter()
+        rows = check_kernels(torch, kern, flash,
+                             wide_cases(torch, kern, flash))
+        log(f"phase 3 dh=384/512 {time.perf_counter() - t0:.1f}s")
+        wide_text, _ = serve_paligemma_text(
+            torch, kern, tm, cm, ServeEngine, get_config, WIDE_TEXT,
+            "dh-512 text", 23)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(
+                smi=smi, build_s=built, wide_ptxas=regs_wide,
+                kernel_cases=rows, wide_text=wide_text), indent=1,
                 default=str))
         return
     if args.kernels_only:
@@ -4307,6 +4555,8 @@ def main() -> None:
     rows += check_kernels(torch, kern, flash,
                           head256_cases(torch, kern, flash))
     mark("3 dh=256")
+    rows += check_kernels(torch, kern, flash, wide_cases(torch, kern, flash))
+    mark("3 dh=384/512")
 
     # ---- phase 4 ----
     cfg = get_config("llama3.2-1b")
@@ -4392,6 +4642,16 @@ def main() -> None:
 
     mark("22")
 
+    # ---- phase 23: head width 512, the text decoder regrouped ----
+    wide_text, wide_text_launches = serve_paligemma_text(
+        torch, kern, tm, cm, ServeEngine, get_config, WIDE_TEXT,
+        "dh-512 text", 23)
+    mark("23")
+
+    # ---- phase 24: the port's examples ----
+    examples = examples_on_card(torch, kern)
+    mark("24")
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -4459,7 +4719,8 @@ def main() -> None:
     # shards no verify pass runs: its launches there are 0
     for n, ln in shard_launches.items():
         entries += [(name, f"{head[name]} shard=1/{n}", ln[name],
-                     f"llama3.2-1b shards={n}") for name in PAGED]
+                     f"llama3.2-1b ({CUT_LAYERS} of 16 layers) shards={n}")
+                    for name in PAGED]
     # the concurrency sweep's paths (phase 19 (f)): the paged entries at
     # their main-path case (llama3.2-1b's width), the static ones at the
     # sweep's longest wave, with the launches of every serve of the sweep
@@ -4486,6 +4747,10 @@ def main() -> None:
     entries += [(name, PALI_TEXT_MAIN[name],
                  pali_text_launches[run][name], "paligemma-3b text-only")
                 for name, run in pali_run.items()]
+    # the head-width-512 paths (phase 23), the same runs' launches
+    entries += [(name, WIDE_MAIN[name], wide_text_launches[run][name],
+                 "paligemma-3b text-only, 4 heads of 512")
+                for name, run in pali_run.items()]
     rows = rows + shard_rows
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
@@ -4511,10 +4776,15 @@ def main() -> None:
             deepseek=deepseek, mamba=mamba, zamba=zamba, whisper=whisper,
             f32_families=f32_families, sharded=sharded, train=train,
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
-            paligemma_text=pali_text, phase_s=phase_s, build_s=built,
+            paligemma_text=pali_text, wide_text=wide_text,
+            examples=examples,
+            wide_384={name: next(r for r in rows if r["name"] == name
+                                 and r["case"] == case)
+                      for name, case in WIDE_384.items()},
+            phase_s=phase_s, build_s=built,
             flash_hmma=hmma,
             chunk_hmma=chunk_hmma, paged_ptxas=paged_regs,
-            head256_ptxas=regs256,
+            head256_ptxas=regs256, wide_ptxas=regs_wide,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

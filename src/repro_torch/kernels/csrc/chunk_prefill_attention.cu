@@ -57,14 +57,26 @@
 //     rows (the verify windows at group 1), whose 4 warps take different
 //     16-key slices of each 64-key stage and merge their (m, l, acc)
 //     through shared memory at the end;
+//   * above dh 256 (384, 512) two warps share each (row tile, key slice),
+//     each holding half of O's columns (O alone would take dh / 2 f32
+//     registers a thread: 256 at 512, past the 255 a thread has): 8 warps
+//     on a 64-row tile, 4 on a 16-row tile (2 along the keys), 32 keys a
+//     stage either way (chunk_split takes dh for it). Both warps of a pair
+//     compute the slice's whole S = Q K^T and run the same softmax on it,
+//     so they hold bitwise the same P, m and l, with no exchange through
+//     shared memory and no barrier between them; the cost is Q K^T's
+//     products twice, on a kernel bound by the latency of its key steps
+//     (the other way, partial dots summed through shared memory, puts a
+//     store, a barrier and a load in every key step);
 //   * online softmax in f32 registers in the log2 domain with the
 //     reference's rules (paged_attention.cuh); a warp masks per element
 //     only on steps that cross one of its rows' frontiers, and skips steps
 //     past all of them.
 // f32 queries, and pools of another float type, keep the shared FMA
-// row-tile body (attend_rows, one pass; 8 rows a block at dh 256). Head
-// widths 64, 128 and 256 (dispatch.cuh). Next: wgmma with TMA, which needs
-// 64-row warpgroup tiles and a gather of paged rows per TMA box.
+// row-tile body (attend_rows, one pass; 8 rows a block at dh 256 and 384,
+// 4 at 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh). Next:
+// wgmma with TMA, which needs 64-row warpgroup tiles and a gather of paged
+// rows per TMA box.
 #include <type_traits>
 
 #include "dispatch.cuh"
@@ -112,8 +124,7 @@ chunk_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
 namespace chunk_tc {
 
-constexpr int NWARP = 4;
-constexpr int NTHR = NWARP * 32;
+constexpr int NWARP = 4;         // warps along the rows and the keys (Cfg)
 constexpr int MAX_SPLIT = 4096;  // keys a split at most (their pool rows sit in shared memory)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -125,12 +136,19 @@ __host__ __device__ constexpr int row_bytes(int split) { return (split * 4 + 15)
 // dh 128 Q stays in registers and passes through a stage (or the converted
 // tile) of a ring of three; at 256 its 64 registers beside O's 128 f32
 // would crowd 255, so Q keeps a region of its own, each key step reads its
-// fragments with ldmatrix, and the ring holds two stages.
+// fragments with ldmatrix, and the ring holds two stages. Above 256 WD = 2
+// warps share each (row tile, key slice), each holding DW = dh / 2 of O's
+// columns (the note at the top): 2 warps along the keys with 16-row
+// tiles, 1 with 64-row tiles, so a stage holds 32 keys (two stages of 64
+// would pass a block's shared memory at 512).
 template <typename T, typename KV, int DH, int WR>
 struct Cfg {
   static constexpr bool Q_SMEM = DH >= 256;         // Q's fragments from shared memory
   static constexpr int STAGES = Q_SMEM ? 2 : 3;     // ring of K/V stages in flight
-  static constexpr int WK = NWARP / WR;             // warps along the keys
+  static constexpr int WD = DH > 256 ? 2 : 1;       // warps along dh
+  static constexpr int DW = DH / WD;                // O's columns a warp holds
+  static constexpr int WK = WR == 1 ? NWARP / WD : 1;   // warps along the keys
+  static constexpr int NTHR = WR * WK * WD * 32;    // threads a block
   static constexpr int BM = 16 * WR;                // rows a block
   static constexpr int KW = WK == 1 ? 32 : 16;      // keys a warp takes a step
   static constexpr int SK = KW * WK;                // keys a stage
@@ -157,7 +175,7 @@ struct Cfg {
 // partials of query row (b, c, hq) at (((b * C + c) * H + hq) * n_split +
 // split), m in the natural-log domain, acc scaled by the v scale.
 template <typename T, typename KV, int DH, int WR>
-__global__ void __launch_bounds__(NTHR)
+__global__ void __launch_bounds__(Cfg<T, KV, DH, WR>::NTHR)
 chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
                  const int* __restrict__ pt, Window win, const float* __restrict__ ksc_p,
                  const float* __restrict__ vsc_p, T* __restrict__ out,
@@ -167,6 +185,7 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
   static_assert(sizeof(T) == 2, "tensor-core tiles take bf16 or f16");
   using G = Cfg<T, KV, DH, WR>;
   constexpr int BM = G::BM, KW = G::KW, SK = G::SK, LD = G::LD, STAGES = G::STAGES;
+  constexpr int NTHR = G::NTHR, DW = G::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* s_row = reinterpret_cast<int*>(smem_raw);   // pool row of each key of the split
   unsigned char* ring = smem_raw + row_bytes(split);
@@ -181,7 +200,8 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
   const int r0 = (blockIdx.z % n_rt) * BM;
   const int nrows = min(BM, rows - r0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr0 = (warp % WR) * 16, wk = warp / WR;
+  const int wr0 = (warp % WR) * 16, wk = warp / WR % G::WK;
+  const int dc = warp / (WR * G::WK) * DW;   // the warp's first column of O
   const int st = win.start_of(b), nv = min(win.valid_of(b), n_pp * ps);
   auto frontier = [&](int gr) { return min(st + gr / group + 1, nv); };
   const int lo = si * split;
@@ -293,9 +313,9 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
     for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], sq_frag + kk * 16);
   }
 
-  float o[DH / 8][4];
+  float o[DW / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
@@ -381,7 +401,7 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
         l_r[e >> 1] += p;
       }
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < DW / 8; ++n) {
       o[n][0] *= corr[0];
       o[n][1] *= corr[0];
       o[n][2] *= corr[1];
@@ -396,10 +416,10 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
                               pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int nn = 0; nn < DH / 16; ++nn) {
-        unsigned bv[4];  // keys kk*16 + (0..7 | 8..15), dims nn*16 + (0..7 | 8..15)
-        ldsm_x4_t(bv, svw + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + nn * 16 +
-                          ((lane >> 4) << 3));
+      for (int nn = 0; nn < DW / 16; ++nn) {
+        unsigned bv[4];  // keys kk*16 + (0..7 | 8..15), dims dc + nn*16 + (0..7 | 8..15)
+        ldsm_x4_t(bv, svw + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + dc +
+                          nn * 16 + ((lane >> 4) << 3));
         mma16816<T>(o[2 * nn], pa, bv[0], bv[1]);
         mma16816<T>(o[2 * nn + 1], pa, bv[2], bv[3]);
       }
@@ -427,27 +447,27 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
   };
 
   if constexpr (G::WK == 1) {
-    // each warp writes its own rows from the accumulators
+    // each warp writes its own rows (and columns) from the accumulators
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int lr = wr0 + (lane >> 2) + 8 * i;
       if (lr >= nrows) continue;
       const size_t orow = out_row(lr);
-      const int d0 = (lane & 3) << 1;
+      const int d0 = dc + ((lane & 3) << 1);
       if (direct) {
         const float inv = vsc / fmaxf(l_r[i], 1e-30f);
         T* dst = out + orow * DH + d0;
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n)
+        for (int n = 0; n < DW / 8; ++n)
           *reinterpret_cast<unsigned*>(dst + n * 8) =
               pack2<T>(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
       } else {
         float* dst = part_acc + (orow * n_split + si) * DH + d0;
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n)
+        for (int n = 0; n < DW / 8; ++n)
           *reinterpret_cast<float2*>(dst + n * 8) =
               make_float2(o[n][2 * i] * vsc, o[n][2 * i + 1] * vsc);
-        if ((lane & 3) == 0) {
+        if ((lane & 3) == 0 && dc == 0) {
           part_m[orow * n_split + si] = m_r[i] <= NEG_INF / 2 ? NEG_INF : m_r[i] * LN2;
           part_l[orow * n_split + si] = l_r[i];
         }
@@ -464,11 +484,11 @@ chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp, const KV* _
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int lr = (lane >> 2) + 8 * i;
-      float* dst = sm_o + (wk * 16 + lr) * DH + ((lane & 3) << 1);
+      float* dst = sm_o + (wk * 16 + lr) * DH + dc + ((lane & 3) << 1);
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
+      for (int n = 0; n < DW / 8; ++n)
         *reinterpret_cast<float2*>(dst + n * 8) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
-      if ((lane & 3) == 0) {
+      if ((lane & 3) == 0 && dc == 0) {
         sm_m[wk * 16 + lr] = m_r[i];
         sm_l[wk * 16 + lr] = l_r[i];
       }
@@ -512,7 +532,7 @@ void launch(const void* q, const void* kp, const void* vp, const void* pt, Windo
   float* l = acc ? m + n_rows * n_split : nullptr;
   const int n_rt = (C * (H / Hkv) + G::BM - 1) / G::BM;
   const int smem = row_bytes(split) + G::BODY;
-  chunk_mma_kernel<T, KV, DH, WR><<<dim3(n_split, Hkv, B * n_rt), NTHR, smem, stream>>>(
+  chunk_mma_kernel<T, KV, DH, WR><<<dim3(n_split, Hkv, B * n_rt), G::NTHR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
       static_cast<const int*>(pt), win, static_cast<const float*>(ksc),
       static_cast<const float*>(vsc), static_cast<T*>(out), acc, m, l, C, H, Hkv, ps, n_pp,

@@ -26,10 +26,10 @@
 // rows against a split is a few FLOP a byte. Any L is taken, as in the
 // earlier design.
 //
-// Head widths 64, 128 and 256 (paligemma-3b's, gemma3-1b's); at 256 a
-// pass-1 block stages 16-key tiles and takes 8 query rows at a time
-// (paged_attention.cuh, FmaRows), and the combine runs 256 threads a
-// block.
+// Head widths 64, 128, 256 (paligemma-3b's, gemma3-1b's), 384 and 512; a
+// pass-1 block stages TK = 4096 / dh keys a tile (16 at 256, 10 at 384, 8
+// at 512) and takes FmaRows query rows at a time (8 at 256 and 384, 4 at
+// 512: paged_attention.cuh), and the combine runs dh threads a block.
 #include "dispatch.cuh"
 #include "split_decode.cuh"
 
@@ -73,7 +73,7 @@ struct DenseDecodeLaunch {
 }  // namespace repro_paged
 
 // q, out: (B, H, dh); k/v caches: (B, L, Hkv, dh); kv_valid: (B,) int32;
-// dh: 64, 128 or 256; k/v scales: (Hkv,) f32 or null; part: f32 scratch of
+// dh: 64, 128, 256, 384 or 512; k/v scales: (Hkv,) f32 or null; part: f32 scratch of
 // B * H * n_split * (dh + 2) elements; split: keys a split (>= 1), n_split:
 // ceil(L / split) (>= 1). Returns cudaGetLastError() after the two
 // launches (the second is not made if the first is refused), or -1 for an

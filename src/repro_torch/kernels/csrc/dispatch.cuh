@@ -1,6 +1,6 @@
 // Type/width dispatch shared by the attention entry points: the wrapper
-// passes dtype codes (repro_paged::DType) and the head width (64, 128 or
-// 256), and Launch<T, KV, DH>::run is instantiated for every supported
+// passes dtype codes (repro_paged::DType) and the head width (64, 128,
+// 256, 384 or 512), and Launch<T, KV, DH>::run is instantiated for every supported
 // combination (dispatch: any query type against any K/V type, twelve
 // pairs a width; dispatch_same: K/V of the query's type).
 #pragma once
@@ -55,6 +55,8 @@ int dispatch(int dh, int q_dtype, int kv_dtype, A... args) {
     case 64: return launch_status(by_query<Launch, 64>(q_dtype, kv_dtype, args...));
     case 128: return launch_status(by_query<Launch, 128>(q_dtype, kv_dtype, args...));
     case 256: return launch_status(by_query<Launch, 256>(q_dtype, kv_dtype, args...));
+    case 384: return launch_status(by_query<Launch, 384>(q_dtype, kv_dtype, args...));
+    case 512: return launch_status(by_query<Launch, 512>(q_dtype, kv_dtype, args...));
     default: return UNSUPPORTED;
   }
 }
@@ -65,6 +67,8 @@ int dispatch_same(int dh, int dtype, A... args) {
     case 64: return launch_status(by_same<Launch, 64>(dtype, args...));
     case 128: return launch_status(by_same<Launch, 128>(dtype, args...));
     case 256: return launch_status(by_same<Launch, 256>(dtype, args...));
+    case 384: return launch_status(by_same<Launch, 384>(dtype, args...));
+    case 512: return launch_status(by_same<Launch, 512>(dtype, args...));
     default: return UNSUPPORTED;
   }
 }

@@ -42,10 +42,19 @@
 //   * causal: a row tile walks keys only up to its last row's position,
 //     and only tiles that cross the diagonal (or the end of the keys) mask
 //     per element. Any S == L is taken: the last row tile is short.
+//   * above dh 256 two warps share each 16-row tile (8 warps a block), each
+//     holding half of O's columns: O alone would need dh / 2 f32 registers
+//     a thread (256 at 512, past the 255 a thread has). Both warps compute
+//     the tile's whole S = Q K^T and run the same softmax on it, so the
+//     two halves see bitwise the same P, with no exchange through shared
+//     memory and no barrier between them; the cost is Q K^T's products
+//     twice, on a kernel bound by the latency of its key steps, not by
+//     its tensor cores (the other way, partial dots summed through shared
+//     memory, adds a store, a barrier and a load to every key step).
 // f32 has no tensor-core product without TF32, so it keeps the shared
-// FMA row-tile body (attend_rows; 8 rows a block at dh 256). Head widths
-// 64, 128 and 256 (dispatch.cuh). Next (ROADMAP A14): 32 rows a warp,
-// then wgmma with TMA.
+// FMA row-tile body (attend_rows; 8 rows a block at dh 256 and 384, 4 at
+// 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh). Next
+// (ROADMAP A14): 32 rows a warp, then wgmma with TMA.
 #include <type_traits>
 
 #include "dispatch.cuh"
@@ -78,18 +87,23 @@ namespace flash_tc {
 
 constexpr int BM = 64;         // query rows a block
 constexpr int BN = 32;         // keys a staged tile
-constexpr int NWARP = BM / 16; // 16 rows a warp
-constexpr int NTHR = NWARP * 32;
+constexpr int WR = BM / 16;    // warps along the rows: 16 rows a warp
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Up to dh 128 Q stays in registers and passes through the last stage of
 // a ring of three; at 256 its 64 registers beside O's 128 f32 would crowd
 // 255, so Q keeps a region of its own and each key step reads its
 // fragments with ldmatrix, beside a ring of two (99 KB: two blocks an SM).
+// Above 256 WD = 2 warps share each 16-row tile, each holding DW = dh / 2
+// of O's columns (the note at the top): 147 and 195 KB at 384 and 512, 8
+// warps, one block an SM.
 template <int DH>
 struct Cfg {
   static constexpr bool Q_SMEM = DH >= 256;   // Q's fragments from shared memory
   static constexpr int STAGES = Q_SMEM ? 2 : 3;  // ring of K/V tiles in flight
+  static constexpr int WD = DH > 256 ? 2 : 1;    // warps along dh, DW columns of O each
+  static constexpr int DW = DH / WD;
+  static constexpr int NTHR = WR * WD * 32;
   static constexpr int LD = DH + 8;        // padded row, elements (+16 bytes)
   static constexpr int CPR = DH / 8;       // 16-byte chunks a row
   static constexpr int TILE = BN * LD;     // one K or V tile, elements
@@ -99,12 +113,12 @@ struct Cfg {
 };
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(NTHR)
+__global__ void __launch_bounds__(Cfg<DH>::NTHR)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int S, int H, int Hkv, int causal, float scale_log2) {
   static_assert(sizeof(T) == 2, "tensor-core tiles take bf16 or f16");
   using C = Cfg<DH>;
-  constexpr int LD = C::LD, STAGES = C::STAGES;
+  constexpr int LD = C::LD, STAGES = C::STAGES, NTHR = C::NTHR, DW = C::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* skv = reinterpret_cast<T*>(smem_raw);  // stage s: K at 2s * TILE, V after it
   // Q: past the ring (Q_SMEM), else in the last stage until its first tile
@@ -151,7 +165,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (t < n_tiles) load_tile(t);
     cp_async_commit();
   }
-  const int wr0 = warp * 16;
+  const int wr0 = (warp % WR) * 16;
+  const int dc = (warp / WR) * DW;   // the warp's first column of O
   const T* sq_frag = sq + (wr0 + (lane & 15)) * LD + ((lane >> 4) << 3);
   // Q's fragments: in registers for the whole walk, or (Q_SMEM) loaded
   // from shared memory at each key step, after that step's barrier
@@ -163,9 +178,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], sq_frag + kk * 16);
   }
 
-  float o[DH / 8][4];
+  float o[DW / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
@@ -239,7 +254,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         l_r[e >> 1] += p;
       }
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < DW / 8; ++n) {
       o[n][0] *= corr[0];
       o[n][1] *= corr[0];
       o[n][2] *= corr[1];
@@ -254,10 +269,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                               pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int nn = 0; nn < DH / 16; ++nn) {
-        unsigned bv[4];  // keys kk*16 + (0..7 | 8..15), dims nn*16 + (0..7 | 8..15)
-        ldsm_x4_t(bv, sv + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + nn * 16 +
-                          ((lane >> 4) << 3));
+      for (int nn = 0; nn < DW / 16; ++nn) {
+        unsigned bv[4];  // keys kk*16 + (0..7 | 8..15), dims dc + nn*16 + (0..7 | 8..15)
+        ldsm_x4_t(bv, sv + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + dc +
+                          nn * 16 + ((lane >> 4) << 3));
         mma16816<T>(o[2 * nn], pa, bv[0], bv[1]);
         mma16816<T>(o[2 * nn + 1], pa, bv[2], bv[3]);
       }
@@ -277,9 +292,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (lr < nrows) {
       const int gr = r0 + lr;
       T* dst = out + ((static_cast<size_t>(b) * S + gr / group) * H + h * group + gr % group) * DH +
-               ((lane & 3) << 1);
+               dc + ((lane & 3) << 1);
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
+      for (int n = 0; n < DW / 8; ++n)
         *reinterpret_cast<unsigned*>(dst + n * 8) =
             pack2<T>(o[n][2 * i] / l_r[i], o[n][2 * i + 1] / l_r[i]);
     }
@@ -311,7 +326,7 @@ struct FlashLaunch {
         smem_set = true;
       }
       dim3 grid(Hkv, B, (rows + BM - 1) / BM);
-      flash_mma_kernel<T, DH><<<grid, NTHR, smem, stream>>>(
+      flash_mma_kernel<T, DH><<<grid, Cfg<DH>::NTHR, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<T*>(out), S, H, Hkv, causal, scale * LOG2E);
     }

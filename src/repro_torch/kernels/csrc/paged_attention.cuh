@@ -20,9 +20,10 @@
 // tile's rows from shared memory; measured latency bound on the H100, by
 // the serial tile walk, not by bandwidth):
 //   * one thread block of NT threads per (sequence, kv head, row tile) of
-//     FmaRows<DH> rows (16, 8 at head width 256);
-//   * the keys are walked in tiles of TK = 4096 / DH positions, which may
-//     span several pages: with PagedRows each staged vector reads its own
+//     FmaRows<DH> rows (16; 8 at head widths 256 and 384, 4 at 512);
+//   * the keys are walked in tiles of TK = 4096 / DH positions (10 at
+//     head width 384: no loop here takes TK to be a power of two), which
+//     may span several pages: with PagedRows each staged vector reads its own
 //     page id from the page table (there is no scalar prefetch) and the id
 //     is clamped to the null page 0 when it is out of [0, n_pages);
 //   * K and V tiles are staged in shared memory as f32 with 16-byte loads;
@@ -93,14 +94,15 @@ struct Tile {
   static constexpr int KSTRIDE = DH + 1; // padded K row: conflict-free dots
 };
 
-// Query rows an FMA block takes at a time: MAX_ROWS, and 8 at head width
-// 256, where 16 f32 rows beside a K and a V tile (Smem, 50.4 KB) would
-// pass the 48 KB of static shared memory; 8 take 41.6 KB. The accumulator
-// stays at 16 f32 a thread. The grids that launch attend_rows divide
-// their rows by it.
+// Query rows an FMA block takes at a time: MAX_ROWS, 8 at head widths 256
+// and 384 and 4 at 512, where more f32 rows beside a K and a V tile (Smem)
+// would pass the 48 KB of static shared memory: 16 rows at 256 take 50.4
+// KB, 8 take 41.6; at 384 8 rows take 42.4 KB; at 512 8 take 48.4, 4
+// take 40.2. The accumulator stays at 16 to 24 f32 a thread. The grids
+// that launch attend_rows divide their rows by it.
 template <int DH>
 struct FmaRows {
-  static constexpr int value = DH >= 256 ? 8 : MAX_ROWS;
+  static constexpr int value = DH >= 512 ? 4 : DH >= 256 ? 8 : MAX_ROWS;
 };
 
 // ROWS query rows against a K and a V tile.
@@ -114,9 +116,14 @@ struct Smem {
   float l[ROWS];
   float corr[ROWS];
 };
-static_assert(sizeof(Smem<256, FmaRows<256>::value>) <= 48 * 1024 &&
-                  sizeof(Smem<128, FmaRows<128>::value>) <= 48 * 1024,
+static_assert(sizeof(Smem<64, FmaRows<64>::value>) <= 48 * 1024 &&
+                  sizeof(Smem<128, FmaRows<128>::value>) <= 48 * 1024 &&
+                  sizeof(Smem<256, FmaRows<256>::value>) <= 48 * 1024 &&
+                  sizeof(Smem<384, FmaRows<384>::value>) <= 48 * 1024 &&
+                  sizeof(Smem<512, FmaRows<512>::value>) <= 48 * 1024,
               "an FMA block's tiles fit the 48 KB of static shared memory");
+static_assert(FmaRows<384>::value * 384 % NT == 0 && FmaRows<512>::value * 512 % NT == 0,
+              "an FMA block's accumulator is whole elements a thread");
 
 // Stage key positions [base, base + TK) of kv head h into shared memory as
 // f32 (scaled when int8). Positions >= limit, or that rows_at places

@@ -47,10 +47,15 @@
 //     multiplies the accumulator, outside the products (the plain version
 //     scales in f32 before its dots: the last f32 places may differ).
 // Query rows past what the registers hold (R: 4 rows, 2 over int8) are
-// further row tiles of the grid. Head widths 64, 128 and 256 (dispatch.cuh):
-// at 256 a bf16/f16 key row spans all 32 lanes (a dot is a five-level
-// shuffle), an int8 row 16, and an f32 row (1 KB) 32 lanes of two loads
-// each, with half the keys a step (Geo); the combine runs 256 threads.
+// further row tiles of the grid. Head widths 64, 128, 256, 384 and 512
+// (dispatch.cuh): at 256 a bf16/f16 key row spans all 32 lanes (a dot is a
+// five-level shuffle), an int8 row 16, and an f32 row (1 KB) 32 lanes of
+// two loads each, with half the keys a step (Geo); at 384 a row is three
+// loads a lane over 16 (bf16/f16), 32 (f32) or 8 (int8) lanes, at 512 two
+// (bf16/f16), four (f32) or one (int8) over all 32; where a lane holds
+// more than 16 elements of a row (bf16/f16 and int8 at 384, f32 at 512) a
+// block takes one query row, else two at these widths; the combine runs
+// DH threads.
 #include "dispatch.cuh"
 #include "split_decode.cuh"
 
@@ -63,23 +68,33 @@ constexpr int MAX_SPLIT = 4096;   // keys a split at most (their pool rows sit i
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// How a key row of dh elements of KV lies across a warp's lanes. A row of
-// up to 512 bytes spans DH / VEC lanes, one 16-byte load each; a wider one
-// (f32 at dh 256: 1 KB) spans all 32, NV loads each, and a lane then takes
-// fewer keys a step, so that its loads in flight stay at 4 a buffer.
+// The largest power of two, at most `lanes` (32), that divides n (n > 0).
+__host__ __device__ constexpr int pow2_lanes(int n, int lanes = 32) {
+  return n % lanes == 0 ? lanes : pow2_lanes(n, lanes / 2);
+}
+
+// How a key row of dh elements of KV lies across a warp's lanes: its DH /
+// VEC 16-byte loads go to LPK lanes, the largest power of two up to 32
+// that divides them, NV loads a lane. A row of up to 512 bytes whose loads
+// are a power of two spans DH / VEC lanes, one load each; a wider one (f32
+// at dh 256, 1 KB; every type at 512) spans all 32, NV loads each. At dh
+// 384 a row is 3 x 2^k loads: 16 lanes of 3 loads (bf16/f16), 32 of 3
+// (f32), 8 of 3 (int8). A lane then takes fewer keys a step, so that its
+// loads in flight stay at most 4 a buffer; and the wider its slice (EPL),
+// the fewer query rows its registers hold (RMAX).
 template <typename KV, int DH>
 struct Geo {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(KV));  // elements a load
-  static constexpr int NV = DH / VEC > 32 ? DH / VEC / 32 : 1;   // loads a lane's slice
+  static constexpr int LPK = pow2_lanes(DH / VEC);  // lanes a key row
+  static constexpr int NV = DH / VEC / LPK;   // loads a lane's slice
   static constexpr int EPL = NV * VEC;        // elements of a key row a lane holds
-  static constexpr int LPK = DH / EPL;        // lanes a key row
   static constexpr int KPL = 32 / LPK;        // keys a warp-wide load
   static constexpr int U = KPL >= 8 ? 2 : 4 / NV;  // keys of K (and of V) a lane takes a step
   static constexpr int KW = U * KPL;          // keys a warp takes a step
   static constexpr int KB = KW * NWARP;       // keys a block takes a step
-  static constexpr int RMAX = EPL > 8 ? 2 : 4;  // query rows a block at most
+  static constexpr int RMAX = EPL > 16 ? 1 : EPL > 8 ? 2 : 4;  // query rows a block at most
   static_assert(LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "a key row spans 1 to 32 lanes");
-  static_assert(LPK * EPL == DH && U >= 1, "a lane's slice tiles the row");
+  static_assert(LPK * EPL == DH && U >= 1 && U * NV <= 4, "a lane's slice tiles the row");
 };
 
 // NV x 16 bytes of KV -> f32
@@ -337,8 +352,8 @@ void launch(const void* q, const void* kp, const void* vp, const void* pt, const
 
 }  // namespace paged_dec
 
-// Rows a block: the group itself up to two, else as many as the registers
-// hold (Geo::RMAX), the rest in further row tiles.
+// Rows a block: the group itself up to two (and up to RMAX), else as many
+// as the registers hold (Geo::RMAX), the rest in further row tiles.
 template <typename T, typename KV, int DH>
 struct DecodeLaunch {
   static void run(const void* q, const void* kp, const void* vp, const void* pt,
@@ -346,13 +361,14 @@ struct DecodeLaunch {
                   int B, int H, int Hkv, int ps, int n_pp, int n_pages, int split, int n_split,
                   float scale, cudaStream_t stream) {
     constexpr int RMAX = paged_dec::Geo<KV, DH>::RMAX;
+    constexpr int R2 = RMAX < 2 ? RMAX : 2;
     const int group = H / Hkv;
     if (group == 1)
       paged_dec::launch<T, KV, DH, 1>(q, kp, vp, pt, lens, ksc, vsc, part, out, B, H, Hkv, ps,
                                       n_pp, n_pages, split, n_split, scale, stream);
     else if (group == 2)
-      paged_dec::launch<T, KV, DH, 2>(q, kp, vp, pt, lens, ksc, vsc, part, out, B, H, Hkv, ps,
-                                      n_pp, n_pages, split, n_split, scale, stream);
+      paged_dec::launch<T, KV, DH, R2>(q, kp, vp, pt, lens, ksc, vsc, part, out, B, H, Hkv,
+                                       ps, n_pp, n_pages, split, n_split, scale, stream);
     else
       paged_dec::launch<T, KV, DH, RMAX>(q, kp, vp, pt, lens, ksc, vsc, part, out, B, H, Hkv,
                                          ps, n_pp, n_pages, split, n_split, scale, stream);

@@ -18,8 +18,10 @@ cache attention, reached through four entries:
   engine's decode (replaces ``decode_attention`` there).
 
 Every kernel here, and flash attention (``flash_attention.py``), takes
-head widths 64, 128 and 256 (``_HEAD_DIMS``): paligemma-3b's and
-gemma3-1b's 256 as well as the common 64 and 128.
+head widths 64, 128, 256, 384 and 512 (``_HEAD_DIMS``): paligemma-3b's and
+gemma3-1b's 256 as well as the common 64 and 128, and every multiple of
+128 up to 512 that the reference's routes take. Wider heads are refused
+(ROADMAP B8).
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
@@ -55,7 +57,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # head widths every kernel is built for (csrc/dispatch.cuh)
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 256, 384, 512)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -382,22 +384,25 @@ def chunk_on_tensor_cores(q_dtype, kv_dtype) -> bool:
 
 
 def chunk_split(B: int, Hkv: int, C: int, group: int, n_keys: int,
-                n_sm: int) -> int:
+                n_sm: int, dh: int) -> int:
     """Keys a split of the chunk kernel's tensor-core tiles
     (csrc/chunk_prefill_attention.cu) over a page table of ``n_keys =
-    n_pp * page_size`` keys.
+    n_pp * page_size`` keys, at head width ``dh``.
 
     A pure function of the shapes and the card's SM count, never of
     ``start`` or ``n_valid`` (which lie on the device: reading them would
     cost a device-to-host sync a layer). A block takes one split of one
     (sequence, kv head, row tile): rows come 64 a tile (16 when ``C *
-    group <= 16``) and keys 32 a stage (64 with 16-row tiles). The table is
-    cut into the number of splits that brings the blocks nearest to two an
-    SM, and into at least enough that no split exceeds four stages (at
-    most 256 keys; the kernel takes up to 4096); a split is whole stages.
-    ``ceil(n_keys / split)`` splits then cover the table."""
+    group <= 16``) and keys 32 a stage (64 with 16-row tiles up to head
+    width 256; above it two warps share each tile's columns and a stage
+    holds 32 keys, since two stages of 64 would not fit a block's shared
+    memory at 512). The table is cut into the number of splits that brings
+    the blocks nearest to two an SM, and into at least enough that no
+    split exceeds four stages (at most 256 keys; the kernel takes up to
+    4096); a split is whole stages. ``ceil(n_keys / split)`` splits then
+    cover the table."""
     rows = C * group
-    bm, sk = (16, 64) if rows <= 16 else (64, 32)
+    bm, sk = (16, 64 if dh <= 256 else 32) if rows <= 16 else (64, 32)
     units = B * Hkv * -(-rows // bm)
     n_keys = max(n_keys, 1)
     n_split = max(1, (2 * n_sm + units // 2) // units,
@@ -432,7 +437,8 @@ def _launch_chunk(name, q, k_pages, v_pages, page_table, start, *, n_valid=None,
     split, n_split, part = 0, 1, None
     if chunk_on_tensor_cores(q.dtype, k_pages.dtype):
         split = chunk_split(B, _split_heads(split_kv_heads, Hkv), C,
-                            H // Hkv, n_pp * ps, _sm_count(q.device.index))
+                            H // Hkv, n_pp * ps, _sm_count(q.device.index),
+                            dh)
         n_split = max(1, -(-(n_pp * ps) // split))
         if n_split > 1:
             # pass 1's partials: acc (B*C*H, n_split, dh), then m and l
@@ -631,9 +637,10 @@ def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int) -> int:
     ``kv_valid`` (which lies on the device: reading it would cost a
     device-to-host sync a layer). A pass-1 block takes one split of one
     (sequence, kv head) for the GQA group, 16 rows at a time (FmaRows: 8
-    at head width 256, where the rule stays the same, since paligemma-3b's
-    group of 8 is one pass either way), so the card holds ``B * Hkv *
-    ceil(group / 16)`` units of work a split.
+    at head widths 256 and 384, 4 at 512, where the rule stays the same:
+    it sizes the grid, and a block's passes over its rows read the split's
+    keys from L2), so the card holds ``B * Hkv * ceil(group / 16)`` units
+    of work a split.
     The cache is cut into the number of splits that brings that nearest to
     two an SM, and into at least enough that no split exceeds 128 keys, in
     multiples of 16 keys. ``ceil(L / split)`` splits then cover ``L``."""
@@ -699,7 +706,7 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
                      k_scale=None, v_scale=None):
     """Decode attention over a dense KV cache.
 
-    q: (B, H, dh), dh 64, 128 or 256; k/v_cache: (B, L, Hkv, dh) (int8
+    q: (B, H, dh), dh 64, 128, 256, 384 or 512; k/v_cache: (B, L, Hkv, dh) (int8
     when scales are given, else any of f32/bf16/f16), any L; kv_valid:
     (B,) int32 valid positions
     per sequence (positions >= kv_valid[b] are masked and, on the card,

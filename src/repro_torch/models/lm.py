@@ -310,9 +310,10 @@ def _kernel_layers(cfg: ArchConfig, path: str):
     (flash on a causal layer without a soft-cap), "decode" (the dense
     decode on a layer with neither a window nor a soft-cap) or "static"
     (both). Masked, windowed, soft-capped and MLA layers reach none. Every
-    kernel takes head widths 64, 128 and 256 (``kernels._HEAD_DIMS``), so
-    a width is refused only where it is none of these (the reduced twins'
-    16, or 80, 96, 192)."""
+    kernel takes head widths 64, 128, 256, 384 and 512
+    (``kernels._HEAD_DIMS``), so a width is refused only where it is none
+    of these (the reduced twins' 16, or 80, 96, 192, and 640 or wider:
+    ROADMAP B8)."""
     if path == "paged":
         return [("paged decode / chunk prefill / spec verify",
                  kern._HEAD_DIMS)]

@@ -146,7 +146,7 @@ def test_kernel_splits_match_pallas(quant):
     start, nv = chunk_edges(16, C, L)
     for group, n_sm in ((1, 132), (8, 132), (1, 1), (8, 1)):
         q, kp, vp, pt, sc = _pools(rng, len(start), group, quant)
-        split = tk.chunk_split(len(start), HKV, C, group, L, n_sm)
+        split = tk.chunk_split(len(start), HKV, C, group, L, n_sm, DH)
         want = da.chunk_prefill_attention(
             _j(q), _j(kp), _j(vp), _j(pt), _j(start), _j(nv), interpret=True,
             **{k: _j(v) for k, v in sc.items()})
@@ -167,8 +167,9 @@ SHAPES = [(1, 32, 64, 1, 576), (8, 32, 5, 1, 576), (8, 8, 5, 4, 576),
 def test_chunk_split_covers_the_table(B, Hkv, Cc, group, n_keys, n_sm):
     """Whole stages (32 keys with 64-row tiles, 64 with 16-row tiles), at
     most four of them; the splits cover the table with no empty trailing
-    split; at least a block an SM where the table allows."""
-    split = tk.chunk_split(B, Hkv, Cc, group, n_keys, n_sm)
+    split; at least a block an SM where the table allows. (Head width
+    128; above 256 a stage is 32 keys either way: test_torch_wide_heads.py.)"""
+    split = tk.chunk_split(B, Hkv, Cc, group, n_keys, n_sm, 128)
     rows = Cc * group
     bm, sk = (16, 64) if rows <= 16 else (64, 32)
     n = -(-n_keys // split)
@@ -184,11 +185,11 @@ def test_chunk_split_is_a_function_of_the_shapes():
     n_valid, seq_lens or n_fed, so no device-to-host sync); the
     continuous path's chunk and verify shapes fill the card."""
     assert list(inspect.signature(tk.chunk_split).parameters) == [
-        "B", "Hkv", "C", "group", "n_keys", "n_sm"]
-    chunk = tk.chunk_split(1, 32, 64, 1, 576, 132)
-    assert chunk == tk.chunk_split(1, 32, 64, 1, 576, 132) == 96
+        "B", "Hkv", "C", "group", "n_keys", "n_sm", "dh"]
+    chunk = tk.chunk_split(1, 32, 64, 1, 576, 132, 64)
+    assert chunk == tk.chunk_split(1, 32, 64, 1, 576, 132, 64) == 96
     assert 32 * -(-576 // chunk) >= 132
-    verify = tk.chunk_split(8, 32, 5, 1, 576, 132)
+    verify = tk.chunk_split(8, 32, 5, 1, 576, 132, 64)
     assert verify == 192 and 8 * 32 * -(-576 // verify) >= 132
     assert tk.chunk_on_tensor_cores(torch.bfloat16, torch.int8)
     assert tk.chunk_on_tensor_cores(torch.float16, torch.float16)

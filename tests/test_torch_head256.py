@@ -154,7 +154,7 @@ def test_chunk_prefill_matches_pallas(group, dtype, quant):
     _close(got, want, dtype)
     frontier = torch.minimum(_t(start)[:, None] + torch.arange(C) + 1,
                              _t(nv)[:, None])                    # (B, C)
-    kernel_split = tk.chunk_split(B, HKV, C, group, L, 132)
+    kernel_split = tk.chunk_split(B, HKV, C, group, L, 132, DH)
     for split in sorted({PS, 2 * PS, kernel_split}):
         mirror, (m, l, acc) = tk._chunk_split_plain(
             t["q"], t["kp"], t["vp"], t["pt"], _t(start), _t(nv), split,
@@ -203,18 +203,21 @@ def test_flash_matches_pallas(group, dtype, causal):
 
 
 def test_split_rules_keep_their_shape_at_256():
-    """The split rules read shapes and the SM count only, and take no head
-    width: the kernels keep their rows a block and keys a step at 256. At
-    paligemma-3b's continuous shapes (B=8 slots, 1 KV head, group 8; a
-    576-key table of 16-key pages) the paged decode's 128-key cap and the
-    chunk's four stages set the splits."""
+    """The split rules read shapes and the SM count only: the kernels keep
+    their rows a block and keys a step at 256, where the chunk's rule
+    (which takes the head width for the stages above 256) gives what it
+    gives at 128. At paligemma-3b's continuous shapes (B=8 slots, 1 KV
+    head, group 8; a 576-key table of 16-key pages) the paged decode's
+    128-key cap and the chunk's four stages set the splits."""
     assert list(inspect.signature(tk.paged_split).parameters) == [
         "B", "Hkv", "n_keys", "group", "page_size", "n_sm"]
     assert list(inspect.signature(tk.chunk_split).parameters) == [
-        "B", "Hkv", "C", "group", "n_keys", "n_sm"]
+        "B", "Hkv", "C", "group", "n_keys", "n_sm", "dh"]
     assert tk.paged_split(8, 1, 576, 8, 16, 132) == 48
-    assert tk.chunk_split(1, 1, 64, 8, 576, 132) == 32
-    assert tk.chunk_split(8, 1, 5, 8, 576, 132) == 32
+    for shape in ((1, 1, 64, 8, 576, 132), (8, 1, 5, 8, 576, 132)):
+        assert tk.chunk_split(*shape, 256) == tk.chunk_split(*shape, 128)
+    assert tk.chunk_split(1, 1, 64, 8, 576, 132, 256) == 32
+    assert tk.chunk_split(8, 1, 5, 8, 576, 132, 256) == 32
     assert 256 in tk._HEAD_DIMS
 
 

@@ -2,14 +2,15 @@
 (``models.kernel_width_reason``), on the CPU: which layers reach which
 kernel on a CUDA device (the paged path's three kernels on every layer,
 flash on causal layers without a soft-cap, the dense decode on layers
-with neither a window nor a soft-cap, each at head widths 64, 128 and
-256; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper layers
+with neither a window nor a soft-cap, each at head widths 64, 128, 256,
+384 and 512; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper layers
 reach none), and that ``ServeEngine``, the dense and paged cache
 constructors, the static forward and the serve CLI refuse such a config
 on "cuda" before any weights are drawn, and never on "cpu"."""
 import pytest
 import torch
 
+import repro_torch.kernels.decode_attention as tk
 import repro_torch.launch.serve as tserve
 import repro_torch.models as tm
 import repro_torch.serving.engine as teng
@@ -17,13 +18,15 @@ from repro_torch.configs import all_configs, get_config
 from repro_torch.configs.reduce import reduced
 from repro_torch.models import lm as tlm
 from repro_torch.serving import ServeEngine
-from torch_kernel_inputs import PALI_TEXT
+from torch_kernel_inputs import PALI_TEXT, WIDE_TEXT
 
 torch.set_num_threads(2)
 
 ARCHS = sorted(c.name for c in (all_configs().values()
                                 if isinstance(all_configs(), dict)
                                 else all_configs()))
+# every kernel's head widths (kernels._HEAD_DIMS)
+TAKEN = (64, 128, 256, 384, 512)
 # reduced twins (head width 16) whose layers reach a kernel on each path
 REFUSED_PAGED = {"arctic-480b", "command-r-plus-104b", "llama3.2-1b",
                  "qwen2.5-3b", "yi-6b"}
@@ -49,11 +52,12 @@ def test_reduced_twins(arch):
 
 def test_refusal_names_each_kernel_and_its_widths():
     cfg = reduced(get_config("llama3.2-1b"))
-    assert ("paged decode / chunk prefill / spec verify takes [64, 128, 256]"
+    taken = str(list(TAKEN))
+    assert (f"paged decode / chunk prefill / spec verify takes {taken}"
             in tm.kernel_width_reason(cfg, "paged"))
     static = tm.kernel_width_reason(cfg, "static")
-    assert "flash attention takes [64, 128, 256]" in static
-    assert "dense decode takes [64, 128, 256]" in static
+    assert f"flash attention takes {taken}" in static
+    assert f"dense decode takes {taken}" in static
     # paligemma's prompt is prefix-LM (no flash): only its dense decode
     pali = reduced(get_config("paligemma-3b"))
     assert tm.kernel_width_reason(pali, "prefill") is None
@@ -75,7 +79,7 @@ def test_full_width_not_refused(arch):
     if arch == "paligemma-3b":
         assert cfg.head_dim == 256
         assert tlm._kernel_layers(cfg, "static") == [
-            ("dense decode", (64, 128, 256))]
+            ("dense decode", TAKEN)]
 
 
 def test_a_width_no_kernel_takes_is_refused_at_full_width():
@@ -114,21 +118,44 @@ def test_paligemma_text_decoder_reaches_every_kernel_at_256(path):
     assert tm.paged_supported(get_config("paligemma-3b")) is not None
     assert tm.kernel_width_reason(cfg, path) is None
     assert tlm._kernel_layers(cfg, path) == [
-        (name, (64, 128, 256)) for name in TEXT_KERNELS[path]]
+        (name, TAKEN) for name in TEXT_KERNELS[path]]
 
 
 @pytest.mark.parametrize("path", ["paged", "prefill", "decode", "static"])
-@pytest.mark.parametrize("dh", [16, 64, 80, 96, 128, 192, 256, 512])
+@pytest.mark.parametrize("dh", [16, 64, 80, 96, 128, 192, 256, 384, 512,
+                                640])
 def test_only_the_built_widths_are_taken(dh, path):
-    """On each path a full-width dense config is taken at 64, 128 and 256
-    and refused at any other width (16, 80, 96, 192, and 512, which the
-    reference's flash route would take: ROADMAP queue B)."""
+    """On each path a full-width dense config is taken at 64, 128, 256,
+    384 and 512 and refused at any other width (16, 80, 96, 192, and 640,
+    which the reference's routes would take: ROADMAP B8), with a reason
+    that names the widths taken."""
     cfg = get_config("qwen2.5-3b").replace(head_dim=dh)
     reason = tm.kernel_width_reason(cfg, path)
-    if dh in (64, 128, 256):
+    assert tk._HEAD_DIMS == TAKEN
+    if dh in TAKEN:
         assert reason is None
     else:
-        assert f"head_dim {dh}" in reason and "[64, 128, 256]" in reason
+        assert f"head_dim {dh}" in reason and str(list(TAKEN)) in reason
+
+
+@pytest.mark.parametrize("path", sorted(TEXT_KERNELS))
+def test_wide_text_decoder_reaches_every_kernel_at_512(path):
+    """The dh-512 text decoder (paligemma-3b's Gemma-2B decoder with its 8
+    heads of 256 regrouped as 4 of 512 over its 1 KV head) keeps the
+    model's widths, reaches every kernel at 512 and is refused by none;
+    at 640 every kernel it reaches refuses it, naming the widths taken."""
+    cfg = get_config("paligemma-3b").replace(**WIDE_TEXT)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab) == (18, 2048, 4, 1, 512,
+                                                   16384, 257216)
+    assert tm.paged_supported(cfg) is None
+    assert tm.kernel_width_reason(cfg, path) is None
+    assert tlm._kernel_layers(cfg, path) == [
+        (name, TAKEN) for name in TEXT_KERNELS[path]]
+    wider = tm.kernel_width_reason(cfg.replace(head_dim=640), path)
+    assert "head_dim 640" in wider and "--device cpu" in wider
+    for name in TEXT_KERNELS[path]:
+        assert f"the {name} takes {list(TAKEN)}" in wider
 
 
 def test_the_refusal_comes_before_weights_for_the_text_decoder_twin(no_init):

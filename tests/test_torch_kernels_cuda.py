@@ -159,13 +159,13 @@ def test_cuda_head_shard_bitwise_equal_to_whole_pool(cuda_device, B, n,
         (tk.chunk_prefill_attention, 2, qc, (pt[:1], 384, nv)),
         (tk.spec_verify_attention, 2, qv, (pt, vl, fed))]
     n_sm = tk._sm_count(torch.cuda.current_device())
-    assert (tk.chunk_split(1, Hkv // n, 64, 1, npp * ps, n_sm)
-            != tk.chunk_split(1, Hkv, 64, 1, npp * ps, n_sm))
+    assert (tk.chunk_split(1, Hkv // n, 64, 1, npp * ps, n_sm, dh)
+            != tk.chunk_split(1, Hkv, 64, 1, npp * ps, n_sm, dh))
     if B == 2:
         assert (tk.paged_split(B, Hkv // n, npp * ps, 1, ps, n_sm)
                 != tk.paged_split(B, Hkv, npp * ps, 1, ps, n_sm))
-        assert (tk.chunk_split(B, Hkv // n, 5, 1, npp * ps, n_sm)
-                != tk.chunk_split(B, Hkv, 5, 1, npp * ps, n_sm))
+        assert (tk.chunk_split(B, Hkv // n, 5, 1, npp * ps, n_sm, dh)
+                != tk.chunk_split(B, Hkv, 5, 1, npp * ps, n_sm, dh))
     for fn, axis, qq, extras in calls:
         whole = fn(qq, kpt, vpt, *extras, k_scale=ksc, v_scale=vsc)
         for r in range(n):
@@ -525,7 +525,7 @@ def test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool):
     rng = np.random.default_rng(H + dh)
     B, ps, npp, C = 4, 16, 36, 64
     split = tk.chunk_split(B, Hkv, C, H // Hkv, npp * ps,
-                           tk._sm_count(torch.cuda.current_device()))
+                           tk._sm_count(torch.cuda.current_device()), dh)
     q, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
                                       npp, C, pool)
     for edge in (split, 2 * split):
@@ -559,7 +559,7 @@ def test_cuda_verify_split_edges_match_plain(cuda_device, H, Hkv, dh, pool,
     rng = np.random.default_rng(C + H + dh)
     B, ps, npp = 6, 16, 36
     split = tk.chunk_split(B, Hkv, C, H // Hkv, npp * ps,
-                           tk._sm_count(torch.cuda.current_device()))
+                           tk._sm_count(torch.cuda.current_device()), dh)
     q, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
                                       npp, C, pool)
     pt[0] = 0
@@ -773,3 +773,106 @@ def test_cuda_train_loss_matches_cpu(cuda_device, arch):
     for a, b in zip(g1, g0):
         assert float((a.cpu() - b).abs().max()) <= (
             1e-4 * float(b.abs().max()) + 1e-6)
+
+
+# ------------------------ head widths 384 and 512 ------------------------ #
+
+# groups 8 and 4 over one KV head at 384 and 512 (the dh-512 text decoder
+# serves group 4 at 512)
+WIDE_WIDTHS = [(8, 1, 384), (4, 1, 384), (8, 1, 512), (4, 1, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+def test_cuda_wide_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                 pool):
+    """The chunk kernel's split edges at 384 and 512: two warps share each
+    16-row tile's columns, 32 keys a stage (``chunk_split`` takes dh)."""
+    test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 8])
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+def test_cuda_wide_verify_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                  pool, C):
+    test_cuda_verify_split_edges_match_plain(cuda_device, H, Hkv, dh, pool,
+                                             C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+def test_cuda_wide_paged_decode_split_edges_match_plain(cuda_device, H, Hkv,
+                                                        dh, pool):
+    """The paged decode's lane geometry at 384 (a row of 3 x 2^k loads:
+    16, 32 or 8 lanes of three) and 512 (every type over 32 lanes)."""
+    test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                   pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.float16, False),
+                                         (torch.bfloat16, True)])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+def test_cuda_wide_dense_decode_split_boundaries(cuda_device, dtype, quant,
+                                                 H, Hkv, dh):
+    """The dense decode's split pass at 384 (10-key tiles, 8 rows a block)
+    and 512 (8-key tiles, 4 rows) on its split edges."""
+    test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, 12, H,
+                                            Hkv, dh, 545)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 64, 300])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_wide_flash_tensor_core_tiles_match_plain(cuda_device, dtype,
+                                                       causal, H, Hkv, dh, S):
+    """Flash's tensor-core tiles at 384 and 512: 8 warps a 64-row tile, two
+    on each 16 rows, each holding half of O's columns."""
+    test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
+                                                  H, Hkv, dh, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,pool", [("float32", "float32"),
+                                      ("float32", "bfloat16"),
+                                      ("bfloat16", "float32"),
+                                      ("float16", "int8"),
+                                      ("float32", "int8")])
+@pytest.mark.parametrize("H,Hkv,dh", WIDE_WIDTHS)
+def test_cuda_wide_heads_take_every_kernel(cuda_device, H, Hkv, dh, qdt,
+                                           pool):
+    """The FMA bodies and mixed query/pool pairs at 384 and 512, as at 256;
+    the narrower width 96 still raises."""
+    test_cuda_head_width_256_takes_every_kernel(cuda_device, H, Hkv, dh, qdt,
+                                                pool)
+
+
+@pytest.mark.cuda
+def test_cuda_width_640_is_refused(cuda_device):
+    """Above 512 no kernel is built (ROADMAP B8): every entry raises on the
+    card rather than falling back to its plain version."""
+    dev = dict(device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros((2, 4, 640), **dev)
+    kp = torch.zeros((5, 16, 1, 640), **dev)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32,
+                      device=cuda_device)
+    lens = torch.tensor([20, 3], dtype=torch.int32, device=cuda_device)
+    calls = [lambda: tk.paged_decode_attention(q, kp, kp, pt, lens),
+             lambda: tk.chunk_prefill_attention(q[:, None], kp, kp, pt, 2,
+                                                lens),
+             lambda: tk.spec_verify_attention(q[:, None], kp, kp, pt, lens,
+                                              torch.ones_like(lens)),
+             lambda: tk.decode_attention(q, kp[:2], kp[:2], lens),
+             lambda: tkf.flash_attention(q[:, None], kp[:2, :1],
+                                         kp[:2, :1])]
+    for call in calls:
+        with pytest.raises(ValueError, match="head_dim 640"):
+            call()

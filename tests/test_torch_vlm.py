@@ -155,7 +155,7 @@ def test_head_width_check_is_per_kernel():
     tk._check(q, kc, kc, None, None, (valid,), q_ndim=3)
     tk._check(torch.zeros((2, 16, H, dh)), kc, kc, None, None, (valid,),
               q_ndim=4)
-    assert tk._HEAD_DIMS == (64, 128, 256)
+    assert tk._HEAD_DIMS == (64, 128, 256, 384, 512)
     with pytest.raises(ValueError, match="head_dim 96"):
         tk._check(q[..., :96], kc[..., :96], kc[..., :96], None, None,
                   (valid,), q_ndim=3)

@@ -34,6 +34,10 @@ GEMMA3_WIDTH = (4, 1, 256)
 # (``cfg.replace(**PALI_TEXT)``): the one derivation of a config file that
 # the paged path and flash reach at head width 256
 PALI_TEXT = dict(family="dense", prefix_len=0, prefix_bidirectional=False)
+# the same decoder with its 8 heads of 256 regrouped as 4 query heads of
+# 512 over its 1 KV head: the width no config of the repo reaches, served
+# at 512 (head widths 384 and 512 of the kernels)
+WIDE_TEXT = dict(PALI_TEXT, n_heads=4, head_dim=512)
 
 
 def t(a):
