@@ -16,7 +16,8 @@ which builds the kernels and runs only phase 18, nor
 ``--head256-only``, which builds them, runs phase 3's head-width-256
 cases and phase 22, nor ``--wide-heads-only``, which builds them, prints
 the head-width-384 and -512 instances' ptxas report, runs phase 3's cases
-at those widths and phase 23.
+at those widths and phase 23, nor ``--tiers-only``, which builds them and
+runs only phase 25.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -312,6 +313,33 @@ Phases (any failure exits non-zero before the result line):
      ``examples.train_100m --tiny`` for 8 steps, restarted from step 4
      (the step-8 checkpoint removed): the resumed losses and the step-8
      checkpoint bitwise the straight run's.
+  25. the paper's two memory levers: the paged decode and the chunk at
+     the sweeps' pool (4 slots of 120 positions, pages of 16, chunks of
+     32, bf16) at both sweeps' widths (``TIER_MAIN``: llava15-13b's
+     decoder; ``TIER_MAIN_1B``: llama3.2-1b) against their plain
+     versions; then ``paper.hbs_sweep`` (llava15-13b's
+     decoder as a dense text decoder at full width, 5 of 40 layers) and
+     ``paper.chiplet_sweep`` (llama3.2-1b at full width and depth), both
+     in bf16: each analytic half, and each measured half on the card
+     with its streams serialized (``overlap=False``) over its bandwidth
+     grid scaled to the card's page bytes. Every cell must be
+     token-identical to the card's no-offload baseline and reconcile its
+     trace; every serve must launch exactly the baseline's paged decodes
+     (n_layers a micro-step) and chunks (n_layers a chunk) and no plain
+     version; the generous point must not stall; the stingiest HBS cell
+     must stall more than it; an overlap cell must save no less than 0
+     against its own barrier counterfactual and, on the dedicated link,
+     stall at most what the barrier run of its chiplet size stalled
+     (whose stall the schedule fixes), a barrier cell save nothing, a
+     chiplet cell promote with its ddr->chiplet bytes the promotions'
+     pages, and the hit rate be above 0 at the smallest chiplet and
+     grow with its size; the page counters
+     (``paper.common.SCHEDULE_COUNTERS``) must equal those of the reduced
+     twins served on this machine's CPU at the twins' grid (in a spawned
+     process beside the kernels' build, finished before phase 3). Prints
+     each cell, the analytic envelope beside the card's ITL p95 by
+     bandwidth, and the overlap-vs-barrier pairs with the reference's
+     cross-run tolerance.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -319,8 +347,10 @@ flash at llava's group 1, the three paged entries at a head shard
 of 2 and of 4, the verify entry there with 0 launches, and the four
 entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
 sweep's launches, and the five at head width 256 with phase 22's
-launches, and the five at head width 512 with phase 23's) and, last,
-the device JSON line.
+launches, and the five at head width 512 with phase 23's, and the
+paged decode and the chunk at the hbs sweep's pool with its launches
+and at their main-path case with the chiplet sweep's) and, last, the
+device JSON line.
 """
 from __future__ import annotations
 
@@ -604,26 +634,32 @@ def kernel_cases(torch, kern, flash):
 def paged_cases(torch, kern, H, DH, Hkv,
                 pools=("float32", "bfloat16", "float16", "int8"),
                 verify_c=VERIFY_C, chunk_edges=True, split_kv_heads=None,
-                ps=PS):
+                ps=PS, slots=8, max_len=MAX_LEN, chunk_len=C,
+                scalar_start=384, main_only=False):
     """The paged entries at one width and over ``pools`` ("int8" with bf16
     queries, "int8/float16" with f16 ones): decode, the chunk at a scalar
     and a per-sequence start, the verify windows of ``verify_c``, and
     (with ``chunk_edges``, where the chunk kernel splits its keys) chunks
     and windows whose frontiers fall on and beside its split edges, over
-    pages of ``ps`` keys. With ``split_kv_heads``, a head shard's calls:
-    the kernels split as a pool of that many KV heads would (no edge
-    cases)."""
+    pages of ``ps`` keys, a pool of ``slots`` sequences of up to
+    ``max_len`` positions and chunks of ``chunk_len`` tokens. With
+    ``split_kv_heads``, a head shard's calls: the kernels split as a pool
+    of that many KV heads would (no edge cases). With ``main_only``, the
+    decode and the chunk at ``scalar_start`` alone (a serving path's
+    shapes)."""
     sk = {} if split_kv_heads is None else dict(split_kv_heads=split_kv_heads)
     shard = ("" if split_kv_heads is None
              else f" shard=1/{split_kv_heads // Hkv}")
     import torch.nn.functional as F
     dev = "cuda"
-    B = 8
-    n_pp = -(-MAX_LEN // ps)
+    B = slots
+    n_pp = -(-max_len // ps)
     P = B * n_pp + 1
     g = torch.Generator(device=dev).manual_seed(0)
     wide = (("" if DH == 64 else f" dh={DH}") + shard
-            + ("" if ps == PS else f" ps={ps}"))
+            + ("" if ps == PS else f" ps={ps}")
+            + ("" if (slots, max_len) == (8, MAX_LEN)
+               else f" slots={slots} max_len={max_len}"))
     grp = H // Hkv
     pos = torch.arange(n_pp * ps, device=dev)
     for pool in pools:
@@ -637,9 +673,9 @@ def paged_cases(torch, kern, H, DH, Hkv,
         # stale ids of other pages, which must stay masked
         pt = (torch.randperm(P - 1, generator=g, device=dev)[:B * n_pp]
               .reshape(B, n_pp) + 1).to(torch.int32)
-        lens = torch.randint(1, MAX_LEN + 1, (B,), generator=g,
+        lens = torch.randint(1, max_len + 1, (B,), generator=g,
                              device=dev).to(torch.int32)
-        lens[0], lens[1] = MAX_LEN, 1
+        lens[0], lens[1] = max_len, 1
         kd = kern._dequant(kp, pt, sc.get("k_scale")).to(qdt)
         vd = kern._dequant(vp, pt, sc.get("v_scale")).to(qdt)
         kdh = kd.permute(0, 2, 1, 3).repeat_interleave(grp, 1)
@@ -679,7 +715,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
                         q, kp, vp, pt, sl, nf, **sc, **sk)[:, 0])
 
         yield decode("", pt, lens, g)
-        if hasattr(kern, "paged_split") and not sk:
+        if hasattr(kern, "paged_split") and not sk and not main_only:
             # seq_lens at 1, the table and each split edge +-1 (B=16 over
             # pages drawn at random: shared and stale pages alike), from a
             # generator of their own (the other cases draw as before)
@@ -697,17 +733,19 @@ def paged_cases(torch, kern, H, DH, Hkv,
 
         def chunk(label, starts, reals):
             Bc = len(starts)
-            qc = torch.randn((Bc, C, H, DH), generator=g, device=dev).to(qdt)
+            qc = torch.randn((Bc, chunk_len, H, DH), generator=g,
+                             device=dev).to(qdt)
             st = torch.tensor(starts, dtype=torch.int32, device=dev)
             nv = st + torch.tensor(reals, dtype=torch.int32, device=dev)
             s_arg = starts[0] if Bc == 1 else st
             ptc = pt[:Bc].contiguous()
-            qpos = st[:, None] + torch.arange(C, device=dev)
+            qpos = st[:, None] + torch.arange(chunk_len, device=dev)
             lim = torch.minimum(qpos + 1, nv[:, None])        # (Bc, C)
             cmask = (pos[None, None] < lim[..., None])[:, None]
-            keys = int(torch.minimum(st + C, nv).sum())
+            keys = int(torch.minimum(st + chunk_len, nv).sum())
+            clab = "" if chunk_len == C else f" C={chunk_len}"
             return ("chunk_prefill_attention",
-                    f"group={grp} pool={pool} {label}{wide}", ops_type,
+                    f"group={grp} pool={pool} {label}{wide}{clab}", ops_type,
                     lambda q=qc, kp=kp, vp=vp, pt=ptc, s=s_arg, nv=nv,
                     sc=sc: kern.chunk_prefill_attention(q, kp, vp, pt, s,
                                                         nv, **sc, **sk),
@@ -753,7 +791,9 @@ def paged_cases(torch, kern, H, DH, Hkv,
 
         # chunk: scalar start (B=1, as the engine prefills) and a
         # per-sequence start (B=4)
-        yield chunk("start=scalar", [384], [64])
+        yield chunk("start=scalar", [scalar_start], [chunk_len])
+        if main_only:
+            continue
         yield chunk("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])
         # speculative verify: the windows of spec_k 4 and 7; ragged landed
         # lengths with room for the window, 1..C fed tokens
@@ -4360,6 +4400,258 @@ def examples_on_card(torch, kern) -> dict:
 
 # -------------------------------- main ---------------------------------- #
 
+# -------- phase 25: the paper's memory levers, HBS and the chiplet -------- #
+
+# the hbs_sweep decoder's pool as the kernels see it: 4 slots of up to 120
+# positions (96 prompt + 24 new), pages of 16, chunks of 32 (the engine's
+# default at pages of 16), the scalar-start chunk at the third chunk of a
+# 96-token prompt
+TIER_SLOTS, TIER_MAX_LEN, TIER_CHUNK, TIER_START = 4, 120, 32, 64
+TIER_MAIN = {
+    "paged_decode_attention":
+        "group=1 pool=bfloat16 dh=128 slots=4 max_len=120",
+    "chunk_prefill_attention":
+        "group=1 pool=bfloat16 start=scalar dh=128 slots=4 max_len=120 C=32"}
+# the chiplet sweep's pool: the same requests and pages at llama3.2-1b's
+# width (32 heads of 64 over 32 KV heads)
+LLAMA_WIDTH = (32, 64, 32)
+TIER_MAIN_1B = {
+    "paged_decode_attention": "group=1 pool=bfloat16 slots=4 max_len=120",
+    "chunk_prefill_attention":
+        "group=1 pool=bfloat16 start=scalar slots=4 max_len=120 C=32"}
+
+
+def tier_cases(torch, kern):
+    """The paged decode and the chunk in bf16 at phase 25's pool
+    (``TIER_*``) at both sweeps' widths: llava15-13b's decoder (40 heads
+    of 128 over 40 KV heads) and llama3.2-1b (32 of 64 over 32)."""
+    for H, DH, Hkv in (LLAVA_WIDTH, LLAMA_WIDTH):
+        yield from paged_cases(torch, kern, H, DH, Hkv, pools=("bfloat16",),
+                               verify_c=(), chunk_edges=False,
+                               slots=TIER_SLOTS, max_len=TIER_MAX_LEN,
+                               chunk_len=TIER_CHUNK, scalar_start=TIER_START,
+                               main_only=True)
+
+
+def _tier_cell_line(sweep, c) -> str:
+    name = (f"bw={c['bw_gbps']:g}GB/s lat={c['latency_us']:g}us"
+            if sweep == "hbs" else
+            f"chiplet={c['chiplet_pages']}p {c['policy']}/"
+            f"{c['writeback_link']} bw={c['bw_gbps']:g}GB/s")
+    chip = (f" chiplet_hit={c['chiplet_hit_rate']:.4f} saved="
+            f"{c['stall_saved_ms']:.3f}ms" if sweep == "chiplet" else "")
+    return (f"tiers {sweep} {name}: tokens/s={c['tps']:.1f} itl p50/p95="
+            f"{c['itl_p50_ms']:.2f}/{c['itl_p95_ms']:.2f}ms stall="
+            f"{c['stall_ms']:.3f}ms spill={c['spill_mb']:.2f}MB fetch="
+            f"{c['fetch_mb']:.2f}MB prefetch_hit={c['prefetch_hit_rate']:.3f}"
+            f"{chip} breakdown_ms="
+            + json.dumps({k: round(v, 2)
+                          for k, v in c["breakdown_ms"].items()}))
+
+
+# the sweeps of phase 25, and the CPU threads of their reduced twins'
+# process, which runs beside the kernels' build (one nvcc a source takes
+# the other cores)
+TIER_SWEEPS = ("hbs_sweep", "chiplet_sweep")
+TWIN_THREADS = 4
+
+
+def twin_sweeps(send, names) -> None:
+    """Spawned: sends {name: (measured half, seconds)} of
+    ``repro_torch.paper.<name>`` on the CPU (its reduced twin) for each of
+    ``names``, streams serialized, through ``send`` (or the error's
+    text)."""
+    import importlib
+    import traceback
+    import torch
+    torch.set_num_threads(TWIN_THREADS)
+    try:
+        out = {}
+        for name in names:
+            mod = importlib.import_module(f"repro_torch.paper.{name}")
+            t0 = time.perf_counter()
+            res = mod.measured_section(
+                mod.parser().parse_args(["--device", "cpu"]), overlap=False)
+            out[name] = (res, time.perf_counter() - t0)
+        send.send(("ok", out))
+    except BaseException:
+        send.send(("error", traceback.format_exc()))
+    send.close()
+
+
+def start_twins():
+    """Phase 25's CPU twins in a spawned, daemonic process (it ends with
+    this one), started before the kernels' build so that they run beside
+    it and not beside a measurement. Returns (process, receiving end)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=twin_sweeps, args=(send, TIER_SWEEPS),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def join_twins(proc, recv) -> dict:
+    """The twins' {name: (measured half, seconds)}, once their process has
+    ended (it is waited for before any phase that measures)."""
+    t0 = time.perf_counter()
+    try:
+        status, out = recv.recv()
+    except EOFError:
+        status, out = "error", "the process ended without a result"
+    proc.join()
+    check(status == "ok", f"phase 25's CPU twins failed: {out}")
+    log("tiers CPU twins beside the build: "
+        + " ".join(f"{n} {s:.1f}s" for n, (_, s) in out.items())
+        + f", waited {time.perf_counter() - t0:.1f}s after the build")
+    return out
+
+
+def tier_sweep_on_card(torch, kern, mod, sweep) -> dict:
+    """One sweep module: its analytic half, and its measured half on the
+    card (streams serialized, so that its page counters follow the
+    requests) with every serve's launches recorded and checked."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.serving import ServeEngine
+    args = mod.parser().parse_args([])
+    analytic = mod.analytic_section(args)
+    t0 = time.perf_counter()
+    with count_plain(kern, flash) as plain, \
+            serves_recorded(kern, ServeEngine) as runs:
+        card = mod.measured_section(args, overlap=False)
+    card_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not plain, f"{sweep} sweep: plain versions called on the card: "
+          f"{plain}")
+    # each cell's engine serves twice after the baseline's two serves; the
+    # tiers change the bookkeeping, not the schedule: every serve makes
+    # exactly the baseline's launches
+    check(len(runs) == 2 * (len(card["grid"]) + 1),
+          f"{sweep} sweep: {len(runs)} serves recorded")
+    base = runs[0]
+    launches = dict.fromkeys(KERNELS, 0)
+    for i, run in enumerate(runs):
+        want = sweep_launches(run)
+        check(run["launches"] == want == sweep_launches(base)
+              and want["paged_decode_attention"] > 0
+              and want["chunk_prefill_attention"] > 0,
+              f"{sweep} sweep serve {i}: launches {run['launches']} != "
+              f"{want} or != the baseline's {sweep_launches(base)}")
+        for k, v in run["launches"].items():
+            launches[k] += v
+    return dict(analytic=analytic, card=card, launches=launches,
+                serves=len(runs), card_s=card_s)
+
+
+def tier_sweep_gates(mod, sweep, smi, res, twin, twin_s) -> dict:
+    """Phase 25's gates on one sweep's card run ``res``
+    (``tier_sweep_on_card``), its page counters held against ``twin``,
+    the reduced twin's measured half with the same page size and tier
+    sizes in pages on this machine's CPU."""
+    analytic, card = res["analytic"], res["card"]
+    check(twin["fast_pages"] == card["fast_pages"]
+          and len(twin["grid"]) == len(card["grid"]),
+          f"{sweep} sweep: the CPU twin's tiers differ from the card's")
+    cells, d = card["grid"], card["derived"]
+    for c, t in zip(cells, twin["grid"]):
+        log(_tier_cell_line(sweep, c))
+        check(c["counters"] == t["counters"], f"{sweep} sweep cell "
+              f"{c['bw_gbps']:g}GB/s: counters {c['counters']} != the CPU "
+              f"twin's {t['counters']}")
+    check(d["all_token_identical"], f"{sweep} sweep: a cell's tokens differ "
+          f"from the card's no-offload baseline")
+    check(d["all_traces_reconciled"], f"{sweep} sweep: a trace did not "
+          f"reconcile")
+    generous = [c for c in cells if c["bw_gbps"] == mod.GENEROUS_GBPS]
+    check(len(generous) == 1 and round(generous[0]["stall_ms"]) == 0,
+          f"{sweep} sweep: the generous point stalled {generous}")
+    if sweep == "hbs":
+        check(d["stall_grows_as_bw_shrinks"], "hbs sweep: the stingiest "
+              "cell's stall is not above the generous one's")
+        env = analytic["min_bw_gbps_for_target"]
+        log(f"tiers hbs analytic (llava15-13b, {analytic['context']} "
+            f"positions): min HBS GB/s per ITL target " + json.dumps(env))
+        by_bw = {}
+        for c in cells:
+            by_bw.setdefault(c["bw_gbps"], []).append(
+                f"{c['latency_us']:g}us:{c['itl_p95_ms']:.2f}ms")
+        log(f"tiers hbs card ITL p95 by bandwidth (GB/s at "
+            f"{card['page_kb'] / 1e3:.2f} MB pages): "
+            + "; ".join(f"{bw:g}: " + " ".join(v)
+                        for bw, v in by_bw.items()))
+    else:
+        for c in cells:
+            if c["policy"] == "overlap":
+                check(c["stall_saved_s"] >= 0.0, f"chiplet sweep: an "
+                      f"overlap cell stalled more than its barrier "
+                      f"counterfactual: {c}")
+            else:
+                check(c["stall_saved_s"] == 0.0, f"chiplet sweep: a barrier "
+                      f"cell saved stall: {c}")
+            # the ddr->chiplet link's bytes over the page's bytes
+            moved = c["counters"]["channel_pages"].get("ddr->chiplet", 0)
+            if c["chiplet_pages"]:
+                check(c["chiplet_promotions"] > 0
+                      and moved == c["chiplet_promotions"],
+                      f"chiplet sweep: promotions and ddr->chiplet bytes "
+                      f"disagree: {c}")
+        # the barrier run's stall follows the schedule (its fetches wait on
+        # the stingy link, not on the step times): each overlap run on the
+        # dedicated link stalls at most that
+        for p in card["overlap_vs_barrier"]:
+            check(p["overlap_stall_ms"] <= p["barrier_run_stall_ms"],
+                  f"chiplet sweep: the overlap run stalled more than the "
+                  f"barrier run: {p}")
+        hit = d["hit_rate_by_chiplet_pages"]
+        rates = [hit[k] for k in sorted(hit) if k]
+        check(rates and rates[0] > 0 and rates == sorted(rates),
+              f"chiplet sweep: the hit rate is 0 or does not grow with the "
+              f"chiplet: {hit}")
+        log(f"tiers chiplet analytic (llama3.2-1b, {analytic['context']} "
+            f"positions): min HBS GB/s per ITL target by chiplet size "
+            + json.dumps({k: v["min_bw_gbps_for_target"]
+                          for k, v in analytic["by_chiplet_size"].items()}))
+        log("tiers chiplet overlap vs barrier " + json.dumps(
+            card["overlap_vs_barrier"]) + f" overlap_le_barrier_everywhere="
+            f"{d['overlap_le_barrier_everywhere']} (the reference's 2 ms / "
+            f"5% tolerance)")
+    log(f"tiers {sweep} sweep on the card ({card['arch']}, {card['dtype']}, "
+        f"{res['card_s']:.1f}s, {res['serves']} serves, bw_scale "
+        f"{card['bw_scale']:g}): launches exact in every serve ("
+        + " ".join(f"{k.split('_')[0]}={v}"
+                   for k, v in res["launches"].items())
+        + f"), no plain version, every cell token-identical to the "
+        f"no-offload baseline, counters equal the CPU twin's in "
+        f"{len(cells)} cells (CPU twin {twin_s:.1f}s, beside the build) "
+        f"({smi})")
+    return dict(res, twin=twin, twin_s=twin_s)
+
+
+def tiers_phase(torch, kern, smi, twins) -> dict:
+    """Phase 25: the paged decode and the chunk at the sweeps' shapes
+    against their plain versions, then ``paper.hbs_sweep`` (llava15-13b's
+    decoder, ``hbs_sweep.CARD_LAYERS`` layers, full width) and
+    ``paper.chiplet_sweep`` (llama3.2-1b at full width and depth) on the
+    card, each held against ``twins`` (``join_twins``: their reduced
+    twins on this machine's CPU)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.paper import chiplet_sweep, hbs_sweep
+    t0 = time.perf_counter()
+    sweeps = {"hbs": hbs_sweep, "chiplet": chiplet_sweep}
+    out = dict(kernel_rows=check_kernels(torch, kern, flash,
+                                         tier_cases(torch, kern)))
+    for sweep, mod in sweeps.items():
+        out[sweep] = tier_sweep_gates(
+            mod, sweep, smi, tier_sweep_on_card(torch, kern, mod, sweep),
+            *twins[mod.__name__.rsplit(".", 1)[1]])
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 25 (HBS offload and the chiplet) {out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4389,6 +4681,9 @@ def main() -> None:
                     help="only build the kernels, report their head-width-"
                     "384 and -512 instances, check and time the wide-head "
                     "kernel cases and run phase 23; prints no result line")
+    ap.add_argument("--tiers-only", action="store_true",
+                    help="only build the kernels and run phase 25 (HBS "
+                    "offload and the chiplet); prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -4433,9 +4728,17 @@ def main() -> None:
     import repro_torch.models as tm
     from repro_torch.serving import ServeEngine
     t0 = time.perf_counter()
+    # phase 25's CPU twins run beside the build, never beside a
+    # measurement: they are waited for as soon as it ends
+    twins = (start_twins() if args.tiers_only or not any((
+        args.kernels_only, args.sharded_only, args.train_only,
+        args.shard_paths_only, args.sync_audit_only, args.head256_only,
+        args.wide_heads_only)) else None)
     built = kbuild.build_kernels()
     log(f"build {time.perf_counter() - t0:.1f}s "
         + " ".join(f"{k}={v:.1f}s" for k, v in built.items()))
+    if twins is not None:
+        twins = join_twins(*twins)
     for name in kbuild.SOURCES:
         text = kbuild.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -4502,6 +4805,14 @@ def main() -> None:
                 smi=smi, build_s=built, wide_ptxas=regs_wide,
                 kernel_cases=rows, wide_text=wide_text), indent=1,
                 default=str))
+        return
+    if args.tiers_only:
+        tiers = tiers_phase(torch, kern, smi, twins)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(smi=smi, tiers=tiers),
+                                                 indent=1, default=str))
         return
     if args.kernels_only:
         kernels_only(torch, args, smi, kern, flash, tm, get_config, built,
@@ -4652,6 +4963,10 @@ def main() -> None:
     examples = examples_on_card(torch, kern)
     mark("24")
 
+    # ---- phase 25: HBS offload and the chiplet, the paper's sweeps ----
+    tiers = tiers_phase(torch, kern, smi, twins)
+    mark("25")
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -4751,7 +5066,16 @@ def main() -> None:
     entries += [(name, WIDE_MAIN[name], wide_text_launches[run][name],
                  "paligemma-3b text-only, 4 heads of 512")
                 for name, run in pali_run.items()]
-    rows = rows + shard_rows
+    # the tiered paths (phase 25): the paged decode and the chunk at each
+    # sweep's shapes with its serves' launches
+    hbs_layers = tiers["hbs"]["card"]["n_layers"]
+    entries += [(name, TIER_MAIN[name], tiers["hbs"]["launches"][name],
+                 f"llava15-13b decoder ({hbs_layers} of 40 layers) "
+                 f"hbs_sweep") for name in TIER_MAIN]
+    entries += [(name, TIER_MAIN_1B[name],
+                 tiers["chiplet"]["launches"][name],
+                 "llama3.2-1b chiplet_sweep") for name in TIER_MAIN_1B]
+    rows = rows + shard_rows + tiers["kernel_rows"]
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
@@ -4777,7 +5101,7 @@ def main() -> None:
             f32_families=f32_families, sharded=sharded, train=train,
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
             paligemma_text=pali_text, wide_text=wide_text,
-            examples=examples,
+            examples=examples, tiers=tiers,
             wide_384={name: next(r for r in rows if r["name"] == name
                                  and r["case"] == case)
                       for name, case in WIDE_384.items()},

@@ -17,7 +17,6 @@ import contextlib
 from dataclasses import dataclass
 from typing import Tuple
 
-import torch
 import torch.distributed as dist
 
 
@@ -87,12 +86,14 @@ def host_shape(n: int) -> MeshShape:
     return MeshShape(("data", "model"), (1, n))
 
 
-def make_host_mesh():
-    """A ("data", "model") mesh over the ranks that exist: the default
-    process group's, on the card when there is one; without a process
-    group, this process alone (a one-rank gloo group is made)."""
+def make_host_mesh(device="cuda"):
+    """A ("data", "model") mesh over the ranks that exist, on ``device``'s
+    type (the card unless the caller asks for the CPU; a CUDA device
+    without CUDA raises): the default process group's ranks; without a
+    process group, this process alone (a one-rank gloo group is made)."""
+    from repro_torch.models import resolve_device
+    dev = resolve_device(device).type
     if not dist.is_initialized():
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                                 world_size=1)
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
     return mesh_over(host_shape(dist.get_world_size()), dev)
