@@ -17,7 +17,8 @@ which builds the kernels and runs only phase 18, nor
 cases and phase 22, nor ``--wide-heads-only``, which builds them, prints
 the head-width-384 and -512 instances' ptxas report, runs phase 3's cases
 at those widths and phase 23, nor ``--tiers-only``, which builds them and
-runs only phase 25.
+runs only phase 25, nor ``--sweeps-only``, which builds them and runs
+phase 17 (whose ranks serve phase 26's rank cells) and phase 26.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -160,8 +161,8 @@ Phases (any failure exits non-zero before the result line):
      gemma3 6): prefill and decode logits on the card against the CPU,
      and static K=8 == K=1.
   12. deepseek-v2-236b (MLA, a dense first layer, 160 experts top-6 and
-     2 shared) at full width cut to its dense layer and 4 of its 59 MoE
-     layers (bf16, about 35 GB) through the static engine's ``generate``:
+     2 shared) at full width cut to its dense layer and 2 of its 59 MoE
+     layers (bf16) through the static engine's ``generate``:
      (a) B=4 x 512 prompt tokens, 32 new, native and int8 (the latent
      cache stays native: the same tokens); (b) B=1 x 32,128 prompt tokens
      (32,192 positions), 64 new. Prints the latent cache's bytes at
@@ -201,7 +202,9 @@ Phases (any failure exits non-zero before the result line):
      verify window (bf16 and int8) gathered over the head shards must be
      bitwise the whole pool's call. Prints each run's tokens/s and decode
      step, the backend and the rank-to-device map; then checks and times
-     the three paged entries at a shard's shapes.
+     the three paged entries at a shard's shapes. The same ranks then
+     serve phase 26's shard_sweep cells of their shard count
+     (``sweep_rank``): phase 26 spawns no rank group of its own.
   18. training (no kernel is on its path: each entry's launches must stay
      0). (a) llama3.2-1b at full width and depth (1.34 B parameters) in
      f32, remat "block", 4 x 1,024 tokens a step in 2 micro-batches, 8
@@ -340,6 +343,41 @@ Phases (any failure exits non-zero before the result line):
      each cell, the analytic envelope beside the card's ITL p95 by
      bandwidth, and the overlap-vs-barrier pairs with the reference's
      cross-run tolerance.
+  26. the paper's last two sweeps: the paged entries in bf16 at their
+     pools against their plain versions (``sweep_cases``: spec_sweep's, 4
+     slots of 168, pages of 16, the chunk C=32 at 64, at llama3.2-1b's
+     width with the verify windows C = 1, 5, 9, 13 and at its model
+     draft's, 16 heads of 64, with C = 1; shard_sweep's, 3 slots of 40,
+     pages of 8, the chunk C=32 at 0, at a shard's 16 and 8 KV heads,
+     split as the whole pool); then ``paper.spec_sweep`` (llama3.2-1b at
+     full width, 4 of 16 layers, bf16; its model draft at half width, 1
+     layer; the HBS grid scaled by the page bytes, x16) and
+     ``paper.shard_sweep`` (llama3.2-1b at full width, 4 of 16 layers;
+     its rank cells served on phase 17's ranks of 2 and 4 on the one
+     card over gloo, ``sweep_rank``), streams serialized but for the
+     overlap section's overlapped run. Every serve (with the counts set
+     to 0 just before it) must launch exactly n_layers paged decodes a
+     decode micro-step, chunks a prefill chunk and verify windows a
+     verify pass, the model draft's one a micro-step, chunk and catch-up
+     pass of its own at its own KV heads, a rank's at Hkv/N, no plain
+     version, reconcile its trace and free its pages. Every n-gram cell,
+     the model draft and each spec x HBS cell must be token-identical to
+     the spec-off baseline, every mesh cell at N = 1, 2, 4 on every rank,
+     both overlap runs and four shards' serve of the long request to the
+     card's shards=1 serve; the model draft (its head untied) must have
+     a proposal rejected; the generous point must not stall, and in each
+     mode the stingiest bandwidth must stall more and stall must not
+     shrink as the bandwidth does; the single device must reject the
+     long request "across all" its tiers; serialized, the concurrent mix
+     must preempt at N=1 and not at N=4; a rank's pool must hold 1/N of
+     the bytes. The counters must equal the reduced twins' on this
+     machine's CPU (served beside the kernels' build): every one of a
+     spec-off cell and of shard_sweep's one-shard cells, and of an
+     n-gram cell those no token moves (``spec_token_free``). Prints each
+     cell, the overlapped and serialized serve_ms
+     (``overlap_beats_serialized`` and the n-gram ``speedup_ge_1_2x``
+     recorded, not asserted) and the mesh cells'
+     tokens/s and pool bytes a rank.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -349,8 +387,12 @@ entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
 sweep's launches, and the five at head width 256 with phase 22's
 launches, and the five at head width 512 with phase 23's, and the
 paged decode and the chunk at the hbs sweep's pool with its launches
-and at their main-path case with the chiplet sweep's) and, last, the
-device JSON line.
+and at their main-path case with the chiplet sweep's, and phase 26's:
+the three paged entries at spec_sweep's pool with its target's launches
+(the verify window at C = 5, 9, 13 with the launches of the serves at k
+= 4, 8, 12), at its draft's width with the draft's, and the paged decode
+and the chunk at a shard's heads over pages of 8 with rank 0's) and,
+last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -407,10 +449,10 @@ LLAVA_RUNS = {"a": (4, 512, 32), "b": (1, 31616, 64)}
 PALIGEMMA_RUN = (4, 256, 256, 32)
 GEMMA_PROMPTS, GEMMA_NEW = (1024, 2048), 32
 # the last four families, at full width on the static engine:
-# deepseek-v2-236b cut to its dense first layer and 4 of its 59 MoE layers,
+# deepseek-v2-236b cut to its dense first layer and 2 of its 59 MoE layers,
 # (a) a wave of 4 x 512 prompt tokens, 32 new, (b) one sequence of 32,128
 # prompt tokens (32,192 positions, llava's long context), 64 new
-DEEPSEEK_LAYERS = 5
+DEEPSEEK_LAYERS = 3
 DEEPSEEK_RUNS = {"a": (4, 512, 32), "b": (1, 32128, 64)}
 # llava15-13b's KV bytes a position (fp16, 40 layers x 2 x 40 x 128)
 LLAVA_KV_POS_BYTES = 819200
@@ -635,7 +677,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
                 pools=("float32", "bfloat16", "float16", "int8"),
                 verify_c=VERIFY_C, chunk_edges=True, split_kv_heads=None,
                 ps=PS, slots=8, max_len=MAX_LEN, chunk_len=C,
-                scalar_start=384, main_only=False):
+                scalar_start=384, main_only=False, tag=""):
     """The paged entries at one width and over ``pools`` ("int8" with bf16
     queries, "int8/float16" with f16 ones): decode, the chunk at a scalar
     and a per-sequence start, the verify windows of ``verify_c``, and
@@ -645,8 +687,8 @@ def paged_cases(torch, kern, H, DH, Hkv,
     ``max_len`` positions and chunks of ``chunk_len`` tokens. With
     ``split_kv_heads``, a head shard's calls: the kernels split as a pool
     of that many KV heads would (no edge cases). With ``main_only``, the
-    decode and the chunk at ``scalar_start`` alone (a serving path's
-    shapes)."""
+    decode, the chunk at ``scalar_start`` and the windows of ``verify_c``
+    alone (a serving path's shapes). ``tag`` ends each case's label."""
     sk = {} if split_kv_heads is None else dict(split_kv_heads=split_kv_heads)
     shard = ("" if split_kv_heads is None
              else f" shard=1/{split_kv_heads // Hkv}")
@@ -659,7 +701,7 @@ def paged_cases(torch, kern, H, DH, Hkv,
     wide = (("" if DH == 64 else f" dh={DH}") + shard
             + ("" if ps == PS else f" ps={ps}")
             + ("" if (slots, max_len) == (8, MAX_LEN)
-               else f" slots={slots} max_len={max_len}"))
+               else f" slots={slots} max_len={max_len}") + tag)
     grp = H // Hkv
     pos = torch.arange(n_pp * ps, device=dev)
     for pool in pools:
@@ -792,19 +834,18 @@ def paged_cases(torch, kern, H, DH, Hkv,
         # chunk: scalar start (B=1, as the engine prefills) and a
         # per-sequence start (B=4)
         yield chunk("start=scalar", [scalar_start], [chunk_len])
-        if main_only:
-            continue
-        yield chunk("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])
-        # speculative verify: the windows of spec_k 4 and 7; ragged landed
+        if not main_only:
+            yield chunk("start=(B,)", [0, 64, 320, 512], [64, 37, 64, 50])
+        # speculative verify: the windows of ``verify_c``; ragged landed
         # lengths with room for the window, 1..C fed tokens
         for Cv in verify_c:
-            sl = torch.randint(0, MAX_LEN - Cv + 1, (B,), generator=g,
+            sl = torch.randint(0, max_len - Cv + 1, (B,), generator=g,
                                device=dev).to(torch.int32)
             nf = torch.randint(1, Cv + 1, (B,), generator=g,
                                device=dev).to(torch.int32)
-            sl[1], nf[1] = MAX_LEN - Cv, Cv
+            sl[1], nf[1] = max_len - Cv, Cv
             yield verify(f"C={Cv}", Cv, sl, nf)
-        if not chunk_edges or not hasattr(kern, "chunk_split"):
+        if main_only or not chunk_edges or not hasattr(kern, "chunk_split"):
             continue
         n_sm = kern._sm_count(torch.cuda.current_device())
         for edge in (kern.chunk_split(4, Hkv, C, grp, n_pp * ps, n_sm, DH),
@@ -1202,10 +1243,17 @@ def _entries(kern) -> dict:
 def zero_counts(kern) -> None:
     for fn in _entries(kern).values():
         fn.launches = 0
+        fn.launches_by_heads.clear()
 
 
 def read_counts(kern) -> dict:
     return {name: fn.launches for name, fn in _entries(kern).items()}
+
+
+def read_heads(kern) -> dict:
+    """The launches since ``zero_counts`` by (entry, KV heads)."""
+    return {(name, h): n for name, fn in _entries(kern).items()
+            for h, n in fn.launches_by_heads.items()}
 
 
 @contextlib.contextmanager
@@ -2307,7 +2355,7 @@ def _bounded(label, row, w_bytes, cache_bytes):
 def serve_deepseek(torch, kern, tm, cm, ServeEngine, get_config):
     """deepseek-v2-236b at full width (d_model 5120, 128 heads, MLA ranks
     512/1536, rope 64, 160 routed experts top-6 and 2 shared, vocab
-    102,400, untied head) cut to the dense first layer and 4 MoE layers,
+    102,400, untied head) cut to the dense first layer and 2 MoE layers,
     bf16, the port's seeded init, through the static engine's
     ``generate``: (a) native and int8 (the latent cache stays native, so
     the tokens must equal native's), (b) native; each twice. The prompt
@@ -2605,7 +2653,9 @@ def shard_rank(rank, shards, reqs, runs):
     head slice with the counts set to 0 just before each run, and checks
     what this rank can see alone: exact launches of the paged kernels at
     Hkv/N heads and no plain version, a reconciled trace and freed pages,
-    and the gathered attention bitwise equal to the whole pool's."""
+    and the gathered attention bitwise equal to the whole pool's. Then
+    phase 26's shard_sweep cells of this shard count (``sweep_rank``), in
+    ``out["sweep"]``."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2653,6 +2703,15 @@ def shard_rank(rank, shards, reqs, runs):
             acceptance=s.acceptance_rate, wall_s=wall)
     out["attention"] = _shard_attention_check(
         torch, kern, eng.shard, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads)
+    from repro_torch.paper import shard_sweep
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["sweep"] = sweep_rank(rank, shard_sweep.parser().parse_args([]),
+                              shards, shard_sweep.GROUP_CELLS[shards], None,
+                              False)
+    out["sweep_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2664,7 +2723,10 @@ def serve_sharded(torch, kern, tm, ServeEngine, get_config):
     (checked in the ranks) launches are exact at Hkv/N with no plain
     version and the gathered attention is bitwise the whole pool's. Then
     the three paged entries are checked and timed here at a shard's
-    shapes. Returns (measurements, kernel rows, launches by shards)."""
+    shapes. Each rank also serves phase 26's shard_sweep cells of its
+    shard count, returned as ``measurements["sweep_groups"]``
+    (``shard_sweep.run_groups``' form). Returns (measurements, kernel
+    rows, launches by shards)."""
     from repro_torch.launch.ranks import backend_for, run_ranks
     gc.collect()
     torch.cuda.empty_cache()
@@ -2689,12 +2751,15 @@ def serve_sharded(torch, kern, tm, ServeEngine, get_config):
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    result = {"shards=1": want}
+    result = {"shards=1": want, "sweep_groups": {}}
     for n, runs in SHARD_RUNS.items():
         backend = backend_for(n, "cuda")
         t0 = time.perf_counter()
         ranks = run_ranks(shard_rank, n, (n, reqs, runs), backend=backend,
                           timeout=SHARD_TIMEOUT_S)
+        result["sweep_groups"][n] = [r.pop("sweep") for r in ranks]
+        log(f"shards={n}: phase 26's shard_sweep cells on the same ranks, "
+            f"{max(r.pop('sweep_s') for r in ranks):.1f}s")
         log(f"shards={n} backend={backend} ranks "
             + " ".join(f"{r}->{res[runs[0]]['device']}"
                        for r, res in enumerate(ranks))
@@ -3374,21 +3439,35 @@ SWEEP_GAP_STD = 0.5
 @contextlib.contextmanager
 def serves_recorded(kern, ServeEngine):
     """Every ``ServeEngine.serve`` while the block runs, with the counts
-    set to 0 just before it and read just after: its scheduler, launches,
-    waves (distinct prompt lengths), decode micro-steps and prefill
-    chunks."""
+    set to 0 just before it and read just after: its scheduler, its
+    launches by entry and by the KV heads of the pool each was given (the
+    wrappers' ``launches_by_heads``), its layers, waves (distinct prompt
+    lengths) and decode micro-steps, and on the continuous engine its
+    verify passes, prefill chunks, speculation, the model draft's passes
+    (``ModelDraft.passes``: prefill chunks, catch-up passes and decode
+    micro-steps), its trace's reconcile and the pages it left."""
     runs, serve = [], ServeEngine.serve
 
     def recorded(eng, reqs, new):
-        steps = eng.stats.decode_steps
+        steps, blocks = eng.stats.decode_steps, eng.stats.spec_blocks
         zero_counts(kern)
         out = serve(eng, reqs, new)
+        paged = eng.scheduler == "continuous"
+        model = paged and eng.spec_mode == "model"
         runs.append(dict(
             scheduler=eng.scheduler, launches=read_counts(kern),
-            layers=eng.cfg.n_layers, waves=len({len(r) for r in reqs}),
+            by_heads=read_heads(kern),
+            draft=dict(eng.drafter.passes) if model else {},
+            layers=eng.cfg.n_layers,
+            kv_heads=eng.cfg.n_kv_heads // eng.shards,
+            draft_kv_heads=eng.draft_cfg.n_kv_heads if model else None,
+            spec_mode=eng.spec_mode, spec_k=eng.spec_k,
+            waves=len({len(r) for r in reqs}),
             steps=eng.stats.decode_steps - steps,
-            chunks=(n_prefill_chunks(eng) if eng.scheduler == "continuous"
-                    else 0)))
+            blocks=eng.stats.spec_blocks - blocks,
+            chunks=n_prefill_chunks(eng) if paged else 0,
+            ok=eng.trace_report["ok"] if paged else None,
+            pages_left=eng.kv_manager.n_used if paged else None))
         return out
     ServeEngine.serve = recorded
     try:
@@ -4449,18 +4528,19 @@ def _tier_cell_line(sweep, c) -> str:
                           for k, v in c["breakdown_ms"].items()}))
 
 
-# the sweeps of phase 25, and the CPU threads of their reduced twins'
-# process, which runs beside the kernels' build (one nvcc a source takes
-# the other cores)
+# the sweeps of phase 25, and the CPU threads of each process of reduced
+# twins, which run beside the kernels' build (one nvcc a source takes the
+# other cores)
 TIER_SWEEPS = ("hbs_sweep", "chiplet_sweep")
 TWIN_THREADS = 4
 
 
 def twin_sweeps(send, names) -> None:
-    """Spawned: sends {name: (measured half, seconds)} of
+    """Spawned: sends {name: (result, seconds)} of
     ``repro_torch.paper.<name>`` on the CPU (its reduced twin) for each of
-    ``names``, streams serialized, through ``send`` (or the error's
-    text)."""
+    ``names``, streams serialized, through ``send`` (or the error's text):
+    the measured half of phase 25's sweeps, ``twin_sections`` of phase
+    26's."""
     import importlib
     import traceback
     import torch
@@ -4470,8 +4550,10 @@ def twin_sweeps(send, names) -> None:
         for name in names:
             mod = importlib.import_module(f"repro_torch.paper.{name}")
             t0 = time.perf_counter()
-            res = mod.measured_section(
-                mod.parser().parse_args(["--device", "cpu"]), overlap=False)
+            res = (twin_sections(name) if name in SPEC_SHARD_SWEEPS else
+                   mod.measured_section(
+                       mod.parser().parse_args(["--device", "cpu"]),
+                       overlap=False))
             out[name] = (res, time.perf_counter() - t0)
         send.send(("ok", out))
     except BaseException:
@@ -4479,31 +4561,39 @@ def twin_sweeps(send, names) -> None:
     send.close()
 
 
-def start_twins():
-    """Phase 25's CPU twins in a spawned, daemonic process (it ends with
-    this one), started before the kernels' build so that they run beside
-    it and not beside a measurement. Returns (process, receiving end)."""
+def start_twins(groups):
+    """The CPU twins of the sweeps of phases 25 and 26, one spawned,
+    daemonic process (it ends with this one) for each tuple of sweep names
+    in ``groups``, side by side, started before the kernels' build so that
+    they run beside it and not beside a measurement. Returns [(process,
+    receiving end)]."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
-    recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=twin_sweeps, args=(send, TIER_SWEEPS),
-                       daemon=True)
-    proc.start()
-    send.close()
-    return proc, recv
+    started = []
+    for names in groups:
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=twin_sweeps, args=(send, names),
+                           daemon=True)
+        proc.start()
+        send.close()
+        started.append((proc, recv))
+    return started
 
 
-def join_twins(proc, recv) -> dict:
-    """The twins' {name: (measured half, seconds)}, once their process has
-    ended (it is waited for before any phase that measures)."""
+def join_twins(started) -> dict:
+    """The twins' {name: (result, seconds)}, once their processes have
+    ended (they are waited for before any phase that measures)."""
     t0 = time.perf_counter()
-    try:
-        status, out = recv.recv()
-    except EOFError:
-        status, out = "error", "the process ended without a result"
-    proc.join()
-    check(status == "ok", f"phase 25's CPU twins failed: {out}")
-    log("tiers CPU twins beside the build: "
+    out = {}
+    for proc, recv in started:
+        try:
+            status, res = recv.recv()
+        except EOFError:
+            status, res = "error", "the process ended without a result"
+        proc.join()
+        check(status == "ok", f"the sweeps' CPU twins failed: {res}")
+        out.update(res)
+    log("sweeps' CPU twins beside the build: "
         + " ".join(f"{n} {s:.1f}s" for n, (_, s) in out.items())
         + f", waited {time.perf_counter() - t0:.1f}s after the build")
     return out
@@ -4652,6 +4742,499 @@ def tiers_phase(torch, kern, smi, twins) -> dict:
     return out
 
 
+# --------- phase 26: the paper's last two sweeps, spec and shard ---------- #
+
+# spec_sweep's pool as the kernels see it: 4 slots of up to 168 positions
+# (a 96-token document + 8, 64 new), pages of 16, chunks of 32 (the
+# engine's default at pages of 16, and the model draft's), the
+# scalar-start chunk at the third chunk of a 104-token prompt; the verify
+# windows of one row and of k = 4, 8 and 12
+SPEC_SLOTS, SPEC_MAX_LEN, SPEC_CHUNK, SPEC_START = 4, 168, 32, 64
+SPEC_VERIFY_C = (1, 5, 9, 13)
+# the model draft's width (heads, head_dim, kv heads): llama3.2-1b at half
+# width with heads of 64; its catch-up passes feed one row a sequence
+# when it accepts nothing
+DRAFT_WIDTH = (16, 64, 16)
+DRAFT_VERIFY_C = (1,)
+# shard_sweep's pool: 3 slots of 40 positions (24 + 16 new), pages of 8,
+# one chunk of 32 at 0 a prompt
+SHARD_SWEEP_SLOTS, SHARD_SWEEP_MAX_LEN, SHARD_SWEEP_PS = 3, 40, 8
+SHARD_SWEEP_CHUNK = 32
+# the sweeps' shapes as ``paged_cases`` labels them (kernels line rows)
+SPEC_POOL = f"slots={SPEC_SLOTS} max_len={SPEC_MAX_LEN}"
+SPEC_MAIN = {
+    ("paged_decode_attention", None):
+        f"group=1 pool=bfloat16 {SPEC_POOL}",
+    ("chunk_prefill_attention", None):
+        f"group=1 pool=bfloat16 start=scalar {SPEC_POOL} C={SPEC_CHUNK}",
+    **{("spec_verify_attention", c - 1):
+       f"group=1 pool=bfloat16 C={c} {SPEC_POOL}" for c in (5, 9, 13)}}
+DRAFT_TAG = f" heads={DRAFT_WIDTH[0]}"
+DRAFT_MAIN = {
+    "paged_decode_attention": f"group=1 pool=bfloat16 {SPEC_POOL}{DRAFT_TAG}",
+    "chunk_prefill_attention": f"group=1 pool=bfloat16 start=scalar "
+                               f"{SPEC_POOL}{DRAFT_TAG} C={SPEC_CHUNK}",
+    "spec_verify_attention":
+        f"group=1 pool=bfloat16 C=1 {SPEC_POOL}{DRAFT_TAG}"}
+SHARD_SWEEP_POOL = (f"ps={SHARD_SWEEP_PS} slots={SHARD_SWEEP_SLOTS} "
+                    f"max_len={SHARD_SWEEP_MAX_LEN}")
+# the sweeps' twins: spec_sweep's sections, and shard_sweep's cells at one
+# shard (the twins' process is daemonic: it cannot spawn ranks)
+SPEC_SHARD_SWEEPS = ("spec_sweep", "shard_sweep")
+
+
+def sweep_cases(torch, kern):
+    """The paged entries in bf16 at phase 26's pools: spec_sweep's at
+    llama3.2-1b's width (decode, the chunk, the windows of
+    ``SPEC_VERIFY_C``) and at its model draft's (``DRAFT_WIDTH``: decode,
+    the chunk and the one-row catch-up window); shard_sweep's at a shard's
+    heads of 2 and of 4 (decode and the chunk, split as the whole pool of
+    32 KV heads)."""
+    for (H, DH, Hkv), verify_c, tag in (
+            (LLAMA_WIDTH, SPEC_VERIFY_C, ""),
+            (DRAFT_WIDTH, DRAFT_VERIFY_C, DRAFT_TAG)):
+        yield from paged_cases(torch, kern, H, DH, Hkv, pools=("bfloat16",),
+                               verify_c=verify_c, chunk_edges=False,
+                               slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+                               chunk_len=SPEC_CHUNK, scalar_start=SPEC_START,
+                               main_only=True, tag=tag)
+    H, DH, Hkv = LLAMA_WIDTH
+    for n in (2, 4):
+        yield from paged_cases(torch, kern, H // n, DH, Hkv // n,
+                               pools=("bfloat16",), verify_c=(),
+                               chunk_edges=False, split_kv_heads=Hkv,
+                               ps=SHARD_SWEEP_PS, slots=SHARD_SWEEP_SLOTS,
+                               max_len=SHARD_SWEEP_MAX_LEN,
+                               chunk_len=SHARD_SWEEP_CHUNK, scalar_start=0,
+                               main_only=True)
+
+
+def sweep_serve_launches(run) -> dict:
+    """The launches one serve of phase 26 must make, by (entry, KV heads):
+    the target n_layers paged decodes a decode micro-step that is not a
+    verify pass, n_layers chunks a prefill chunk and n_layers verify
+    windows a verify pass, at its pool's heads (Hkv/N on a shard); a
+    model draft one paged decode a micro-step of its own, one chunk a
+    prefill chunk and one verify window a catch-up pass, at its 1 layer
+    and its heads."""
+    L, h = run["layers"], run["kv_heads"]
+    want = {("paged_decode_attention", h): L * (run["steps"] - run["blocks"]),
+            ("chunk_prefill_attention", h): L * run["chunks"],
+            ("spec_verify_attention", h): L * run["blocks"]}
+    if run["draft_kv_heads"] is not None:
+        d, hd = run["draft"], run["draft_kv_heads"]
+        for name, key in (("paged_decode_attention", "steps"),
+                          ("chunk_prefill_attention", "chunks"),
+                          ("spec_verify_attention", "catchups")):
+            want[name, hd] = want.get((name, hd), 0) + d.get(key, 0)
+    return {k: v for k, v in want.items() if v}
+
+
+def need(fails, ok: bool, msg: str) -> None:
+    """A gate of phase 26, kept in ``fails`` so that the phase prints all
+    it measured before it fails (``sweeps_phase`` raises on any)."""
+    if not ok:
+        fails.append(msg)
+
+
+def check_sweep_serves(label, runs, fails) -> dict:
+    """Each recorded serve: its launches exact by entry and by heads, its
+    trace reconciled and its pages freed (a miss goes to ``fails``).
+    Returns the launches by (entry, KV heads), summed."""
+    total = {}
+    for i, run in enumerate(runs):
+        want = sweep_serve_launches(run)
+        by_entry = dict.fromkeys(KERNELS, 0)
+        for (name, _), n in want.items():
+            by_entry[name] += n
+        need(fails, run["by_heads"] == want and run["launches"] == by_entry,
+             f"{label} serve {i} ({run['spec_mode']}, k={run['spec_k']}): "
+             f"launches {run['launches']} by heads {run['by_heads']} != "
+             f"{want}")
+        need(fails, want.get(("paged_decode_attention", run["kv_heads"]), 0) > 0
+             or run["blocks"] > 0, f"{label} serve {i}: no decode ran")
+        need(fails, run["ok"], f"{label} serve {i}: the trace did not reconcile")
+        need(fails, run["pages_left"] == 0, f"{label} serve {i}: "
+             f"{run['pages_left']} pages left")
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def twin_sections(name) -> dict:
+    """One sweep of phase 26 on this machine's CPU at its reduced twin,
+    streams serialized: spec_sweep's n-gram and spec x HBS sections (the
+    model draft's counters follow its own weights, so the card's are not
+    held to a twin's), shard_sweep's cells at one shard."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.paper.{name}")
+    args = mod.parser().parse_args(["--device", "cpu"])
+    if name == "spec_sweep":
+        ngram = mod.ngram_section(args, overlap=False)
+        return dict(ngram=ngram, spec_x_hbs=mod.spec_x_hbs_section(
+            args, overlap=False, want=ngram["baseline_outputs"]))
+    return dict(overlap=mod.overlap_section(args, overlap=False),
+                mesh=mod.mesh_section(args, overlap=False, shard_counts=(1,)),
+                capacity=mod.capacity_section(args, overlap=False,
+                                              shard_counts=(1,)))
+
+
+def _differ(label, got, want, out):
+    """Append ``label`` to ``out`` where ``got`` != ``want``."""
+    if got != want:
+        out.append(f"{label}: card {got} != CPU twin {want}")
+
+
+def spec_token_free(counters) -> dict:
+    """The counters of a speculative serve that no token moves: its
+    preemptions, its peak fast-tier pages and the host syncs besides the
+    one pull a verify pass takes."""
+    return dict(preemptions=counters["preemptions"],
+                peak_fast_pages=counters["peak_fast_pages"],
+                syncs_besides_passes=(counters["host_syncs"]
+                                      - counters["spec_blocks"]))
+
+
+def _spec_cell_line(label, c) -> str:
+    g = c["goodput"]
+    return (f"spec {label}: tokens/s={c['tps']:.1f} itl p50/p95="
+            f"{c['itl_p50_ms']:.2f}/{c['itl_p95_ms']:.2f}ms accept="
+            f"{c['acceptance_rate']:.3f} ({c['counters']['draft_accepted']}/"
+            f"{c['counters']['draft_proposed']}, {c['counters']['spec_blocks']}"
+            f" passes) stall={c.get('stall_ms', 0.0):.3f}ms fetch="
+            f"{c.get('fetch_mb', 0.0):.2f}MB decode_steps="
+            f"{c['counters']['decode_steps']} host_syncs="
+            f"{c['counters']['host_syncs']} goodput={g['goodput_frac']:.2f}"
+            f" breakdown_ms=" + json.dumps(
+                {k: round(v, 2) for k, v in c["breakdown_ms"].items()}))
+
+
+def spec_sweep_on_card(torch, kern, smi, twin, twin_s, fails) -> dict:
+    """``paper.spec_sweep`` on the card (llama3.2-1b at full width,
+    ``spec_sweep.CARD_LAYERS`` layers, bf16; its model draft at half
+    width, 1 layer) with streams serialized: every serve's launches exact
+    (the draft's apart, at its heads) and no plain version; every n-gram
+    cell, the model draft and each spec x HBS cell token-identical to the
+    spec-off baseline; the model draft has a proposal rejected; the
+    generous point stalls 0 ms, and in each mode the stingiest point
+    stalls more and stall does not shrink with the bandwidth; the
+    counters that no token moves equal the CPU twin's (``twin``)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import init_params
+    from repro_torch.paper import spec_sweep as spec
+    from repro_torch.serving import ServeEngine
+    args = spec.parser().parse_args([])
+    cfg, opts = spec.measured_model(args)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, opts.dtype, "cuda")
+    with count_plain(kern, flash) as plain, \
+            serves_recorded(kern, ServeEngine) as runs:
+        ngram = spec.ngram_section(args, params, overlap=False)
+        draft = spec.model_draft_section(args, params, overlap=False)
+        hbs = spec.spec_x_hbs_section(args, params, overlap=False,
+                                      want=ngram["baseline_outputs"])
+    card_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    need(fails, not plain, f"spec sweep: plain versions called on the card: "
+         f"{plain}")
+    # ngram: the baseline and each k twice; model draft: the baseline and
+    # the draft twice; spec x HBS: each cell's off and n-gram twice
+    n_serves = 2 * (1 + len(ngram["sweep"]) + 2 + 2 * len(hbs["grid"]))
+    need(fails, len(runs) == n_serves, f"spec sweep: {len(runs)} serves recorded, "
+         f"not {n_serves}")
+    launches = check_sweep_serves("spec sweep", runs, fails)
+    by_k = {}
+    for run in runs:
+        if run["blocks"]:
+            key = ("spec_verify_attention", run["kv_heads"])
+            by_k[run["spec_k"]] = (by_k.get(run["spec_k"], 0)
+                                   + run["by_heads"].get(key, 0))
+    dcfg = spec.draft_config(cfg, args)
+    # token identity, traces, pages
+    need(fails, ngram["derived"]["all_token_identical"],
+         "spec sweep: an n-gram cell's tokens differ from spec-off's")
+    need(fails, draft["token_identical"], "spec sweep: the model draft's tokens "
+         "differ from spec-off's")
+    cells = [(f"x hbs {c['bw_gbps']:g}GB/s {m}", c[m]) for c in hbs["grid"]
+             for m in ("off", "ngram")]
+    for label, c in cells:
+        need(fails, c["token_identical"], f"spec sweep {label}: tokens differ "
+             f"from the spec-off baseline without tiers")
+    # the draft's untied head proposes other tokens than the target's
+    # repeats (spec_sweep.draft_config), so the reject, rollback and
+    # catch-up path runs: some proposal must be rejected
+    need(fails, 0 <= draft["draft_accepted"] < draft["draft_proposed"],
+         f"spec sweep: the model draft accepted {draft['draft_accepted']} "
+         f"of {draft['draft_proposed']}: no proposal was rejected")
+    generous = hbs["grid"][-1]
+    need(fails, generous["bw_gbps"] == spec.GENEROUS_GBPS
+         and all(round(generous[m]["stall_ms"]) == 0
+                  for m in ("off", "ngram")),
+         f"spec sweep: the generous point stalled {generous}")
+    # the stingy cells stall more than the generous one, in each mode, and
+    # stall never shrinks as the bandwidth drops
+    for m in ("off", "ngram"):
+        stalls = [c[m]["stall_ms"] for c in hbs["grid"]]
+        need(fails, stalls[0] > stalls[-1],
+             f"spec sweep: the {m} cells' stingiest stall does not exceed "
+             f"the generous one's: {stalls}")
+        need(fails, stalls == sorted(stalls, reverse=True),
+             f"spec sweep: the {m} cells' stall does not shrink as the "
+             f"bandwidth grows: {stalls}")
+    # the counters against the CPU twin's: every counter of a spec-off
+    # cell (its schedule follows the requests alone); of an n-gram cell
+    # the ones no token moves (its proposals follow the tokens, which
+    # follow the weights: the card's model and the twin accept at other
+    # rates), SPEC_TOKEN_FREE; the model draft's follow its own weights
+    # too: only its bounds are held above
+    differ = []
+    _differ("baseline", ngram["baseline"]["counters"],
+            twin["ngram"]["baseline"]["counters"], differ)
+    for r, t in zip(ngram["sweep"], twin["ngram"]["sweep"]):
+        _differ(f"n-gram k={r['k']}", spec_token_free(r["counters"]),
+                spec_token_free(t["counters"]), differ)
+    for c, t in zip(hbs["grid"], twin["spec_x_hbs"]["grid"]):
+        _differ(f"x hbs {c['bw_gbps']:g}GB/s off", c["off"]["counters"],
+                t["off"]["counters"], differ)
+        _differ(f"x hbs {c['bw_gbps']:g}GB/s ngram",
+                spec_token_free(c["ngram"]["counters"]),
+                spec_token_free(t["ngram"]["counters"]), differ)
+    need(fails, hbs["fast_pages"] == twin["spec_x_hbs"]["fast_pages"]
+         and len(hbs["grid"]) == len(twin["spec_x_hbs"]["grid"]),
+         "spec sweep: the CPU twin's tiers differ from the card's")
+    log(_spec_cell_line("spec-off baseline", dict(
+        ngram["baseline"], tps=ngram["baseline_tps"], acceptance_rate=0.0,
+        goodput={"goodput_frac": float("nan")}, breakdown_ms={})))
+    for r, t in zip(ngram["sweep"], twin["ngram"]["sweep"]):
+        log(_spec_cell_line(f"n-gram k={r['k']}", r)
+            + f" speedup={r['speedup']:.3f} (the twin accepts "
+            f"{t['draft_accepted']}/{t['draft_proposed']} in "
+            f"{t['spec_blocks']} passes)")
+    log(_spec_cell_line(f"model draft k={draft['k']} ({dcfg.d_model} wide, "
+                        f"{dcfg.n_heads} heads of {dcfg.head_dim}, 1 layer)",
+                        dict(draft, goodput={"goodput_frac": float("nan")},
+                             breakdown_ms={}))
+        + f" speedup={draft['speedup']:.3f}")
+    twin_cells = [t[m] for t in twin["spec_x_hbs"]["grid"]
+                  for m in ("off", "ngram")]
+    for (label, c), t in zip(cells, twin_cells):
+        log(_spec_cell_line(label, c) + f" (the twin's stall "
+            f"{t['stall_ms']:.3f}ms)")
+    stingy, t_stingy = hbs["grid"][0], twin["spec_x_hbs"]["grid"][0]
+    log(f"spec x hbs at the stingiest {stingy['bw_gbps']:g} GB/s: spec-off "
+        f"stalls {stingy['off']['stall_ms']:.3f} ms, n-gram "
+        f"{stingy['ngram']['stall_ms']:.3f} ms (the twin's "
+        f"{t_stingy['off']['stall_ms']:.3f} and "
+        f"{t_stingy['ngram']['stall_ms']:.3f} ms)")
+    log(f"spec sweep derived: speedup_ge_1_2x="
+        f"{ngram['derived']['speedup_ge_1_2x']} (best "
+        f"{ngram['derived']['best_speedup']} at k="
+        f"{ngram['derived']['best_k']}; recorded, not asserted: it compares "
+        f"the wall times of two runs, and host time moves by up to 2.5x "
+        f"between runs); weights {spec.WEIGHTS}")
+    log(f"spec sweep on the card ({ngram['arch']}, {ngram['n_layers']} "
+        f"layers, {ngram['dtype']}, {card_s:.1f}s, {len(runs)} serves, "
+        f"bw_scale {hbs['bw_scale']:g}, fast tier {hbs['fast_pages']} "
+        f"pages): launches exact in every serve by heads ("
+        + " ".join(f"{k.split('_')[0]}@{h}={v}"
+                   for (k, h), v in sorted(launches.items()))
+        + f"), no plain version, every cell token-identical to spec-off; "
+        f"counters vs the CPU twin ({twin_s:.1f}s beside the build): "
+        + ("equal in every cell" if not differ else
+           f"{len(differ)} cells differ") + f" ({smi})")
+    for line in differ:
+        log(f"spec sweep counters {line}")
+    return dict(ngram=ngram, model_draft=draft, spec_x_hbs=hbs,
+                n_layers=cfg.n_layers,
+                launches={f"{k}@{h}": v for (k, h), v in launches.items()},
+                verify_by_k=by_k, serves=len(runs), card_s=card_s,
+                draft_width=dict(d_model=dcfg.d_model, n_heads=dcfg.n_heads,
+                                 n_kv_heads=dcfg.n_kv_heads),
+                counters_differ=differ, twin=twin, twin_s=twin_s)
+
+
+def sweep_rank(rank, args, shards, names, params, overlap):
+    """One rank of phase 26's shard_sweep cells (on phase 17's ranks):
+    ``shard_sweep.rank_cells`` with every serve's launches
+    recorded and checked (exact, at its pool's Hkv/N heads), no plain
+    version, and each serve's trace reconciled and its pages freed."""
+    import torch
+    from repro_torch.kernels import decode_attention as kern
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.paper import shard_sweep
+    from repro_torch.serving import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with count_plain(kern, flash) as plain, \
+            serves_recorded(kern, ServeEngine) as runs:
+        out = shard_sweep.rank_cells(rank, args, shards, names, params,
+                                     overlap)
+    label = f"shard sweep rank {rank}/{shards}"
+    check(not plain, f"{label}: plain versions called: {plain}")
+    n_kv = shard_sweep.measured_model(args)[0].n_kv_heads // shards
+    check(len(runs) == 2 * len(names)
+          and all(run["kv_heads"] == n_kv for run in runs),
+          f"{label}: {len(runs)} serves, pools of "
+          f"{sorted({run['kv_heads'] for run in runs})} KV heads, not {n_kv}")
+    fails = []
+    out["launches"] = {f"{k}@{h}": v for (k, h), v in
+                       check_sweep_serves(label, runs, fails).items()}
+    check(not fails, "; ".join(fails))
+    return out
+
+
+def shard_sweep_on_card(torch, kern, smi, twin, twin_s, fails,
+                        groups) -> dict:
+    """``paper.shard_sweep`` on the card (llama3.2-1b at full width,
+    ``shard_sweep.CARD_LAYERS`` layers, bf16): ``groups``, its rank cells
+    at 2 and 4 shards as phase 17's ranks served them (``sweep_rank``),
+    then its overlap, mesh and capacity sections here, held to the card's
+    shards=1 serve with streams serialized; every serve's launches exact,
+    no plain version; the counters of the one-shard cells equal the CPU
+    twin's (``twin``)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.paper import shard_sweep as shard
+    from repro_torch.serving import ServeEngine
+    args = shard.parser().parse_args([])
+    cfg, opts = shard.measured_model(args)
+    reqs = shard._workload(cfg, args)
+    t0 = time.perf_counter()
+    with count_plain(kern, flash) as plain, \
+            serves_recorded(kern, ServeEngine) as runs:
+        base, want = shard._run(cfg, None, opts, reqs, args, overlap=False)
+        params = base.params
+        over = shard.overlap_section(args, params, want=want)
+        mesh = shard.mesh_section(args, params, overlap=False, want=want,
+                                  groups=groups)
+        cap = shard.capacity_section(args, params, overlap=False,
+                                     groups=groups)
+    card_s = time.perf_counter() - t0
+    del base, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    need(fails, not plain, f"shard sweep: plain versions called on the card: "
+         f"{plain}")
+    launches = check_sweep_serves("shard sweep", runs, fails)
+    for n, ranks in groups.items():
+        for r, res in enumerate(ranks):
+            for name in shard.GROUP_CELLS[n]:
+                c = res[name]
+                need(fails, c["backend"] == ("nccl" if torch.cuda.device_count()
+                                       >= n else "gloo"),
+                     f"shard sweep: rank {r}/{n} backend {c['backend']}")
+                need(fails, c["cell"]["trace_reconciled"]
+                     and c["cell"]["pages_left"] == 0,
+                     f"shard sweep: rank {r}/{n} {name}: trace or pages")
+    need(fails, over["token_identical"], "shard sweep: an overlap run's tokens "
+         "differ from the shards=1 serve's")
+    cells = mesh["cells"]
+    need(fails, mesh["shard_counts"] == [1, 2, 4] and mesh["all_token_identical"],
+         f"shard sweep: a mesh cell's tokens differ from shards=1's on some "
+         f"rank: {[(k, c['token_identical']) for k, c in cells.items()]}")
+    for n in (2, 4):
+        need(fails, cells[f"mesh{n}"]["pool_bytes"] * n
+             == cells["mesh1"]["pool_bytes"],
+             f"shard sweep: a rank at N={n} holds "
+             f"{cells[f'mesh{n}']['pool_bytes']} pool bytes, not 1/{n} of "
+             f"{cells['mesh1']['pool_bytes']}")
+    pb = shard._page_nbytes(cfg, opts, args)
+    need(fails, cap["single_device_rejects"], "shard sweep: the single device did "
+         "not reject the long request across all its tiers")
+    need(fails, cap["mesh4_serves_token_identical"], "shard sweep: four shards "
+         "did not serve the long request token-identically")
+    need(fails, cap["n1"]["preemptions"] > 0 and cap["n4"]["preemptions"] == 0
+         and cap["n1"]["token_identical"] and cap["n4"]["token_identical"],
+         f"shard sweep: serialized, N=1 must preempt and N=4 not, both "
+         f"token-identical: {cap['n1']} {cap['n4']}")
+    differ = []
+    _differ("overlap serialized", over["serialized"]["counters"],
+            twin["overlap"]["serialized"]["counters"], differ)
+    _differ("mesh1", cells["mesh1"]["counters"],
+            twin["mesh"]["cells"]["mesh1"]["counters"], differ)
+    _differ("capacity n1", cap["n1"]["counters"],
+            twin["capacity"]["n1"]["counters"], differ)
+    _differ("capacity single_device_rejects", cap["single_device_rejects"],
+            twin["capacity"]["single_device_rejects"], differ)
+    o, s = over["overlapped"], over["serialized"]
+    log(f"shard overlap: overlapped serve_ms={o['serve_ms']:.3f} "
+        f"tokens/s={o['tps']:.1f}, serialized serve_ms={s['serve_ms']:.3f} "
+        f"tokens/s={s['tps']:.1f}, speedup {over['speedup']:.3f}; "
+        f"overlap_beats_serialized={over['overlap_beats_serialized']} "
+        f"(recorded, not asserted: it compares the wall times of two runs, "
+        f"and host time moves by up to 2.5x between runs)")
+    for key, c in cells.items():
+        log(f"shard {key}: tokens/s={c['tps']:.1f} serve_ms="
+            f"{c['serve_ms']:.3f} decode_ms={c['decode_ms']:.3f} pool="
+            f"{c['pool_bytes']}B a rank, decode_steps="
+            f"{c['counters']['decode_steps']} host_syncs="
+            f"{c['counters']['host_syncs']} token_identical="
+            f"{c['token_identical']}")
+    log("shard analytic (llava15-13b, 4 x 4,096 + 256): "
+        + json.dumps(mesh["analytic_13b_per_chip"]))
+    log(f"shard capacity: single device rejects={cap['single_device_rejects']}"
+        f", N=4 serves the long request token-identically (peak fast pages "
+        f"{cap['mesh4_peak_fast_pages']}, a page {pb // 4} B a rank of "
+        f"{pb}); the mix preempts {cap['n1']['preemptions']}x at N=1 (peak "
+        f"fast pages {cap['n1']['peak_fast_pages']}) and "
+        f"{cap['n4']['preemptions']}x at N=4 ({cap['n4']['peak_fast_pages']})")
+    log(f"shard sweep on the card ({cfg.name}, {opts.dtype}, {card_s:.1f}s, "
+        f"the rank cells on phase 17's ranks, {len(runs)} serves here): "
+        f"launches exact in every serve by heads ("
+        + " ".join(f"{k.split('_')[0]}@{h}={v}"
+                   for (k, h), v in sorted(launches.items()))
+        + "; rank 0 of 2: " + " ".join(
+            f"{k.split('_')[0]}={v}"
+            for k, v in groups[2][0]["launches"].items())
+        + "; rank 0 of 4: " + " ".join(
+            f"{k.split('_')[0]}={v}"
+            for k, v in groups[4][0]["launches"].items())
+        + f"), no plain version; counters vs the CPU twin ({twin_s:.1f}s "
+        f"beside the build): "
+        + ("equal in every one-shard cell" if not differ else
+           f"{len(differ)} differ") + f" ({smi})")
+    for line in differ:
+        log(f"shard sweep counters {line}")
+    return dict(overlap=over, mesh=mesh, capacity=cap,
+                launches={f"{k}@{h}": v for (k, h), v in launches.items()},
+                rank_launches={n: [r["launches"] for r in ranks]
+                               for n, ranks in groups.items()},
+                serves=len(runs), card_s=card_s,
+                page_bytes=pb, counters_differ=differ, twin=twin,
+                twin_s=twin_s)
+
+
+def sweeps_phase(torch, kern, smi, twins, groups) -> dict:
+    """Phase 26: the paged entries at the sweeps' pools against their plain
+    versions (``sweep_cases``), then ``paper.spec_sweep`` and
+    ``paper.shard_sweep`` on the card, each held against ``twins``
+    (``join_twins``: their reduced twins on this machine's CPU);
+    ``groups``: shard_sweep's rank cells, served on phase 17's ranks
+    (``serve_sharded``)."""
+    from repro_torch.kernels import flash_attention as flash
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(kernel_rows=check_kernels(torch, kern, flash,
+                                         sweep_cases(torch, kern)))
+    out["kernels_s"] = time.perf_counter() - t0
+    fails = []
+    out["spec"] = spec_sweep_on_card(torch, kern, smi, *twins["spec_sweep"],
+                                     fails)
+    out["shard"] = shard_sweep_on_card(torch, kern, smi,
+                                       *twins["shard_sweep"], fails, groups)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 26 (spec_sweep and shard_sweep) {out['phase_s']:.1f}s "
+        f"(kernel cases {out['kernels_s']:.1f}s)")
+    differ = out["spec"]["counters_differ"] + out["shard"]["counters_differ"]
+    if differ:
+        fails.append(f"{len(differ)} cells' counters differ from the CPU "
+                     f"twins': {differ}")
+    check(not fails, "phase 26: " + "; ".join(fails))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4684,6 +5267,9 @@ def main() -> None:
     ap.add_argument("--tiers-only", action="store_true",
                     help="only build the kernels and run phase 25 (HBS "
                     "offload and the chiplet); prints no result line")
+    ap.add_argument("--sweeps-only", action="store_true",
+                    help="only build the kernels and run phase 26 "
+                    "(spec_sweep and shard_sweep); prints no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -4728,17 +5314,21 @@ def main() -> None:
     import repro_torch.models as tm
     from repro_torch.serving import ServeEngine
     t0 = time.perf_counter()
-    # phase 25's CPU twins run beside the build, never beside a
+    # phases 25's and 26's CPU twins run beside the build, never beside a
     # measurement: they are waited for as soon as it ends
-    twins = (start_twins() if args.tiers_only or not any((
-        args.kernels_only, args.sharded_only, args.train_only,
-        args.shard_paths_only, args.sync_audit_only, args.head256_only,
-        args.wide_heads_only)) else None)
+    twin_groups = ((TIER_SWEEPS,) if args.tiers_only else
+                   (SPEC_SHARD_SWEEPS,) if args.sweeps_only else
+                   None if any((args.kernels_only, args.sharded_only,
+                                args.train_only, args.shard_paths_only,
+                                args.sync_audit_only, args.head256_only,
+                                args.wide_heads_only)) else
+                   (TIER_SWEEPS, SPEC_SHARD_SWEEPS))
+    twins = None if twin_groups is None else start_twins(twin_groups)
     built = kbuild.build_kernels()
     log(f"build {time.perf_counter() - t0:.1f}s "
         + " ".join(f"{k}={v:.1f}s" for k, v in built.items()))
     if twins is not None:
-        twins = join_twins(*twins)
+        twins = join_twins(twins)
     for name in kbuild.SOURCES:
         text = kbuild.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -4812,6 +5402,18 @@ def main() -> None:
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(dict(smi=smi, tiers=tiers),
+                                                 indent=1, default=str))
+        return
+    if args.sweeps_only:
+        sharded, _, _ = serve_sharded(torch, kern, tm, ServeEngine,
+                                      get_config)
+        sweeps = sweeps_phase(torch, kern, smi, twins,
+                              sharded.pop("sweep_groups"))
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(smi=smi,
+                                                      sweeps=sweeps),
                                                  indent=1, default=str))
         return
     if args.kernels_only:
@@ -4967,6 +5569,11 @@ def main() -> None:
     tiers = tiers_phase(torch, kern, smi, twins)
     mark("25")
 
+    # ---- phase 26: speculative decoding and head-sharded serving ----
+    sweeps = sweeps_phase(torch, kern, smi, twins,
+                          sharded.pop("sweep_groups"))
+    mark("26")
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -5075,7 +5682,34 @@ def main() -> None:
     entries += [(name, TIER_MAIN_1B[name],
                  tiers["chiplet"]["launches"][name],
                  "llama3.2-1b chiplet_sweep") for name in TIER_MAIN_1B]
-    rows = rows + shard_rows + tiers["kernel_rows"]
+    # the last two sweeps (phase 26): spec_sweep's paged entries at
+    # llama3.2-1b's width with the target's launches (the verify windows
+    # of k = 4, 8 and 12 with the launches of the serves at that k), at
+    # its model draft's width with the draft's, and shard_sweep's paged
+    # decode and chunk at a shard's heads with rank 0's launches
+    spec_l = sweeps["spec"]["launches"]
+    for (name, k), case in SPEC_MAIN.items():
+        n_launch = (spec_l[f"{name}@{LLAMA_WIDTH[2]}"] if k is None
+                    else sweeps["spec"]["verify_by_k"][k])
+        entries.append((name, case, n_launch,
+                        f"llama3.2-1b ({sweeps['spec']['n_layers']} of 16 "
+                        f"layers) spec_sweep"
+                        + ("" if k is None else f" k={k}")))
+    entries += [(name, case, spec_l[f"{name}@{DRAFT_WIDTH[2]}"],
+                 "llama3.2-1b spec_sweep model draft (1024 wide, 1 "
+                 "layer)")
+                for name, case in DRAFT_MAIN.items()]
+    for n, ranks in sweeps["shard"]["rank_launches"].items():
+        for name, label in (("paged_decode_attention", ""),
+                            ("chunk_prefill_attention", " start=scalar")):
+            case = (f"group=1 pool=bfloat16{label} shard=1/{n} "
+                    f"{SHARD_SWEEP_POOL}"
+                    + ("" if not label else f" C={SHARD_SWEEP_CHUNK}"))
+            entries.append((name, case,
+                            ranks[0][f"{name}@{LLAMA_WIDTH[2] // n}"],
+                            f"llama3.2-1b ({CUT_LAYERS} of 16 layers) "
+                            f"shard_sweep shards={n}"))
+    rows = rows + shard_rows + tiers["kernel_rows"] + sweeps["kernel_rows"]
     for name, case, n_launch, model in entries:
         r = next(r for r in rows if r["name"] == name and r["case"] == case)
         kernels.append(dict(
@@ -5101,7 +5735,7 @@ def main() -> None:
             f32_families=f32_families, sharded=sharded, train=train,
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
             paligemma_text=pali_text, wide_text=wide_text,
-            examples=examples, tiers=tiers,
+            examples=examples, tiers=tiers, sweeps=sweeps,
             wide_384={name: next(r for r in rows if r["name"] == name
                                  and r["case"] == case)
                       for name, case in WIDE_384.items()},

@@ -26,7 +26,9 @@ gemma3-1b's 256 as well as the common 64 and 128, and every multiple of
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
 or layout the kernel does not take; there is no fallback. Each wrapper
-counts its launches in a plain integer attribute (``.launches``).
+counts its launches in a plain integer attribute (``.launches``), and in
+``.launches_by_heads`` by the KV heads of the pool or cache it was given
+(a head shard's pool holds Hkv/N of them).
 
 The paged decode splits the page table's keys across blocks, whole pages
 a split, with a body of its own for one to a few query rows; the chunk
@@ -41,6 +43,7 @@ their times on the H100). ``kernels.build`` compiles and loads them.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -345,10 +348,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     # a host counter: CUDA-graph capture runs it once, a replay never
     # repro: allow(traced-purity): P1 adds graph replays to the count
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_heads[Hkv] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_heads = collections.Counter()
 
 
 # ---------------------------- chunk prefill ----------------------------- #
@@ -555,10 +560,12 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
     # a host counter: CUDA-graph capture runs it once, a replay never
     # repro: allow(traced-purity): P1 adds graph replays to the count
     chunk_prefill_attention.launches += 1
+    chunk_prefill_attention.launches_by_heads[k_pages.shape[2]] += 1
     return out
 
 
 chunk_prefill_attention.launches = 0
+chunk_prefill_attention.launches_by_heads = collections.Counter()
 
 
 # --------------------------- speculative verify ------------------------- #
@@ -608,10 +615,12 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
     # a host counter: CUDA-graph capture runs it once, a replay never
     # repro: allow(traced-purity): P1 adds graph replays to the count
     spec_verify_attention.launches += 1
+    spec_verify_attention.launches_by_heads[k_pages.shape[2]] += 1
     return out
 
 
 spec_verify_attention.launches = 0
+spec_verify_attention.launches_by_heads = collections.Counter()
 
 
 # ------------------------------ dense decode ---------------------------- #
@@ -745,7 +754,9 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
     # a host counter: CUDA-graph capture runs it once, a replay never
     # repro: allow(traced-purity): P1 adds graph replays to the count
     decode_attention.launches += 1
+    decode_attention.launches_by_heads[Hkv] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_heads = collections.Counter()

@@ -6,8 +6,9 @@ its own positions (``S == L``). On a CUDA tensor it launches the
 hand-written kernel ``csrc/flash_attention.cu`` (replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``), or raises on what
 the kernel does not take; on a CPU tensor it runs the plain version. It
-counts its launches in ``flash_attention.launches``. The kernel is forward
-only: on a CUDA tensor that needs a gradient (grad mode on) it raises.
+counts its launches in ``flash_attention.launches``, and by KV heads in
+``flash_attention.launches_by_heads``. The kernel is forward only: on a
+CUDA tensor that needs a gradient (grad mode on) it raises.
 
 Two differences from the TPU kernel: any ``S`` is taken (the Pallas
 wrapper asserts block multiples of S and L), and on bf16/f16 inputs the
@@ -19,6 +20,7 @@ f32 FMA body, with no such rounding.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -97,7 +99,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
     # a host counter: CUDA-graph capture runs it once, a replay never
     # repro: allow(traced-purity): P1 adds graph replays to the count
     flash_attention.launches += 1
+    flash_attention.launches_by_heads[Hkv] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_heads = collections.Counter()

@@ -177,6 +177,10 @@ class ModelDraft:
         self.clock = None
         self._synced: Dict[int, bool] = {}    # rid -> has draft KV
         self.host_syncs = 0                   # drained by the engine
+        # the passes this draft has run: prefill chunks, catch-up passes
+        # and fused decode steps, each one launch of its attention entry a
+        # layer on the card
+        self.passes = dict(chunks=0, catchups=0, steps=0)
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -207,6 +211,7 @@ class ModelDraft:
                 self.cfg, self.params, self._dev(toks), self.cache, pt,
                 start, self._dev(np.asarray([start + n_real], np.int32)),
                 self.opts)
+            self.passes["chunks"] += 1
         self._synced[req.rid] = True
 
     def propose_all(self, items: List[Tuple[Request, int]]
@@ -244,6 +249,7 @@ class ModelDraft:
             _, self.cache = decode_verify_paged(
                 self.cfg, self.params, self._dev(toks), self._dev(lens),
                 self._dev(fed), self._dev(tables), self.cache, self.opts)
+            self.passes["catchups"] += 1
             for i, req, have, m in catchup:
                 self.kv.commit_tokens(req.rid, m)
 
@@ -272,6 +278,7 @@ class ModelDraft:
             self.cfg, self.params, self._dev(tokens), self._dev(lens),
             self._dev(tables), self.cache, n_steps, self.opts, eos_id=None,
             done=self._dev(inactive), quota=self._dev(quota))
+        self.passes["steps"] += n_steps
         blk_np = blk.cpu().numpy()
         self.host_syncs += 1       # the propose block's device->host pull
         out: Dict[int, List[int]] = {}

@@ -373,6 +373,7 @@ class ServeEngine:
         self._chunk_shapes: set = set()   # distinct prefill shapes seen
         self._decode_shapes: set = set()  # distinct decode shapes seen
         self.kv_manager: Optional[PagedKVManager] = None  # set per serve()
+        self.drafter = None     # the last serve's draft proposer, if any
         # structured trace of the LAST serve_continuous run, plus its
         # reconcile report (trace audited against ServeStats deltas)
         self.trace: Optional[TraceRecorder] = None
@@ -627,6 +628,7 @@ class ServeEngine:
                                max_len=self.max_len, device=self.device)
             self.draft_params = draft.params    # reuse across serve() calls
             adaptive = AdaptiveSpecK(self.spec_k)
+        self.drafter = draft
         if draft is not None:
             draft.tracer, draft.clock = trace, now
         cache = init_paged_cache(self.cfg, kv.n_pages, ps, self.opts,
