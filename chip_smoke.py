@@ -16,9 +16,12 @@ which builds the kernels and runs only phase 18, nor
 ``--head256-only``, which builds them, runs phase 3's head-width-256
 cases and phase 22, nor ``--wide-heads-only``, which builds them, prints
 the head-width-384 and -512 instances' ptxas report, runs phase 3's cases
-at those widths and phase 23, nor ``--tiers-only``, which builds them and
-runs only phase 25, nor ``--sweeps-only``, which builds them and runs
-phase 17 (whose ranks serve phase 26's rank cells) and phase 26.
+at those widths and phase 23, nor ``--wider-heads-only``, which builds
+them, prints the width-generic instances' ptxas report, runs phase 3's
+cases above head width 512 and phase 27, nor ``--tiers-only``, which
+builds them and runs only phase 25, nor ``--sweeps-only``, which builds
+them and runs phase 17 (whose ranks serve phase 26's rank cells) and
+phase 26.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -34,7 +37,9 @@ Phases (any failure exits non-zero before the result line):
      (not the library of its earlier body); prints every library's
      head-width-256, -384 and -512 instances by kernel template
      (registers, shared memory, spill stores; each library must hold
-     some at each width).
+     some at each width), and its width-generic instances (every multiple
+     of 128 above 512: ``wide_ptxas``; each library must hold some, and
+     the chunk and flash libraries' tensor-core ones HMMA).
   3. holds each kernel entry against its plain PyTorch version on the card
      and times kernel, plain version and, as a yardstick only,
      ``F.scaled_dot_product_attention``; prints each kernel's bound (bytes
@@ -86,8 +91,19 @@ Phases (any failure exits non-zero before the result line):
      decode (L=545; B=4 ragged, B=12 on the split edges; f32, bf16, f16,
      int8 with bf16 and with f16 queries) and flash (B=4; bf16 at S =
      512, 300, 17 at the served width, else 300; f16 and f32 at 300;
-     causal and full). Every kernel entry must give bitwise the same
-     result on a second call.
+     causal and full. Above head width 512 (``wider_cases``, the
+     width-generic instances), at 640 and 1024 over one KV head at groups
+     2 and 8, and at 1024 at group 1 (8 heads over 8 KV heads): the paged
+     entries as at 384 and 512 (verify C = 5, 9, 13 at dh 1024 group 2,
+     the served width, else C = 5; decode, chunk and window lengths on
+     the splits' edges at the new splits), the dense decode (L=545, as at
+     512) and flash (B=4; bf16 at S = 512, 300, 17 at the served width,
+     else 300; f16 and f32 at 300); at 768 and 2048 at group 2, each
+     entry in bf16 over bf16 and over int8 and in f32 (flash bf16 and
+     f32 at S=300). Of these only the served width's main-path cases and
+     one row a width at 640, 768 and 2048 are timed (``WIDER_MAIN``,
+     ``WIDER_ROWS``); the rest are checked only. Every kernel entry must
+     give bitwise the same result on a second call.
   4. serves llama3.2-1b at full width (bf16, the port's own seeded init)
      through ``ServeEngine(scheduler="continuous")``: 16 requests of 64-448
      prompt tokens, 8 sharing a 128-token document, 64 new tokens each,
@@ -295,8 +311,8 @@ Phases (any failure exits non-zero before the result line):
      once more, at its first call's arguments, under "error".
   22. head width 256: paligemma-3b's Gemma-2B decoder served as a
      text-only causal LM (``PALI_TEXT``: 18 layers, d_model 2048, 8
-     heads over 1 KV head at dh 256, 2.51 B parameters) at full width and
-     depth in bf16: the continuous engine (8 of phase 4's requests, 32
+     heads over 1 KV head at dh 256) at full width, cut to 6 of its 18
+     layers, in bf16: the continuous engine (8 of phase 4's requests, 32
      new, pages of 32; native, int8, n-gram k=4) and the static engine
      (phase 5's waves, 32 new; native, int8), each run twice and required
      to repeat its tokens, launch each kernel exactly n_layers times a
@@ -309,8 +325,9 @@ Phases (any failure exits non-zero before the result line):
      tie-free prefix.
   23. head width 512: the same decoder with its 8 heads of 256 regrouped
      as 4 query heads of 512 over its 1 KV head (``WIDE_TEXT``: K and V
-     projections 2048 x 512, 2.53 B parameters; no published checkpoint
-     has this width), served, checked and timed as phase 22.
+     projections 2048 x 512; no published checkpoint has this width),
+     served, checked and timed as phase 22. Phases 22 and 23 run their
+     decoder at ``TEXT_LAYERS`` (6) of its 18 layers.
   24. the port's examples on the card: ``examples.serve_batched`` at its
      defaults (no plain version; continuous == bucketed) and
      ``examples.train_100m --tiny`` for 8 steps, restarted from step 4
@@ -378,6 +395,11 @@ Phases (any failure exits non-zero before the result line):
      (``overlap_beats_serialized`` and the n-gram ``speedup_ge_1_2x``
      recorded, not asserted) and the mesh cells'
      tokens/s and pool bytes a rank.
+  27. head width 1024 (the width-generic instances): the same decoder
+     with its 8 heads of 256 regrouped as 2 query heads of 1024 over its
+     1 KV head (``WIDER_TEXT``: q projection 2048 x 2048, K and V 2048 x
+     1024; no published checkpoint has this width), at 6 of its 18
+     layers, served, checked and timed as phase 22.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -386,6 +408,7 @@ of 2 and of 4, the verify entry there with 0 launches, and the four
 entries phase 19 (f)'s sweep runs, at llama3.2-1b's width with that
 sweep's launches, and the five at head width 256 with phase 22's
 launches, and the five at head width 512 with phase 23's, and the
+five at head width 1024 with phase 27's, and the
 paged decode and the chunk at the hbs sweep's pool with its launches
 and at their main-path case with the chiplet sweep's, and phase 26's:
 the three paged entries at spec_sweep's pool with its target's launches
@@ -399,6 +422,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -423,7 +447,7 @@ PAGED_WIDTHS = ((32, 64, 32), (32, 64, 8), (16, 128, 2))
 # tensor-core instructions of each dh=128 flash kernel on its tiles
 OLD_PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
 PAGED_DECODE_HEADERS = {"dispatch.cuh", "paged_attention.cuh",
-                        "split_decode.cuh"}
+                        "split_decode.cuh", "wide_tile.cuh"}
 FLASH_HMMA_DH128 = 64
 VERIFY_C = (1, 2, 4, 5, 8)    # verify windows of spec_k 4 (1, 2, 4, 5) and 7
 # the static phase: qwen2.5-3b, prompts of 256 and 512 tokens, 32 new
@@ -492,6 +516,21 @@ WIDE_WIDTHS = tuple((H, dh, 1) for dh in WIDE_DIMS for H in (8, 4))
 # V projections 2048 x 512; no published checkpoint has this width); its
 # runs as phase 22's
 WIDE_TEXT = dict(PALI_TEXT, n_heads=4, head_dim=512)
+# head widths above 512 (phase 3's wider cases, the width-generic
+# instances): (heads, head_dim, kv heads) at groups 2 and 8 over one KV
+# head at 640 and 1024, and group 1 (8 over 8) at 1024, over the full
+# dtype grid; 768 and 2048 at group 2 in bf16, bf16 over int8 and f32
+WIDER_WIDTHS = ((2, 640, 1), (8, 640, 1), (2, 1024, 1), (8, 1024, 1),
+                (8, 1024, 8))
+WIDER_SPOT_WIDTHS = ((2, 768, 1), (2, 2048, 1))
+# the dh-1024 phase: the decoder's 8 heads of 256 regrouped as 2 query
+# heads of 1024 over its 1 KV head (q projection 2048 x 2048, K and V 2048
+# x 1024; no published checkpoint has this width); its runs as phase 22's
+WIDER_TEXT = dict(PALI_TEXT, n_heads=2, head_dim=1024)
+# the depth of phases 22, 23 and 27's decoder (of its 18 layers), cut so
+# that the script keeps within its time; the f32 checks keep
+# PALI_TEXT_F32_LAYERS
+TEXT_LAYERS = 6
 # the training phase: llama3.2-1b at full width in f32, (B, S, n_micro,
 # steps, the step saved and resumed from); the families whose reduced twins
 # train on the card against the CPU
@@ -592,15 +631,16 @@ def paged_ptxas(kbuild) -> dict:
     return report
 
 
-def width_ptxas(kbuild, dh: int) -> dict:
-    """Every head-width-``dh`` instance of the four libraries: registers,
-    shared memory and spill stores by library and kernel template, from
-    the build's ptxas report. Each library must hold some; spills are
-    reported, not refused."""
+def width_ptxas(kbuild, dh) -> dict:
+    """Every head-width-``dh`` instance of the four libraries (``dh="wide"``:
+    the width-generic instances of every multiple of 128 above 512, whose
+    kernels' names hold "wide"): registers, shared memory and spill
+    stores by library and kernel template, from the build's ptxas report.
+    Each library must hold some; spills are reported, not refused."""
     report = {}
     for lib in kbuild.SOURCES:
         ents = {n: v for n, v in ptxas_entries(kbuild.build_log(lib)).items()
-                if f"Li{dh}E" in n}
+                if ("wide" in n if dh == "wide" else f"Li{dh}E" in n)}
         check(ents, f"{lib} has no head-width-{dh} instances")
         by_kernel = {}
         for name, v in ents.items():
@@ -626,13 +666,19 @@ def width_ptxas(kbuild, dh: int) -> dict:
     return report
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(path: str) -> str:
+    """The SASS of the built library at ``path`` (cuobjdump -sass)."""
+    from repro_torch.kernels import build as kbuild
+    return subprocess.run(
+        [str(Path(kbuild._nvcc()).with_name("cuobjdump")), "-sass", path],
+        capture_output=True, text=True, check=True).stdout
+
+
 def hmma_counts(kbuild, lib: str, kernel: str) -> dict:
     """Tensor-core (HMMA) instructions in each kernel named ``kernel`` of
     the built library ``lib``, from its SASS (cuobjdump -sass)."""
-    sass = subprocess.run(
-        [str(Path(kbuild._nvcc()).with_name("cuobjdump")), "-sass",
-         str(kbuild.lib_path(lib))], capture_output=True,
-        text=True, check=True).stdout
+    sass = _sass(str(kbuild.lib_path(lib)))
     counts = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
@@ -765,7 +811,8 @@ def paged_cases(torch, kern, H, DH, Hkv,
             Be = 16
             split = kern.paged_split(Be, Hkv, n_pp * ps, grp, ps,
                                      kern._sm_count(
-                                         torch.cuda.current_device()))
+                                         torch.cuda.current_device()),
+                                     **_wide_kw(DH))
             lens_e = torch.tensor(decode_boundaries(Be, n_pp * ps, split),
                                   dtype=torch.int32, device=dev)
             pt_e = torch.randint(1, P, (Be, n_pp), generator=ge, device=dev,
@@ -866,6 +913,12 @@ def paged_cases(torch, kern, H, DH, Hkv,
         yield verify(f"C={Cv} seq_lens=edge {edge}", Cv, sl, nf)
 
 
+def _wide_kw(DH) -> dict:
+    """The head width for the split rules above 512, where they count the
+    column blocks (at or below it a checkout's rules need not take it)."""
+    return dict(dh=DH) if DH > 512 else {}
+
+
 def decode_boundaries(B, L, split):
     """kv_valid for B sequences: 1, L and each split boundary +-1, in
     turn."""
@@ -946,7 +999,7 @@ def _dense_decode_pools(torch, kern, g, B, H, DH, Hkv, L, pools, edges,
     kv_valid, or with ``edges`` kv_valid at 1, L and the split edges
     +-1."""
     split = kern.decode_split(B, Hkv, L, H // Hkv, kern._sm_count(
-        torch.cuda.current_device()))
+        torch.cuda.current_device()), **_wide_kw(DH))
     for pool in pools:
         qdt = ((qdt_16 or torch.bfloat16) if pool == "int8"
                else getattr(torch, pool))
@@ -1074,11 +1127,12 @@ def sweep_kernel_cases(torch, kern, flash):
                                    ("bfloat16",), True)
 
 
-def check_kernels(torch, kern, flash, cases=None):
+def check_kernels(torch, kern, flash, cases=None, timed=None):
     """Each case (name, label, dtype name, kernel fn, plain fn, SDPA fn,
     bytes, ops, tolerance[, a second yardstick fn]) of ``cases`` (default:
     ``kernel_cases``) against its plain version, twice (bitwise equal),
-    then timed."""
+    then timed; with ``timed`` (a set of (name, label)), only the cases
+    in it are timed, the others checked only."""
     rows = []
     for case in (kernel_cases(torch, kern, flash) if cases is None
                  else cases):
@@ -1093,6 +1147,12 @@ def check_kernels(torch, kern, flash, cases=None):
               f"{name} [{label}] max_abs_err {err:.3g} > {tol:g}")
         check(torch.equal(got, again),
               f"{name} [{label}] differs between two calls")
+        if timed is not None and (name, label) not in timed:
+            rows.append(dict(name=name, case=label, max_abs_err=err,
+                             tol=tol))
+            log(f"{name:24s} {label:38s} err={err:.2e} (tol {tol:g}) "
+                f"bitwise repeat, not timed")
+            continue
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_OPS[ops_type] * 1e3
         row = dict(name=name, case=label, max_abs_err=err, tol=tol,
@@ -1208,6 +1268,70 @@ WIDE_384 = {name: case.replace("group=4", "group=8").replace("dh=512",
                                                              "dh=384")
             .replace("S=512", "S=300")
             for name, case in WIDE_MAIN.items()}
+
+
+def wider_cases(torch, kern, flash):
+    """Every kernel entry above head width 512, on its width-generic
+    instances: at ``WIDER_WIDTHS`` (640 and 1024 at groups 2 and 8 over
+    one KV head, 1024 at group 1) the paged entries over pages of 32 keys,
+    f32, bf16 and f16 queries over their own pool and bf16 and f16 over
+    int8, ragged and with lengths, chunk and window frontiers on and
+    beside the new splits' edges (verify windows C = 5, 9, 13 at the
+    served width, dh 1024 group 2, and C = 5 elsewhere); the dense decode
+    at L=545 over the same pairs, ragged (B=4) and on its split edges
+    (B=12); flash at B=4, bf16 at S = 512, 300, 17 (the served width) or
+    300, f16 and f32 at 300, causal and full. At ``WIDER_SPOT_WIDTHS``
+    (768 and 2048, group 2) each entry in bf16 over bf16 and over int8
+    and in f32, flash in bf16 and f32 at S=300."""
+    served = (WIDER_TEXT["n_heads"], WIDER_TEXT["head_dim"], 1)
+    for width in WIDER_WIDTHS:
+        yield from paged_cases(torch, kern, *width,
+                               pools=("float32", "bfloat16", "float16",
+                                      "int8", "int8/float16"),
+                               verify_c=(5, 9, 13) if width == served
+                               else (5,), ps=PALI_TEXT_PS)
+    for width in WIDER_SPOT_WIDTHS:
+        yield from paged_cases(torch, kern, *width,
+                               pools=("float32", "bfloat16", "int8"),
+                               verify_c=(5,), ps=PALI_TEXT_PS)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    L = QWEN_PROMPTS[-1] + QWEN_NEW + 1
+    for H, DH, Hkv in WIDER_WIDTHS:
+        for B, edges in ((4, False), (12, True)):
+            yield from _dense_decode_pools(
+                torch, kern, g, B, H, DH, Hkv, L,
+                ("float32", "bfloat16", "float16", "int8"), edges)
+        yield _dense_decode_case(torch, kern, g, 4, H, DH, Hkv, L, "int8",
+                                 torch.float16, label=" q=float16")
+    for H, DH, Hkv in WIDER_SPOT_WIDTHS:
+        yield from _dense_decode_pools(torch, kern, g, 4, H, DH, Hkv, L,
+                                       ("float32", "bfloat16", "int8"), False)
+    for H, DH, Hkv in WIDER_WIDTHS + WIDER_SPOT_WIDTHS:
+        waves = ((512, "bfloat16"), (17, "bfloat16")) if (
+            H, DH, Hkv) == served else ()
+        dts = (("bfloat16", "float32") if (H, DH, Hkv) in WIDER_SPOT_WIDTHS
+               else ("bfloat16", "float16", "float32"))
+        for S, dt in waves + tuple((300, dt) for dt in dts):
+            q, k, v = (torch.randn((4, S, h, DH), generator=g, device="cuda")
+                       .to(getattr(torch, dt)) for h in (H, Hkv, Hkv))
+            for causal in (True, False):
+                yield _flash_case(flash, q, k, v, causal, dt,
+                                  f"group={H // Hkv} {dt} S={S} dh={DH}")
+
+
+# phase 27's kernel cases at its main path's shapes (as PALI_TEXT_MAIN):
+# dh 1024, group 2 over one KV head
+WIDER_MAIN = {name: case.replace("group=4", "group=2").replace("dh=512",
+                                                               "dh=1024")
+              for name, case in WIDE_MAIN.items()}
+# one row a width at 640, 768 and 2048 (off every served path), group 2
+WIDER_ROWS = {dh: {name: case.replace("dh=1024", f"dh={dh}")
+                   .replace("S=512", "S=300")
+                   for name, case in WIDER_MAIN.items()}
+              for dh in (640, 768, 2048)}
+# the wider cases that phase 3 times; the rest it checks only
+WIDER_TIMED = {(name, case) for cases in (WIDER_MAIN, *WIDER_ROWS.values())
+               for name, case in cases.items()}
 
 
 # ------------------------------ phase 4 --------------------------------- #
@@ -4291,9 +4415,10 @@ def sync_audit(torch, tm, ServeEngine, get_config, smi) -> dict:
 def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config,
                          derive=PALI_TEXT, name="paligemma text", phase=22):
     """paligemma-3b's Gemma-2B decoder served as a text-only causal LM
-    (``derive``: ``PALI_TEXT``, 18 layers, d_model 2048, 8 heads over 1 KV
-    head at head width 256; or ``WIDE_TEXT``, its heads regrouped as 4 of
-    512) at full width and depth in bf16, the port's seeded init: the
+    (``derive``: ``PALI_TEXT``, d_model 2048, 8 heads over 1 KV head at
+    head width 256; ``WIDE_TEXT``, its heads regrouped as 4 of 512; or
+    ``WIDER_TEXT``, as 2 of 1024) at full width, cut to ``TEXT_LAYERS`` of
+    its 18 layers, in bf16, the port's seeded init: the
     continuous engine (native, int8, n-gram k=4; pages of 32 keys) and the
     static engine (serve_bucketed, native and int8), each run twice
     through ``engine_twice`` (the same tokens, exact launches, no plain
@@ -4302,7 +4427,8 @@ def serve_paligemma_text(torch, kern, tm, cm, ServeEngine, get_config,
     weights a step reads (every parameter: the tied head reads the whole
     embedding table) and the KV its tokens read, averaged over the run's
     micro-steps. Then ``f32_text_card_vs_cpu``."""
-    cfg = get_config("paligemma-3b").replace(**derive)
+    cfg = get_config("paligemma-3b").replace(**derive,
+                                             n_layers=TEXT_LAYERS)
     for path in ("paged", "static"):
         check(tm.kernel_width_reason(cfg, path) is None,
               f"{cfg.name} text-only: the {path} path refuses head width "
@@ -5264,6 +5390,11 @@ def main() -> None:
                     help="only build the kernels, report their head-width-"
                     "384 and -512 instances, check and time the wide-head "
                     "kernel cases and run phase 23; prints no result line")
+    ap.add_argument("--wider-heads-only", action="store_true",
+                    help="only build the kernels, report their width-generic "
+                    "instances (head widths above 512), check and time the "
+                    "kernel cases above 512 and run phase 27; prints no "
+                    "result line")
     ap.add_argument("--tiers-only", action="store_true",
                     help="only build the kernels and run phase 25 (HBS "
                     "offload and the chiplet); prints no result line")
@@ -5321,7 +5452,8 @@ def main() -> None:
                    None if any((args.kernels_only, args.sharded_only,
                                 args.train_only, args.shard_paths_only,
                                 args.sync_audit_only, args.head256_only,
-                                args.wide_heads_only)) else
+                                args.wide_heads_only,
+                                args.wider_heads_only)) else
                    (TIER_SWEEPS, SPEC_SHARD_SWEEPS))
     twins = None if twin_groups is None else start_twins(twin_groups)
     built = kbuild.build_kernels()
@@ -5364,6 +5496,15 @@ def main() -> None:
     paged_regs = paged_ptxas(kbuild)
     regs256 = width_ptxas(kbuild, 256)
     regs_wide = {dh: width_ptxas(kbuild, dh) for dh in WIDE_DIMS}
+    regs_wider = width_ptxas(kbuild, "wide")
+    wider_hmma = {lib: hmma_counts(kbuild, lib, "wide_mma_kernel")
+                  for lib in ("chunk_prefill_attention", "flash_attention")}
+    for lib, counts in wider_hmma.items():
+        log(f"sass {lib} width-generic: HMMA "
+            + " ".join(f"{n}={c}" for n, c in counts.items()))
+        check(counts and all(counts.values()),
+              f"the {lib} library's width-generic tensor-core kernels lack "
+              f"HMMA: {counts}")
 
     if args.head256_only:
         from repro_torch.models import common as cm
@@ -5395,6 +5536,23 @@ def main() -> None:
                 smi=smi, build_s=built, wide_ptxas=regs_wide,
                 kernel_cases=rows, wide_text=wide_text), indent=1,
                 default=str))
+        return
+    if args.wider_heads_only:
+        from repro_torch.models import common as cm
+        t0 = time.perf_counter()
+        rows = check_kernels(torch, kern, flash,
+                             wider_cases(torch, kern, flash), WIDER_TIMED)
+        log(f"phase 3 dh>512 {time.perf_counter() - t0:.1f}s")
+        wider_text, _ = serve_paligemma_text(
+            torch, kern, tm, cm, ServeEngine, get_config, WIDER_TEXT,
+            "dh-1024 text", 27)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(
+                smi=smi, build_s=built, wider_ptxas=regs_wider,
+                wider_hmma=wider_hmma, kernel_cases=rows,
+                wider_text=wider_text), indent=1, default=str))
         return
     if args.tiers_only:
         tiers = tiers_phase(torch, kern, smi, twins)
@@ -5470,6 +5628,9 @@ def main() -> None:
     mark("3 dh=256")
     rows += check_kernels(torch, kern, flash, wide_cases(torch, kern, flash))
     mark("3 dh=384/512")
+    rows += check_kernels(torch, kern, flash, wider_cases(torch, kern, flash),
+                          WIDER_TIMED)
+    mark("3 dh>512")
 
     # ---- phase 4 ----
     cfg = get_config("llama3.2-1b")
@@ -5574,6 +5735,12 @@ def main() -> None:
                           sharded.pop("sweep_groups"))
     mark("26")
 
+    # ---- phase 27: head width 1024, the width-generic instances ----
+    wider_text, wider_text_launches = serve_paligemma_text(
+        torch, kern, tm, cm, ServeEngine, get_config, WIDER_TEXT,
+        "dh-1024 text", 27)
+    mark("27")
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -5667,11 +5834,18 @@ def main() -> None:
                 "decode_attention": "static native",
                 "flash_attention": "static native"}
     entries += [(name, PALI_TEXT_MAIN[name],
-                 pali_text_launches[run][name], "paligemma-3b text-only")
+                 pali_text_launches[run][name],
+                 f"paligemma-3b text-only ({TEXT_LAYERS} of 18 layers)")
                 for name, run in pali_run.items()]
     # the head-width-512 paths (phase 23), the same runs' launches
     entries += [(name, WIDE_MAIN[name], wide_text_launches[run][name],
-                 "paligemma-3b text-only, 4 heads of 512")
+                 f"paligemma-3b text-only ({TEXT_LAYERS} of 18 layers), 4 "
+                 f"heads of 512")
+                for name, run in pali_run.items()]
+    # the head-width-1024 paths (phase 27), the same runs' launches
+    entries += [(name, WIDER_MAIN[name], wider_text_launches[run][name],
+                 f"paligemma-3b text-only ({TEXT_LAYERS} of 18 layers), 2 "
+                 f"heads of 1024")
                 for name, run in pali_run.items()]
     # the tiered paths (phase 25): the paged decode and the chunk at each
     # sweep's shapes with its serves' launches
@@ -5735,14 +5909,20 @@ def main() -> None:
             f32_families=f32_families, sharded=sharded, train=train,
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
             paligemma_text=pali_text, wide_text=wide_text,
+            wider_text=wider_text,
             examples=examples, tiers=tiers, sweeps=sweeps,
             wide_384={name: next(r for r in rows if r["name"] == name
                                  and r["case"] == case)
                       for name, case in WIDE_384.items()},
+            wider_rows={dh: {name: next(r for r in rows if r["name"] == name
+                                        and r["case"] == case)
+                             for name, case in cases.items()}
+                        for dh, cases in WIDER_ROWS.items()},
             phase_s=phase_s, build_s=built,
             flash_hmma=hmma,
             chunk_hmma=chunk_hmma, paged_ptxas=paged_regs,
             head256_ptxas=regs256, wide_ptxas=regs_wide,
+            wider_ptxas=regs_wider, wider_hmma=wider_hmma,
             decode_split=dict(split=split, blocks=blocks, n_sm=n_sm),
             kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

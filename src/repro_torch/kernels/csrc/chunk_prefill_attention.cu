@@ -74,14 +74,21 @@
 //     past all of them.
 // f32 queries, and pools of another float type, keep the shared FMA
 // row-tile body (attend_rows, one pass; 8 rows a block at dh 256 and 384,
-// 4 at 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh). Next:
-// wgmma with TMA, which needs 64-row warpgroup tiles and a gather of paged
-// rows per TMA box.
+// 4 at 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh), and
+// every multiple of 128 above 512 in the width-generic instance
+// (wide_tile.cuh): a grid of (split, kv head x column block of 128,
+// sequence x tile of 64 rows) on the tensor-core body of wide_mma.cuh,
+// the same split rule over 32-key tiles (chunk_split counts the column
+// blocks), the combine a block of 128 threads a (row, column block); the
+// other pairings on the FMA body, 16 rows a block, one pass. Next: wgmma
+// with TMA, which needs 64-row warpgroup tiles and a gather of paged rows
+// per TMA box.
 #include <type_traits>
 
 #include "dispatch.cuh"
 #include "mma_tile.cuh"
 #include "split_decode.cuh"
+#include "wide_mma.cuh"
 
 namespace repro_paged {
 
@@ -576,6 +583,109 @@ struct ChunkLaunch {
           static_cast<const int*>(pt), win, static_cast<const float*>(ksc),
           static_cast<const float*>(vsc), static_cast<T*>(out), C, H, Hkv, ps, n_pp, n_pages,
           scale);
+    }
+  }
+};
+
+// ---- above 512 (dispatch.cuh's WIDE): the width-generic bodies ----
+
+// Tensor-core tiles: block (split, kv head x column block, sequence x row
+// tile of wide_tc::BM), the split's keys turned into pool rows in shared
+// memory before the walk, as chunk_mma_kernel does.
+template <typename T, typename KV>
+__global__ void __launch_bounds__(WT)
+chunk_wide_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                      const KV* __restrict__ vp, const int* __restrict__ pt, Window win,
+                      const float* __restrict__ ksc, const float* __restrict__ vsc,
+                      T* __restrict__ out, float* __restrict__ part_acc,
+                      float* __restrict__ part_m, float* __restrict__ part_l, int C, int H,
+                      int Hkv, int dh, int ps, int n_pp, int n_pages, int split,
+                      float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* s_row = reinterpret_cast<int*>(smem_raw);   // pool row of each key of the split
+  const int n_cb = dh / DS;
+  const int si = blockIdx.x, h = blockIdx.y / n_cb, cb = blockIdx.y % n_cb;
+  const int group = H / Hkv;
+  const int rows = C * group;
+  const int n_rt = (rows + wide_tc::BM - 1) / wide_tc::BM;
+  const int b = blockIdx.z / n_rt;
+  const int r0 = (blockIdx.z % n_rt) * wide_tc::BM;
+  const int nrows = min(wide_tc::BM, rows - r0);
+  const int st = win.start_of(b), nv = min(win.valid_of(b), n_pp * ps);
+  const int lo = si * split;
+  const int hi = min(lo + split, min(st + (r0 + nrows - 1) / group + 1, nv));
+  const int* pt_row = pt + static_cast<size_t>(b) * n_pp;
+  for (int j = threadIdx.x; j < hi - lo; j += WT) {
+    const int kpos = lo + j;
+    int pid = pt_row[kpos / ps];
+    if (pid < 0 || pid >= n_pages) pid = 0;   // never leave the pool
+    s_row[j] = pid * ps + kpos % ps;
+  }
+  __syncthreads();   // s_row visible before the first copies
+  wide_tc::wide_mma_rows<T, KV>(
+      q, kp, vp, [&](int kpos) { return s_row[kpos - lo]; }, ksc, vsc, out, part_acc, part_m,
+      part_l, si, gridDim.x, b, h, cb, r0, nrows, C, H, Hkv, dh, st, nv, lo, hi, scale_log2,
+      smem_raw + chunk_tc::row_bytes(split));
+}
+
+// The FMA body: block (kv head x column block, sequence, tile of WROWS
+// rows), one pass over its frontier.
+template <typename T, typename KV>
+__global__ void __launch_bounds__(WT)
+chunk_wide_fma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                      const KV* __restrict__ vp, const int* __restrict__ pt, Window win,
+                      const float* __restrict__ ksc, const float* __restrict__ vsc,
+                      T* __restrict__ out, int C, int H, int Hkv, int dh, int ps, int n_pp,
+                      int n_pages, float scale) {
+  const int n_cb = dh / DS;
+  const int h = blockIdx.x / n_cb, cb = blockIdx.x % n_cb, b = blockIdx.y;
+  const int group = H / Hkv;
+  const int r0 = blockIdx.z * WROWS;
+  const int nrows = min(WROWS, C * group - r0);
+  const int st = win.start_of(b), nv = min(win.valid_of(b), n_pp * ps);
+  wide_fma_rows<T, KV>(q, kp, vp, PagedRows{pt + static_cast<size_t>(b) * n_pp, n_pp,
+                                            n_pages, ps},
+                       ksc, vsc, out, nullptr, nullptr, nullptr, 0, 1, b, h, cb, r0, nrows,
+                       C, H, Hkv, dh, st, nv, 0,
+                       min(st + (r0 + nrows - 1) / group + 1, nv), scale);
+}
+
+template <typename T, typename KV>
+struct ChunkLaunch<T, KV, WIDE> {
+  static void run(int dh, const void* q, const void* kp, const void* vp, const void* pt,
+                  Window win, const void* ksc, const void* vsc, void* part, void* out, int B,
+                  int C, int H, int Hkv, int ps, int n_pp, int n_pages, int split, int n_split,
+                  float scale, cudaStream_t stream) {
+    const int rows = C * (H / Hkv);
+    const unsigned hc = static_cast<unsigned>(Hkv * (dh / DS));
+    if constexpr (chunk_on_tensor_cores<T, KV>()) {
+      using Lay = wide_tc::Layout<KV>;
+      static bool smem_set = false;   // once a kernel; a failure stays the last error
+      if (!smem_set) {
+        if (cudaFuncSetAttribute(chunk_wide_mma_kernel<T, KV>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 chunk_tc::row_bytes(chunk_tc::MAX_SPLIT) + Lay::BYTES) !=
+            cudaSuccess)
+          return;
+        smem_set = true;
+      }
+      const size_t n_rows = static_cast<size_t>(B) * C * H;
+      const WideParts parts(n_split > 1 ? part : nullptr, n_rows, n_split, dh);
+      const int n_rt = (rows + wide_tc::BM - 1) / wide_tc::BM;
+      chunk_wide_mma_kernel<T, KV>
+          <<<dim3(n_split, hc, B * n_rt), WT, chunk_tc::row_bytes(split) + Lay::BYTES,
+             stream>>>(static_cast<const T*>(q), static_cast<const KV*>(kp),
+                       static_cast<const KV*>(vp), static_cast<const int*>(pt), win,
+                       static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+                       static_cast<T*>(out), parts.acc, parts.m, parts.l, C, H, Hkv, dh, ps,
+                       n_pp, n_pages, split, scale * wide_tc::LOG2E);
+      parts.combine<T>(out, n_rows, n_split, dh, stream);
+    } else {
+      chunk_wide_fma_kernel<T, KV><<<dim3(hc, B, (rows + WROWS - 1) / WROWS), WT, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+          static_cast<const int*>(pt), win, static_cast<const float*>(ksc),
+          static_cast<const float*>(vsc), static_cast<T*>(out), C, H, Hkv, dh, ps, n_pp,
+          n_pages, scale);
     }
   }
 };

@@ -1,8 +1,11 @@
 // Type/width dispatch shared by the attention entry points: the wrapper
-// passes dtype codes (repro_paged::DType) and the head width (64, 128,
-// 256, 384 or 512), and Launch<T, KV, DH>::run is instantiated for every supported
-// combination (dispatch: any query type against any K/V type, twelve
-// pairs a width; dispatch_same: K/V of the query's type).
+// passes dtype codes (repro_paged::DType) and the head width. Widths 64,
+// 128, 256, 384 and 512 have instances of their own, Launch<T, KV, DH>::run;
+// every multiple of 128 above 512 runs the width-generic instance
+// Launch<T, KV, WIDE>::run, which takes the width as its first argument
+// (wide_tile.cuh). Instantiated for every supported combination (dispatch:
+// any query type against any K/V type, twelve pairs a width; dispatch_same:
+// K/V of the query's type).
 #pragma once
 
 #include "paged_attention.cuh"
@@ -12,6 +15,11 @@ namespace repro_paged {
 // Returned by an entry point for a dtype/width it was not built for (the
 // Python wrapper checks first, so this is a guard, not a code path).
 constexpr int UNSUPPORTED = -1;
+
+// The template width of the width-generic instances, and the widths they
+// take: above 512, a multiple of 128 (the reference routes' rule).
+constexpr int WIDE = 0;
+inline bool wide_width(int dh) { return dh > 512 && dh % 128 == 0; }
 
 template <template <typename, typename, int> class Launch, typename T, int DH, typename... A>
 int by_pool(int kv_dtype, A... args) {
@@ -57,7 +65,10 @@ int dispatch(int dh, int q_dtype, int kv_dtype, A... args) {
     case 256: return launch_status(by_query<Launch, 256>(q_dtype, kv_dtype, args...));
     case 384: return launch_status(by_query<Launch, 384>(q_dtype, kv_dtype, args...));
     case 512: return launch_status(by_query<Launch, 512>(q_dtype, kv_dtype, args...));
-    default: return UNSUPPORTED;
+    default:
+      return wide_width(dh)
+                 ? launch_status(by_query<Launch, WIDE>(q_dtype, kv_dtype, dh, args...))
+                 : UNSUPPORTED;
   }
 }
 
@@ -69,7 +80,9 @@ int dispatch_same(int dh, int dtype, A... args) {
     case 256: return launch_status(by_same<Launch, 256>(dtype, args...));
     case 384: return launch_status(by_same<Launch, 384>(dtype, args...));
     case 512: return launch_status(by_same<Launch, 512>(dtype, args...));
-    default: return UNSUPPORTED;
+    default:
+      return wide_width(dh) ? launch_status(by_same<Launch, WIDE>(dtype, dh, args...))
+                            : UNSUPPORTED;
   }
 }
 

@@ -53,12 +53,17 @@
 //     memory, adds a store, a barrier and a load to every key step).
 // f32 has no tensor-core product without TF32, so it keeps the shared
 // FMA row-tile body (attend_rows; 8 rows a block at dh 256 and 384, 4 at
-// 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh). Next
-// (ROADMAP A14): 32 rows a warp, then wgmma with TMA.
+// 512). Head widths 64, 128, 256, 384 and 512 (dispatch.cuh), and every
+// multiple of 128 above 512 in the width-generic instance (wide_tile.cuh):
+// a grid of (kv head x column block of 128, sequence, row tile), bf16/f16
+// on the tensor-core body of wide_mma.cuh (64 rows a block, Q K^T summed
+// over dh / 128 pieces in every column block), f32 on the FMA body (16
+// rows a block). Next (ROADMAP A14): 32 rows a warp, then wgmma with TMA.
 #include <type_traits>
 
 #include "dispatch.cuh"
 #include "mma_tile.cuh"
+#include "wide_mma.cuh"
 
 namespace repro_paged {
 
@@ -329,6 +334,81 @@ struct FlashLaunch {
       flash_mma_kernel<T, DH><<<grid, Cfg<DH>::NTHR, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<T*>(out), S, H, Hkv, causal, scale * LOG2E);
+    }
+  }
+};
+
+// ---- above 512 (dispatch.cuh's WIDE): the width-generic bodies ----
+
+// Block (kv head x column block, sequence, row tile; the tile index
+// reversed so that the heaviest causal tiles start first) of BM rows:
+// causal, the prompt is a chunk at start 0 (row c sees keys < c + 1);
+// full, start S puts every row's frontier past the keys.
+template <int BM>
+struct FlashWideTile {
+  int h, cb, b, r0, nrows, start, hi;
+  __device__ FlashWideTile(int S, int H, int Hkv, int dh, int causal) {
+    const int n_cb = dh / DS;
+    const int group = H / Hkv;
+    h = blockIdx.x / n_cb;
+    cb = blockIdx.x % n_cb;
+    b = blockIdx.y;
+    r0 = (gridDim.z - 1 - blockIdx.z) * BM;
+    nrows = min(BM, S * group - r0);
+    start = causal ? 0 : S;
+    hi = causal ? min((r0 + nrows - 1) / group + 1, S) : S;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(WT)
+flash_wide_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int S, int H, int Hkv,
+                      int dh, int causal, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FlashWideTile<wide_tc::BM> t(S, H, Hkv, dh, causal);
+  const long long base = static_cast<long long>(t.b) * S;
+  wide_tc::wide_mma_rows<T, T>(
+      q, k, v, [&](int kpos) { return base + kpos; }, nullptr, nullptr, out, nullptr, nullptr,
+      nullptr, 0, 1, t.b, t.h, t.cb, t.r0, t.nrows, /*C=*/S, H, Hkv, dh, t.start,
+      /*n_valid=*/S, 0, t.hi, scale_log2, smem_raw);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WT)
+flash_wide_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int S, int H, int Hkv,
+                      int dh, int causal, float scale) {
+  const FlashWideTile<WROWS> t(S, H, Hkv, dh, causal);
+  wide_fma_rows<T, T>(q, k, v, DenseRows{static_cast<long long>(t.b) * S, S}, nullptr,
+                      nullptr, out, nullptr, nullptr, nullptr, 0, 1, t.b, t.h, t.cb, t.r0,
+                      t.nrows, /*C=*/S, H, Hkv, dh, t.start, /*n_valid=*/S, 0, t.hi, scale);
+}
+
+template <typename T, typename KV>
+struct FlashLaunch<T, KV, WIDE> {
+  static void run(int dh, const void* q, const void* k, const void* v, void* out, int B, int S,
+                  int H, int Hkv, int causal, float scale, cudaStream_t stream) {
+    const int rows = S * (H / Hkv);
+    const unsigned hc = static_cast<unsigned>(Hkv * (dh / DS));
+    if constexpr (std::is_same<T, float>::value) {
+      flash_wide_fma_kernel<T><<<dim3(hc, B, (rows + WROWS - 1) / WROWS), WT, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(out), S, H, Hkv, dh, causal, scale);
+    } else {
+      constexpr int smem = wide_tc::Layout<T>::BYTES;
+      static bool smem_set = false;   // once a kernel; a failure stays the last error
+      if (!smem_set) {
+        if (cudaFuncSetAttribute(flash_wide_mma_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem) != cudaSuccess)
+          return;
+        smem_set = true;
+      }
+      flash_wide_mma_kernel<T>
+          <<<dim3(hc, B, (rows + wide_tc::BM - 1) / wide_tc::BM), WT, smem, stream>>>(
+              static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+              static_cast<T*>(out), S, H, Hkv, dh, causal, scale * wide_tc::LOG2E);
     }
   }
 };

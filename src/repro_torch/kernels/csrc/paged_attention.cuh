@@ -99,7 +99,10 @@ struct Tile {
 // would pass the 48 KB of static shared memory: 16 rows at 256 take 50.4
 // KB, 8 take 41.6; at 384 8 rows take 42.4 KB; at 512 8 take 48.4, 4
 // take 40.2. The accumulator stays at 16 to 24 f32 a thread. The grids
-// that launch attend_rows divide their rows by it.
+// that launch attend_rows divide their rows by it. Past 512 the tiles
+// would keep shrinking (at 1024 4 rows take 49.3 KB), so every wider
+// multiple of 128 runs the width-generic bodies of wide_tile.cuh, whose
+// shared memory does not grow with the width.
 template <int DH>
 struct FmaRows {
   static constexpr int value = DH >= 512 ? 4 : DH >= 256 ? 8 : MAX_ROWS;

@@ -55,9 +55,16 @@
 // (bf16/f16), four (f32) or one (int8) over all 32; where a lane holds
 // more than 16 elements of a row (bf16/f16 and int8 at 384, f32 at 512) a
 // block takes one query row, else two at these widths; the combine runs
-// DH threads.
+// DH threads. Every multiple of 128 above 512 runs the width-generic
+// instance (wide_tile.cuh): the same splits (paged_split counts its
+// column blocks), a grid of (split, kv head x column block of 128, sequence
+// x tile of 4 query rows), each block the decode body over its split's
+// keys (one a thread, its whole row dotted in registers) for the whole of
+// S and its slice of O, the combine a block of 128 threads a (row, column
+// block).
 #include "dispatch.cuh"
 #include "split_decode.cuh"
+#include "wide_tile.cuh"
 
 namespace repro_paged {
 namespace paged_dec {
@@ -372,6 +379,51 @@ struct DecodeLaunch {
     else
       paged_dec::launch<T, KV, DH, RMAX>(q, kp, vp, pt, lens, ksc, vsc, part, out, B, H, Hkv,
                                          ps, n_pp, n_pages, split, n_split, scale, stream);
+  }
+};
+
+// Above 512 (dispatch.cuh's WIDE): block (split, kv head x column block,
+// sequence x row tile) of wide_decode_rows over keys [lo, min(lo + split,
+// seq_lens[b])).
+template <typename T, typename KV>
+__global__ void __launch_bounds__(WT)
+paged_wide_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                  const KV* __restrict__ vp, const int* __restrict__ pt,
+                  const int* __restrict__ seq_lens, const float* __restrict__ ksc,
+                  const float* __restrict__ vsc, T* __restrict__ out,
+                  float* __restrict__ part_acc, float* __restrict__ part_m,
+                  float* __restrict__ part_l, int H, int Hkv, int dh, int ps, int n_pp,
+                  int n_pages, int split, float scale) {
+  const int n_cb = dh / DS;
+  const int si = blockIdx.x, h = blockIdx.y / n_cb, cb = blockIdx.y % n_cb;
+  const int group = H / Hkv;
+  const int n_rt = (group + WDR - 1) / WDR;
+  const int b = blockIdx.z / n_rt;
+  const int r0 = (blockIdx.z % n_rt) * WDR;
+  const int len = seq_lens[b];
+  const int lo = si * split;
+  const int hi = min(min(lo + split, n_pp * ps), len);
+  wide_decode_rows<T, KV>(q, kp, vp,
+                          PagedRows{pt + static_cast<size_t>(b) * n_pp, n_pp, n_pages, ps},
+                          ksc, vsc, out, part_acc, part_m, part_l, si, gridDim.x, b, h, cb, r0,
+                          min(WDR, group - r0), H, Hkv, dh, lo, hi, scale);
+}
+
+template <typename T, typename KV>
+struct DecodeLaunch<T, KV, WIDE> {
+  static void run(int dh, const void* q, const void* kp, const void* vp, const void* pt,
+                  const void* lens, const void* ksc, const void* vsc, void* part, void* out,
+                  int B, int H, int Hkv, int ps, int n_pp, int n_pages, int split, int n_split,
+                  float scale, cudaStream_t stream) {
+    const size_t n_rows = static_cast<size_t>(B) * H;
+    const WideParts parts(n_split > 1 ? part : nullptr, n_rows, n_split, dh);
+    const int n_rt = (H / Hkv + WDR - 1) / WDR;
+    paged_wide_kernel<T, KV><<<dim3(n_split, Hkv * (dh / DS), B * n_rt), WT, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
+        static_cast<const int*>(pt), static_cast<const int*>(lens),
+        static_cast<const float*>(ksc), static_cast<const float*>(vsc), static_cast<T*>(out),
+        parts.acc, parts.m, parts.l, H, Hkv, dh, ps, n_pp, n_pages, split, scale);
+    parts.combine<T>(out, n_rows, n_split, dh, stream);
   }
 };
 

@@ -18,10 +18,11 @@ cache attention, reached through four entries:
   engine's decode (replaces ``decode_attention`` there).
 
 Every kernel here, and flash attention (``flash_attention.py``), takes
-head widths 64, 128, 256, 384 and 512 (``_HEAD_DIMS``): paligemma-3b's and
-gemma3-1b's 256 as well as the common 64 and 128, and every multiple of
-128 up to 512 that the reference's routes take. Wider heads are refused
-(ROADMAP B8).
+the head widths the reference's routes take (``head_dim_taken``): 64, 128
+and 256 (paligemma-3b's and gemma3-1b's), 384 and 512, each with
+instances of its own (``_HEAD_DIMS``), and every multiple of 128 above
+512 in one width-generic instance a dtype pair, whose blocks each hold
+128 of O's columns (``csrc/wide_tile.cuh``). Any other width is refused.
 
 Each wrapper takes the plain version only for tensors that lie on the CPU.
 For a CUDA tensor it launches its kernel, or raises on a dtype, head width
@@ -59,8 +60,26 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-# head widths every kernel is built for (csrc/dispatch.cuh)
+# head widths with instances of their own in every kernel
+# (csrc/dispatch.cuh); every multiple of 128 above 512 runs the
+# width-generic instance (csrc/wide_tile.cuh)
 _HEAD_DIMS = (64, 128, 256, 384, 512)
+# what every kernel takes, as the refusals name it
+TAKEN_WIDTHS = (f"{list(_HEAD_DIMS)} and every multiple of 128 above "
+                f"{_HEAD_DIMS[-1]}")
+_DS = 128   # O's columns a block of the width-generic instance holds
+
+
+def head_dim_taken(dh: int) -> bool:
+    """Whether every attention kernel of the port takes head width ``dh``:
+    64, 128, 256, 384, 512 and every multiple of 128 above 512."""
+    return dh in _HEAD_DIMS or (dh > _HEAD_DIMS[-1] and dh % _DS == 0)
+
+
+def _column_blocks(dh: int) -> int:
+    """Blocks a row tile takes along O's columns: ``dh / 128`` in the
+    width-generic instance (above 512), else 1."""
+    return dh // _DS if dh > _HEAD_DIMS[-1] else 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,9 +112,9 @@ def _check(q, k_pages, v_pages, k_scale, v_scale, ints, *, q_ndim: int):
         raise ValueError(f"q must be {q_ndim}-D and the pools 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
     dh = q.shape[-1]
-    if dh not in _HEAD_DIMS:
+    if not head_dim_taken(dh):
         raise ValueError(f"head_dim {dh} not supported by this CUDA kernel "
-                         f"(supported: {_HEAD_DIMS})")
+                         f"(supported: {TAKEN_WIDTHS})")
     if q.dtype not in _Q_DTYPES:
         raise ValueError(f"query dtype {q.dtype} not supported")
     if k_pages.dtype not in _DTYPE_CODE or v_pages.dtype != k_pages.dtype:
@@ -127,6 +146,10 @@ def _check(q, k_pages, v_pages, k_scale, v_scale, ints, *, q_ndim: int):
     for t in (k_pages, v_pages):
         if t.data_ptr() % 16:
             raise ValueError("pools must be 16-byte aligned")
+    if dh > _HEAD_DIMS[-1] and q.data_ptr() % 16:
+        # the width-generic bodies read q in vectors
+        raise ValueError("q must be 16-byte aligned at head widths above "
+                         f"{_HEAD_DIMS[-1]}")
 
 
 def _on_cuda(q) -> bool:
@@ -240,11 +263,12 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
 
 _PAGED_SPLIT_MAX = 128   # keys a split at most, before rounding to pages
 _PAGED_ROWS = 4          # query rows a pass-1 block takes at most
+_WIDE_ROWS = 4           # query rows a width-generic decode block takes
 _PAGED_MAX_SPLIT = 4096  # keys a split the kernel takes (rows in shared memory)
 
 
 def paged_split(B: int, Hkv: int, n_keys: int, group: int, page_size: int,
-                n_sm: int) -> int:
+                n_sm: int, dh: int = 128) -> int:
     """Keys a split of the paged decode kernel
     (csrc/paged_decode_attention.cu) over a page table of ``n_keys = n_pp
     * page_size`` keys: a whole number of pages.
@@ -253,12 +277,16 @@ def paged_split(B: int, Hkv: int, n_keys: int, group: int, page_size: int,
     ``seq_lens`` (which lies on the device: reading it would cost a
     device-to-host sync a layer). A pass-1 block takes one split of one
     (sequence, kv head) for up to four of the group's query rows, so the
-    card holds ``B * Hkv * ceil(group / 4)`` units of work a split. The
+    card holds ``B * Hkv * ceil(group / 4)`` units of work a split; above
+    head width 512 (``dh``; at or below it the width takes no part) a
+    block takes up to 4 rows and one column block of 128, so ``B * Hkv *
+    ceil(group / 4) * dh / 128``. The
     table is cut into the number of splits that brings that nearest to two
     an SM, and into at least enough that no split exceeds 128 keys; a split
     is then rounded up to whole pages, and ``ceil(n_keys / split)`` splits
     cover the table."""
-    units = B * Hkv * -(-group // _PAGED_ROWS)
+    rows = _WIDE_ROWS if dh > _HEAD_DIMS[-1] else _PAGED_ROWS
+    units = B * Hkv * -(-group // rows) * _column_blocks(dh)
     n_keys = max(n_keys, 1)
     n_split = max(1, (2 * n_sm + units // 2) // units,
                   -(-n_keys // _PAGED_SPLIT_MAX))
@@ -325,7 +353,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     n_pp = page_table.shape[1]
     split = paged_split(B, _split_heads(split_kv_heads, Hkv), n_pp * ps,
-                        H // Hkv, ps, _sm_count(q.device.index))
+                        H // Hkv, ps, _sm_count(q.device.index), dh)
     if split > _PAGED_MAX_SPLIT:
         raise ValueError(f"page_size {ps} exceeds the paged decode kernel's "
                          f"{_PAGED_MAX_SPLIT}-key split")
@@ -401,14 +429,16 @@ def chunk_split(B: int, Hkv: int, C: int, group: int, n_keys: int,
     group <= 16``) and keys 32 a stage (64 with 16-row tiles up to head
     width 256; above it two warps share each tile's columns and a stage
     holds 32 keys, since two stages of 64 would not fit a block's shared
-    memory at 512). The table is cut into the number of splits that brings
-    the blocks nearest to two an SM, and into at least enough that no
-    split exceeds four stages (at most 256 keys; the kernel takes up to
-    4096); a split is whole stages. ``ceil(n_keys / split)`` splits then
-    cover the table."""
+    memory at 512). Above 512 the width-generic tiles take 64 rows and 32
+    keys a tile, and ``dh / 128`` column blocks a row tile. The table is
+    cut into the number of splits that brings the blocks nearest to two an
+    SM, and into at least enough that no split exceeds four stages (at
+    most 256 keys; the kernel takes up to 4096); a split is whole stages.
+    ``ceil(n_keys / split)`` splits then cover the table."""
     rows = C * group
-    bm, sk = (16, 64 if dh <= 256 else 32) if rows <= 16 else (64, 32)
-    units = B * Hkv * -(-rows // bm)
+    bm, sk = ((16, 64 if dh <= 256 else 32) if rows <= 16
+              and dh <= _HEAD_DIMS[-1] else (64, 32))
+    units = B * Hkv * -(-rows // bm) * _column_blocks(dh)
     n_keys = max(n_keys, 1)
     n_split = max(1, (2 * n_sm + units // 2) // units,
                   -(-n_keys // (_CHUNK_STEPS * sk)))
@@ -639,7 +669,8 @@ _SPLIT_ALIGN = 16   # keys a split is a multiple of
 _SPLIT_MAX = 128    # keys a split at most: pass 1 walks a split serially
 
 
-def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int) -> int:
+def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int,
+                 dh: int = 128) -> int:
     """Keys a split of the split-K dense decode (csrc/decode_attention.cu).
 
     A pure function of the shapes and the card's SM count, never of
@@ -649,11 +680,14 @@ def decode_split(B: int, Hkv: int, L: int, group: int, n_sm: int) -> int:
     at head widths 256 and 384, 4 at 512, where the rule stays the same:
     it sizes the grid, and a block's passes over its rows read the split's
     keys from L2), so the card holds ``B * Hkv * ceil(group / 16)`` units
-    of work a split.
+    of work a split; above head width 512 (``dh``; at or below it the
+    width takes no part) a block takes 4 rows and one column block of
+    128, so ``B * Hkv * ceil(group / 4) * dh / 128``.
     The cache is cut into the number of splits that brings that nearest to
     two an SM, and into at least enough that no split exceeds 128 keys, in
     multiples of 16 keys. ``ceil(L / split)`` splits then cover ``L``."""
-    units = B * Hkv * -(-group // 16)
+    rows = _WIDE_ROWS if dh > _HEAD_DIMS[-1] else 16
+    units = B * Hkv * -(-group // rows) * _column_blocks(dh)
     n_split = max(1, (2 * n_sm + units // 2) // units,
                   -(-L // _SPLIT_MAX))
     split = -(-max(L, 1) // n_split)
@@ -715,10 +749,10 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
                      k_scale=None, v_scale=None):
     """Decode attention over a dense KV cache.
 
-    q: (B, H, dh), dh 64, 128, 256, 384 or 512; k/v_cache: (B, L, Hkv, dh) (int8
-    when scales are given, else any of f32/bf16/f16), any L; kv_valid:
-    (B,) int32 valid positions
-    per sequence (positions >= kv_valid[b] are masked and, on the card,
+    q: (B, H, dh), dh 64, 128, 256, 384, 512 or a multiple of 128 above
+    512; k/v_cache: (B, L, Hkv, dh) (int8 when scales are given, else any
+    of f32/bf16/f16), any L; kv_valid: (B,) int32 valid positions per
+    sequence (positions >= kv_valid[b] are masked and, on the card,
     never read); k/v_scale: (Hkv,) f32. The GQA group of H/Hkv consecutive
     query heads reads one kv head. Returns (B, H, dh) in q's dtype.
 
@@ -737,7 +771,8 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
                          f"({B},), got {tuple(k_cache.shape)} and "
                          f"{tuple(kv_valid.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    split = decode_split(B, Hkv, L, H // Hkv, _sm_count(q.device.index))
+    split = decode_split(B, Hkv, L, H // Hkv, _sm_count(q.device.index),
+                         dh)
     n_split = max(1, -(-L // split))
     # pass 1's partials: acc (B, H, n_split, dh), then m and l (B, H, n_split)
     part = torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,

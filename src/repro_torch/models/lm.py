@@ -304,19 +304,17 @@ def paged_supported(cfg: ArchConfig) -> Optional[str]:
 
 
 def _kernel_layers(cfg: ArchConfig, path: str):
-    """The (kernel name, head widths it takes) that ``path``'s layers reach
-    on a CUDA device: "paged" (the paged decode, chunk prefill and spec
-    verify, on every layer of a ``paged_supported`` config), "prefill"
-    (flash on a causal layer without a soft-cap), "decode" (the dense
-    decode on a layer with neither a window nor a soft-cap) or "static"
-    (both). Masked, windowed, soft-capped and MLA layers reach none. Every
-    kernel takes head widths 64, 128, 256, 384 and 512
-    (``kernels._HEAD_DIMS``), so a width is refused only where it is none
-    of these (the reduced twins' 16, or 80, 96, 192, and 640 or wider:
-    ROADMAP B8)."""
+    """The kernels that ``path``'s layers reach on a CUDA device: "paged"
+    (the paged decode, chunk prefill and spec verify, on every layer of a
+    ``paged_supported`` config), "prefill" (flash on a causal layer without
+    a soft-cap), "decode" (the dense decode on a layer with neither a
+    window nor a soft-cap) or "static" (both). Masked, windowed,
+    soft-capped and MLA layers reach none. Every kernel takes head widths
+    64, 128, 256, 384, 512 and every multiple of 128 above 512
+    (``kernels.head_dim_taken``), so a width is refused only where it is
+    none of these (the reduced twins' 16, or 80, 96, 192, 576, 1000)."""
     if path == "paged":
-        return [("paged decode / chunk prefill / spec verify",
-                 kern._HEAD_DIMS)]
+        return ["paged decode / chunk prefill / spec verify"]
     if path not in ("prefill", "decode", "static"):
         raise ValueError(f"unknown path {path!r}")
     if cfg.mla is not None or cfg.logit_softcap:
@@ -326,9 +324,9 @@ def _kernel_layers(cfg: ArchConfig, path: str):
     out = []
     prefix = cfg.prefix_bidirectional and cfg.prefix_len
     if path != "decode" and not prefix and 0 in kinds:
-        out.append(("flash attention", kern._HEAD_DIMS))
+        out.append("flash attention")
     if path != "prefill" and 0 in kinds:
-        out.append(("dense decode", kern._HEAD_DIMS))
+        out.append("dense decode")
     return out
 
 
@@ -340,11 +338,13 @@ def kernel_width_reason(cfg: ArchConfig, path: str) -> Optional[str]:
     and training reaches no kernel."""
     if (paged_supported if path == "paged" else static_supported)(cfg):
         return None                      # the path does not run cfg at all
-    bad = [(name, dims) for name, dims in _kernel_layers(cfg, path)
-           if cfg.head_dim not in dims]
+    if kern.head_dim_taken(cfg.head_dim):
+        return None
+    bad = _kernel_layers(cfg, path)
     if not bad:
         return None
-    takes = "; ".join(f"the {name} takes {list(dims)}" for name, dims in bad)
+    takes = "; ".join(f"the {name} takes {kern.TAKEN_WIDTHS}"
+                      for name in bad)
     return (f"{cfg.name}: head_dim {cfg.head_dim} reaches a CUDA kernel that "
             f"does not take it ({takes}); pass device='cpu' (--device cpu) "
             f"to run it on the CPU")

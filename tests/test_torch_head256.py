@@ -210,7 +210,7 @@ def test_split_rules_keep_their_shape_at_256():
     head, group 8; a 576-key table of 16-key pages) the paged decode's
     128-key cap and the chunk's four stages set the splits."""
     assert list(inspect.signature(tk.paged_split).parameters) == [
-        "B", "Hkv", "n_keys", "group", "page_size", "n_sm"]
+        "B", "Hkv", "n_keys", "group", "page_size", "n_sm", "dh"]
     assert list(inspect.signature(tk.chunk_split).parameters) == [
         "B", "Hkv", "C", "group", "n_keys", "n_sm", "dh"]
     assert tk.paged_split(8, 1, 576, 8, 16, 132) == 48

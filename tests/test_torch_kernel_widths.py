@@ -3,8 +3,8 @@
 kernel on a CUDA device (the paged path's three kernels on every layer,
 flash on causal layers without a soft-cap, the dense decode on layers
 with neither a window nor a soft-cap, each at head widths 64, 128, 256,
-384 and 512; masked, windowed, soft-capped, MLA, Mamba, Zamba and Whisper layers
-reach none), and that ``ServeEngine``, the dense and paged cache
+384, 512 and every multiple of 128 above 512; masked, windowed,
+soft-capped, MLA, Mamba, Zamba and Whisper layers reach none), and that ``ServeEngine``, the dense and paged cache
 constructors, the static forward and the serve CLI refuse such a config
 on "cuda" before any weights are drawn, and never on "cpu"."""
 import pytest
@@ -18,15 +18,18 @@ from repro_torch.configs import all_configs, get_config
 from repro_torch.configs.reduce import reduced
 from repro_torch.models import lm as tlm
 from repro_torch.serving import ServeEngine
-from torch_kernel_inputs import PALI_TEXT, WIDE_TEXT
+from torch_kernel_inputs import PALI_TEXT, WIDE_TEXT, WIDER_TEXT
 
 torch.set_num_threads(2)
 
 ARCHS = sorted(c.name for c in (all_configs().values()
                                 if isinstance(all_configs(), dict)
                                 else all_configs()))
-# every kernel's head widths (kernels._HEAD_DIMS)
+# the head widths with instances of their own (kernels._HEAD_DIMS); every
+# multiple of 128 above 512 runs the width-generic instance
 TAKEN = (64, 128, 256, 384, 512)
+# what every kernel takes, as a refusal names it
+TAKEN_TEXT = "[64, 128, 256, 384, 512] and every multiple of 128 above 512"
 # reduced twins (head width 16) whose layers reach a kernel on each path
 REFUSED_PAGED = {"arctic-480b", "command-r-plus-104b", "llama3.2-1b",
                  "qwen2.5-3b", "yi-6b"}
@@ -52,7 +55,8 @@ def test_reduced_twins(arch):
 
 def test_refusal_names_each_kernel_and_its_widths():
     cfg = reduced(get_config("llama3.2-1b"))
-    taken = str(list(TAKEN))
+    taken = TAKEN_TEXT
+    assert tk.TAKEN_WIDTHS == TAKEN_TEXT
     assert (f"paged decode / chunk prefill / spec verify takes {taken}"
             in tm.kernel_width_reason(cfg, "paged"))
     static = tm.kernel_width_reason(cfg, "static")
@@ -78,8 +82,7 @@ def test_full_width_not_refused(arch):
         assert tm.kernel_width_reason(cfg, path) is None, path
     if arch == "paligemma-3b":
         assert cfg.head_dim == 256
-        assert tlm._kernel_layers(cfg, "static") == [
-            ("dense decode", TAKEN)]
+        assert tlm._kernel_layers(cfg, "static") == ["dense decode"]
 
 
 def test_a_width_no_kernel_takes_is_refused_at_full_width():
@@ -94,8 +97,8 @@ def test_a_width_no_kernel_takes_is_refused_at_full_width():
     wide = get_config("qwen2.5-3b").replace(head_dim=256)
     for path in ("paged", "prefill", "decode", "static"):
         assert tm.kernel_width_reason(wide, path) is None, path
-    assert [name for name, _ in tlm._kernel_layers(wide, "static")] == [
-        "flash attention", "dense decode"]
+    assert tlm._kernel_layers(wide, "static") == ["flash attention",
+                                                  "dense decode"]
 
 
 
@@ -117,25 +120,39 @@ def test_paligemma_text_decoder_reaches_every_kernel_at_256(path):
     # the image-prefixed model itself stays off the paged path
     assert tm.paged_supported(get_config("paligemma-3b")) is not None
     assert tm.kernel_width_reason(cfg, path) is None
-    assert tlm._kernel_layers(cfg, path) == [
-        (name, TAKEN) for name in TEXT_KERNELS[path]]
+    assert tlm._kernel_layers(cfg, path) == TEXT_KERNELS[path]
+
+
+# every multiple of 128 above 512 is taken (the width-generic instance)
+WIDER = (640, 768, 896, 1024, 1152, 1536, 2048)
 
 
 @pytest.mark.parametrize("path", ["paged", "prefill", "decode", "static"])
 @pytest.mark.parametrize("dh", [16, 64, 80, 96, 128, 192, 256, 384, 512,
-                                640])
+                                576, 640, 768, 1000, 1024, 2048])
 def test_only_the_built_widths_are_taken(dh, path):
     """On each path a full-width dense config is taken at 64, 128, 256,
-    384 and 512 and refused at any other width (16, 80, 96, 192, and 640,
-    which the reference's routes would take: ROADMAP B8), with a reason
-    that names the widths taken."""
+    384, 512 and every multiple of 128 above 512 (640, 768, 1024, 2048)
+    and refused at any other width (16, 80, 96, 192, MLA's absorbed 512 +
+    64 = 576, 1000), with a reason that names the widths taken."""
     cfg = get_config("qwen2.5-3b").replace(head_dim=dh)
     reason = tm.kernel_width_reason(cfg, path)
     assert tk._HEAD_DIMS == TAKEN
-    if dh in TAKEN:
+    assert tk.head_dim_taken(dh) == (dh in TAKEN or dh in WIDER)
+    if dh in TAKEN or dh in WIDER:
         assert reason is None
     else:
-        assert f"head_dim {dh}" in reason and str(list(TAKEN)) in reason
+        assert f"head_dim {dh}" in reason and TAKEN_TEXT in reason
+
+
+@pytest.mark.parametrize("dh", WIDER)
+def test_every_multiple_of_128_above_512_is_taken(dh):
+    """At every multiple of 128 from 640 to 2048 a full-width dense config
+    is taken on every path, and the wrappers' check admits the width."""
+    cfg = get_config("qwen2.5-3b").replace(head_dim=dh)
+    for path in ("paged", "prefill", "decode", "static"):
+        assert tm.kernel_width_reason(cfg, path) is None, path
+    assert tk.head_dim_taken(dh) and not tk.head_dim_taken(dh + 64)
 
 
 @pytest.mark.parametrize("path", sorted(TEXT_KERNELS))
@@ -143,19 +160,52 @@ def test_wide_text_decoder_reaches_every_kernel_at_512(path):
     """The dh-512 text decoder (paligemma-3b's Gemma-2B decoder with its 8
     heads of 256 regrouped as 4 of 512 over its 1 KV head) keeps the
     model's widths, reaches every kernel at 512 and is refused by none;
-    at 640 every kernel it reaches refuses it, naming the widths taken."""
+    at 576 every kernel it reaches refuses it, naming the widths taken."""
     cfg = get_config("paligemma-3b").replace(**WIDE_TEXT)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab) == (18, 2048, 4, 1, 512,
                                                    16384, 257216)
     assert tm.paged_supported(cfg) is None
     assert tm.kernel_width_reason(cfg, path) is None
-    assert tlm._kernel_layers(cfg, path) == [
-        (name, TAKEN) for name in TEXT_KERNELS[path]]
-    wider = tm.kernel_width_reason(cfg.replace(head_dim=640), path)
-    assert "head_dim 640" in wider and "--device cpu" in wider
+    assert tlm._kernel_layers(cfg, path) == TEXT_KERNELS[path]
+    wider = tm.kernel_width_reason(cfg.replace(head_dim=576), path)
+    assert "head_dim 576" in wider and "--device cpu" in wider
     for name in TEXT_KERNELS[path]:
-        assert f"the {name} takes {list(TAKEN)}" in wider
+        assert f"the {name} takes {TAKEN_TEXT}" in wider
+
+
+@pytest.mark.parametrize("path", sorted(TEXT_KERNELS))
+def test_wider_text_decoder_reaches_every_kernel_at_1024(path):
+    """The dh-1024 text decoder (the same decoder's 8 heads of 256
+    regrouped as 2 of 1024 over its 1 KV head) keeps the model's widths
+    and reaches every kernel at 1024, the width-generic instances, and is
+    refused by none; at 1000 every kernel it reaches refuses it."""
+    cfg = get_config("paligemma-3b").replace(**WIDER_TEXT)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab) == (18, 2048, 2, 1, 1024,
+                                                   16384, 257216)
+    assert tm.paged_supported(cfg) is None
+    assert tm.kernel_width_reason(cfg, path) is None
+    assert tlm._kernel_layers(cfg, path) == TEXT_KERNELS[path]
+    odd = tm.kernel_width_reason(cfg.replace(head_dim=1000), path)
+    assert "head_dim 1000" in odd and TAKEN_TEXT in odd
+
+
+def test_a_wider_width_is_refused_before_weights(no_init):
+    """576 and 1000 are refused on the card before any weights are drawn,
+    on both engines; 1024 passes the width check and goes on to the
+    device."""
+    cfg = reduced(get_config("paligemma-3b")).replace(**WIDER_TEXT)
+    for dh in (576, 1000):
+        for scheduler in ("continuous", "static"):
+            with pytest.raises(NotImplementedError,
+                               match=f"head_dim {dh}.*every multiple of 128"):
+                ServeEngine(cfg.replace(head_dim=dh), device="cuda",
+                            scheduler=scheduler)
+    want = ("init_params was called" if torch.cuda.is_available()
+            else "CUDA is not available")
+    with pytest.raises((AssertionError, RuntimeError), match=want):
+        ServeEngine(cfg, device="cuda", scheduler="continuous")
 
 
 def test_the_refusal_comes_before_weights_for_the_text_decoder_twin(no_init):

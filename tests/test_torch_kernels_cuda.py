@@ -386,7 +386,7 @@ def test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, B, H,
     keys averages them down to a few hundredths, so the long case holds
     16-bit outputs to four ulps of the largest value instead of 2e-2."""
     split = tk.decode_split(B, Hkv, L, H // Hkv,
-                            tk._sm_count(torch.cuda.current_device()))
+                            tk._sm_count(torch.cuda.current_device()), dh)
     rng = np.random.default_rng(B + L)
     dev = dict(device=cuda_device)
     kc = rng.standard_normal((B, L, Hkv, dh), dtype=np.float32)
@@ -607,7 +607,7 @@ def test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
     B, ps, npp = 16, 16, 36
     n_keys = npp * ps
     split = tk.paged_split(B, Hkv, n_keys, H // Hkv, ps,
-                           tk._sm_count(torch.cuda.current_device()))
+                           tk._sm_count(torch.cuda.current_device()), dh)
     assert split % ps == 0
     edges = split_edges(n_keys, split)
     q3, kp, vp, pt, kw = _paged_inputs(rng, cuda_device, B, H, Hkv, dh, ps,
@@ -855,13 +855,93 @@ def test_cuda_wide_heads_take_every_kernel(cuda_device, H, Hkv, dh, qdt,
                                                 pool)
 
 
+# ------------- head widths above 512: the width-generic instances ---------- #
+
+# groups 2 and 8 over one KV head at 640 and 1024 (the dh-1024 text decoder
+# serves group 2 at 1024), group 1 at 1024, and group 2 at 768 and 2048
+WIDER_WIDTHS = [(2, 1, 640), (8, 1, 640), (2, 1, 768), (2, 1, 1024),
+                (8, 1, 1024), (8, 8, 1024), (2, 1, 2048)]
+
+
 @pytest.mark.cuda
-def test_cuda_width_640_is_refused(cuda_device):
-    """Above 512 no kernel is built (ROADMAP B8): every entry raises on the
-    card rather than falling back to its plain version."""
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+def test_cuda_wider_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                  pool):
+    """The chunk kernel's split edges above 512: 64-row tiles of 32 keys,
+    dh / 128 column blocks a tile (``chunk_split`` counts them)."""
+    test_cuda_chunk_split_edges_match_plain(cuda_device, H, Hkv, dh, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 9, 13])
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+def test_cuda_wider_verify_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                   pool, C):
+    test_cuda_verify_split_edges_match_plain(cuda_device, H, Hkv, dh, pool,
+                                             C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8", "float32"])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+def test_cuda_wider_paged_decode_split_edges_match_plain(cuda_device, H,
+                                                         Hkv, dh, pool):
+    """The paged decode's width-generic FMA body (16 rows and one column
+    block of 128 a block) on the splits' edges at ``paged_split(..., dh)``."""
+    test_cuda_paged_decode_split_edges_match_plain(cuda_device, H, Hkv, dh,
+                                                   pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.float16, False),
+                                         (torch.bfloat16, True)])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+def test_cuda_wider_dense_decode_split_boundaries(cuda_device, dtype, quant,
+                                                  H, Hkv, dh):
+    test_cuda_dense_decode_split_boundaries(cuda_device, dtype, quant, 12, H,
+                                            Hkv, dh, 545)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 17, 64, 300])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_wider_flash_tensor_core_tiles_match_plain(cuda_device, dtype,
+                                                        causal, H, Hkv, dh,
+                                                        S):
+    """Flash's width-generic tensor-core tiles: Q K^T over dh / 128 pieces
+    in every column block of 128, each block its slice of O."""
+    test_cuda_flash_tensor_core_tiles_match_plain(cuda_device, dtype, causal,
+                                                  H, Hkv, dh, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,pool", [("float32", "float32"),
+                                      ("float32", "bfloat16"),
+                                      ("bfloat16", "float32"),
+                                      ("float16", "int8"),
+                                      ("float32", "int8")])
+@pytest.mark.parametrize("H,Hkv,dh", WIDER_WIDTHS)
+def test_cuda_wider_heads_take_every_kernel(cuda_device, H, Hkv, dh, qdt,
+                                            pool):
+    """Every kernel takes 640, 768, 1024 and 2048 on its FMA bodies and the
+    mixed query/pool pairs, as at 256 to 512."""
+    test_cuda_head_width_256_takes_every_kernel(cuda_device, H, Hkv, dh, qdt,
+                                                pool)
+
+
+@pytest.mark.cuda
+def test_cuda_width_576_is_refused(cuda_device):
+    """576 (MLA's absorbed 512 + 64) is no multiple of 128: every entry
+    raises on the card rather than falling back to its plain version."""
     dev = dict(device=cuda_device, dtype=torch.bfloat16)
-    q = torch.zeros((2, 4, 640), **dev)
-    kp = torch.zeros((5, 16, 1, 640), **dev)
+    q = torch.zeros((2, 4, 576), **dev)
+    kp = torch.zeros((5, 16, 1, 576), **dev)
     pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32,
                       device=cuda_device)
     lens = torch.tensor([20, 3], dtype=torch.int32, device=cuda_device)
@@ -874,5 +954,5 @@ def test_cuda_width_640_is_refused(cuda_device):
              lambda: tkf.flash_attention(q[:, None], kp[:2, :1],
                                          kp[:2, :1])]
     for call in calls:
-        with pytest.raises(ValueError, match="head_dim 640"):
+        with pytest.raises(ValueError, match="head_dim 576"):
             call()

@@ -63,7 +63,7 @@ def test_paged_split_is_a_function_of_the_shapes():
     B=8, 32 kv heads, group 1, a 576-key table of 16-key pages) the
     128-key cap sets it: 5 splits of 8 pages, 1280 pass-1 blocks."""
     assert list(inspect.signature(tk.paged_split).parameters) == [
-        "B", "Hkv", "n_keys", "group", "page_size", "n_sm"]
+        "B", "Hkv", "n_keys", "group", "page_size", "n_sm", "dh"]
     split = tk.paged_split(8, 32, 576, 1, 16, 132)
     assert split == tk.paged_split(8, 32, 576, 1, 16, 132) == 128
     n_split = -(-576 // split)

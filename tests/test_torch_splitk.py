@@ -119,7 +119,7 @@ def test_decode_split_is_a_function_of_the_shapes():
     blocks; a batch that fills the card alone is split only as far as the
     128-key cap needs."""
     assert list(inspect.signature(tk.decode_split).parameters) == [
-        "B", "Hkv", "L", "group", "n_sm"]
+        "B", "Hkv", "L", "group", "n_sm", "dh"]
     split = tk.decode_split(4, 2, 545, 8, 132)
     assert split == tk.decode_split(4, 2, 545, 8, 132) == 32
     assert -(-545 // split) * 4 * 2 >= 132

@@ -206,11 +206,14 @@ def test_builds_every_source_from_one_place():
                                    "decode_attention", "flash_attention"}
     extra = {"decode_attention": {"split_decode.cuh"},
              "paged_decode_attention": {"split_decode.cuh"},
-             "flash_attention": {"mma_tile.cuh"},
-             "chunk_prefill_attention": {"mma_tile.cuh", "split_decode.cuh"}}
+             "flash_attention": {"mma_tile.cuh", "wide_mma.cuh"},
+             "chunk_prefill_attention": {"mma_tile.cuh", "split_decode.cuh",
+                                         "wide_mma.cuh"}}
     for name in kbuild.SOURCES:
+        # every source takes the width-generic body above head width 512
         assert set(kbuild.headers(name)) == {"dispatch.cuh",
-                                             "paged_attention.cuh"} | extra.get(
+                                             "paged_attention.cuh",
+                                             "wide_tile.cuh"} | extra.get(
                                                  name, set())
         assert kbuild.lib_path(name).name.startswith(name + "_")
     hashes = {kbuild.source_hash(n) for n in kbuild.SOURCES}

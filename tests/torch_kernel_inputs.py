@@ -7,17 +7,19 @@ import torch
 # (split over pages, a decode body of its own)
 OLD_PAGED_DECODE_LIB = "paged_decode_attention_0fd935ec44eda43a.so"
 # the headers the redesigned paged decode is built from: the shared dtype
-# codes and numerics, and the split-K combine it shares with the dense
-# decode and the chunk kernel
+# codes and numerics, the split-K combine it shares with the dense decode
+# and the chunk kernel, and the width-generic body of head widths above
+# 512
 PAGED_DECODE_HEADERS = {"dispatch.cuh", "paged_attention.cuh",
-                        "split_decode.cuh"}
+                        "split_decode.cuh", "wide_tile.cuh"}
 # the chunk library before its redesign on tensor-core tiles
 OLD_CHUNK_LIB = "chunk_prefill_attention_724d3abe02686b42.so"
 # the headers the redesigned chunk kernel is built from: the tensor-core
-# tiles it shares with flash and the split-K combine it shares with the
-# dense decode
+# tiles it shares with flash, the split-K combine it shares with the dense
+# decode, and the width-generic bodies (FMA and tensor-core) of head widths
+# above 512
 CHUNK_HEADERS = {"dispatch.cuh", "paged_attention.cuh", "mma_tile.cuh",
-                 "split_decode.cuh"}
+                 "split_decode.cuh", "wide_tile.cuh", "wide_mma.cuh"}
 
 
 # arctic-480b's attention width (H, Hkv, dh): 56 query heads over 8 KV
@@ -38,6 +40,9 @@ PALI_TEXT = dict(family="dense", prefix_len=0, prefix_bidirectional=False)
 # 512 over its 1 KV head: the width no config of the repo reaches, served
 # at 512 (head widths 384 and 512 of the kernels)
 WIDE_TEXT = dict(PALI_TEXT, n_heads=4, head_dim=512)
+# regrouped as 2 query heads of 1024 over the 1 KV head: served at 1024 (the
+# kernels' width-generic instances, every multiple of 128 above 512)
+WIDER_TEXT = dict(PALI_TEXT, n_heads=2, head_dim=1024)
 
 
 def t(a):
