@@ -21,7 +21,15 @@ them, prints the width-generic instances' ptxas report, runs phase 3's
 cases above head width 512 and phase 27, nor ``--tiers-only``, which
 builds them and runs only phase 25, nor ``--sweeps-only``, which builds
 them and runs phase 17 (whose ranks serve phase 26's rank cells) and
-phase 26.
+phase 26, nor ``--graphs-only``, which builds them and runs phase 28
+(serving phase 4's captured runs itself first).
+
+The continuous engine captures its decode block, prefill chunk and verify
+pass as CUDA graphs on the card by default (``serving.graphs``), so every
+phase that serves it at one shard (4, 6, 7, 19, 21, 22, 23, 25, 26 and
+27) replays them; the head-sharded engines of phase 17 pass
+``graphs=False``, and phase 28 holds the captured blocks against eager
+ones.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -400,6 +408,28 @@ Phases (any failure exits non-zero before the result line):
      1 KV head (``WIDER_TEXT``: q projection 2048 x 2048, K and V 2048 x
      1024; no published checkpoint has this width), at 6 of its 18
      layers, served, checked and timed as phase 22.
+  28. the continuous engine's blocks as CUDA graphs, llama3.2-1b at full
+     width and 16 layers with phase 4's weights, bf16: (a) native, int8,
+     n-gram k=4 and phase 4's sampled run on phase 4's 16 requests, each
+     served eagerly (``graphs=False``) and captured, both with the
+     streams serialized (with overlap on, a decode block's membership
+     follows measured wall times, which the capture changes by design):
+     tokens equal, and equal to phase 4's captured run, but for a
+     divergence after a near tie (phase 6's rule); host syncs, decode
+     steps, decode and prefill compiles and every launch count equal;
+     captures equal to compiles in each captured engine and in phase 4's,
+     and a second serve on the captured native engine captures nothing;
+     (b) one K=8 decode block (8 slots x 300 cached, a seeded random
+     pool) replayed twice from one pool state bitwise equal to its eager
+     run, tokens and pool; (c) PERF.md's three llama blocks (the K=8
+     decode block, the chunk B=1, C=64 at 384, the verify pass B=8, C=5)
+     eager and captured: wall (median of 5), device busy (torch.profiler,
+     which records a replay's kernels), busy share and the seconds of one
+     capture, and the launches one replay adds to the counters equal to
+     the eager block's and to the attention kernels the profiler records
+     in that replay (over the kernels a launch makes); (d) each captured
+     engine's
+     graph memory (the allocator's growth across its captures).
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -1358,25 +1388,25 @@ KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
 PAGED = KERNELS[:3]
 
 
-def _entries(kern) -> dict:
-    from repro_torch.kernels import flash_attention as flash
-    return {name: getattr(flash if name == "flash_attention" else kern, name)
-            for name in KERNELS}
+def _entries() -> dict:
+    """The counted kernel entries (``repro_torch.kernels.entries``)."""
+    from repro_torch.kernels import entries
+    return entries()
 
 
-def zero_counts(kern) -> None:
-    for fn in _entries(kern).values():
+def zero_counts() -> None:
+    for fn in _entries().values():
         fn.launches = 0
         fn.launches_by_heads.clear()
 
 
-def read_counts(kern) -> dict:
-    return {name: fn.launches for name, fn in _entries(kern).items()}
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _entries().items()}
 
 
-def read_heads(kern) -> dict:
+def read_heads() -> dict:
     """The launches since ``zero_counts`` by (entry, KV heads)."""
-    return {(name, h): n for name, fn in _entries(kern).items()
+    return {(name, h): n for name, fn in _entries().items()
             for h, n in fn.launches_by_heads.items()}
 
 
@@ -1409,7 +1439,7 @@ def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
     kernels in ``need`` must launch during it; the trace must reconcile,
     every page must be freed and every token lie in the vocabulary.
     Returns (engine, outputs, result row)."""
-    before = read_counts(kern)
+    before = read_counts()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
                       device="cuda", seed=0, scheduler="continuous",
@@ -1419,7 +1449,8 @@ def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     s = eng.stats
-    n = {k: v - before[k] for k, v in read_counts(kern).items()}
+    n = {k: v - before[k] for k, v in read_counts().items()}
+    g = eng.graphs
     check(all(n[k] > 0 for k in need), f"{label}: kernels not launched {n}")
     check(eng.trace_report["ok"], f"{label}: trace did not reconcile")
     check(eng.kv_manager.n_used == 0, f"{label}: pages leaked")
@@ -1436,7 +1467,10 @@ def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
         decode_s=s.decode_s, serve_s=s.serve_s, wall_s=wall,
         spec_blocks=s.spec_blocks, draft_proposed=s.draft_proposed,
         draft_accepted=s.draft_accepted, acceptance=s.acceptance_rate,
-        launches=n)
+        launches=n, decode_compiles=s.decode_compiles,
+        prefill_compiles=s.prefill_compiles,
+        captures=g.captures if g else 0, capture_s=g.capture_s if g else 0.0,
+        graph_bytes=g.memory_bytes if g else 0, outputs=outs)
     log(f"engine {label:14s} tokens/s={s.tps:.1f} "
         f"ttft p50/p95={s.ttft_p50*1e3:.1f}/{s.ttft_p95*1e3:.1f}ms "
         f"itl p50/p95={s.itl_p50*1e3:.2f}/{s.itl_p95*1e3:.2f}ms "
@@ -1445,6 +1479,7 @@ def serve_run(torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
         f"prefill_saved={s.cached_prefix_tokens} "
         f"peak_pages={s.peak_pages_used} launches "
         + " ".join(f"{k.split('_')[0]}={v}" for k, v in n.items())
+        + (f" captures={g.captures} ({g.capture_s:.2f}s)" if g else " eager")
         + f" wall={wall:.1f}s")
     return eng, outs, row
 
@@ -1455,7 +1490,7 @@ def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
     reqs = requests(cfg.vocab)
     results = {}
     params = None
-    zero_counts(kern)
+    zero_counts()
     for policy in ("native", "int8"):
         eng, _, results[policy] = serve_run(
             torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs,
@@ -1463,7 +1498,7 @@ def serve_full_width(torch, kern, ServeEngine, RuntimeOptions, cfg):
         params = eng.params                 # one seeded init for every run
         if policy == "native":
             results[policy]["trace_check"] = check_trace_on(eng)
-    return results, read_counts(kern), params
+    return results, read_counts(), params
 
 
 def check_trace_on(eng) -> str:
@@ -1522,7 +1557,7 @@ def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
     sampled = dict(spec, temperature=0.8, top_k=50, top_p=0.9,
                    sample_seed=7, overlap=False)
     runs = {}
-    zero_counts(kern)
+    zero_counts()
     _, greedy, runs["ngram"] = serve_run(
         torch, kern, ServeEngine, RuntimeOptions, cfg, params, reqs, "ngram",
         ("spec_verify_attention", "chunk_prefill_attention"), **spec)
@@ -1544,7 +1579,7 @@ def serve_spec(torch, kern, ServeEngine, RuntimeOptions, cfg, params):
     same = sum(a == b for a, b in zip(outs[0], greedy))
     log(f"sampled runs identical; {same}/{len(greedy)} requests equal to "
         f"the greedy n-gram run")
-    counts = read_counts(kern)
+    counts = read_counts()
     runs["sampling_draws"] = sampling_on_card(torch)
     return runs, counts
 
@@ -1642,21 +1677,21 @@ def serve_static(torch, kern, ServeEngine, RuntimeOptions, cfg):
     reqs = qwen_requests(cfg.vocab)
     waves = len(QWEN_PROMPTS)
     results, params = {}, None
-    zero_counts(kern)
+    zero_counts()
     for policy in ("native", "int8"):
         eng = ServeEngine(cfg, params, RuntimeOptions(dtype="bfloat16"),
                           device="cuda", seed=0, scheduler="static",
                           kv_policy=policy, decode_lookahead=8,
                           max_len=QWEN_MAX_LEN)
         params = eng.params                 # one seeded init for both runs
-        before = read_counts(kern)
+        before = read_counts()
         with count_plain(kern, flash) as plain:
             t0 = time.perf_counter()
             outs = eng.serve([r[:] for r in reqs], QWEN_NEW)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         s = eng.stats
-        n = {k: v - before[k] for k, v in read_counts(kern).items()}
+        n = {k: v - before[k] for k, v in read_counts().items()}
         label = f"static {policy}"
         check(s.decode_steps == waves * QWEN_NEW,
               f"{label}: {s.decode_steps} micro-steps, not {QWEN_NEW} a wave")
@@ -1682,7 +1717,7 @@ def serve_static(torch, kern, ServeEngine, RuntimeOptions, cfg):
             f"decode_compiles={s.decode_compiles} launches flash="
             f"{n['flash_attention']} decode={n['decode_attention']} "
             f"wall={wall:.1f}s")
-    return results, read_counts(kern), params
+    return results, read_counts(), params
 
 
 def profile_static_block(torch, tm, cfg, params, cache_dtype="", B=4,
@@ -1708,8 +1743,8 @@ def profile_static_block(torch, tm, cfg, params, cache_dtype="", B=4,
 def profile_block(torch, block, label, chunk_pass2=False,
                   paged_passes=False, ops=()):
     """Device busy time of one call of ``block`` is the sum of the kernels
-    torch.profiler records; the wall time is taken without the profiler
-    (median of 5). The port's attention kernels live in the namespace
+    torch.profiler records (a CUDA graph's replay too); the wall time is
+    taken without the profiler (median of 5). The port's attention kernels live in the namespace
     ``repro_paged``. With ``paged_passes`` (a block whose only attention
     is the paged decode) its pass 1 and its combine are reported apart.
     For each PyTorch op named in ``ops`` (e.g. ``aten::bmm``), the device
@@ -1978,7 +2013,7 @@ def engine_twice(torch, kern, ServeEngine, RuntimeOptions, cfg, params,
                               page_size=page_size, max_batch=8,
                               prefill_chunk=C, decode_lookahead=8,
                               max_len=MAX_LEN, overlap=False, **kw)
-        zero_counts(kern)
+        zero_counts()
         if cm is not None:
             cm.attention.calls = 0
         with count_plain(kern, flash) as plain:
@@ -1986,7 +2021,7 @@ def engine_twice(torch, kern, ServeEngine, RuntimeOptions, cfg, params,
             out = eng.serve([r[:] for r in reqs], new)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        n = read_counts(kern)
+        n = read_counts()
         s = eng.stats
         if scheduler == "static":
             waves = len({len(r) for r in reqs})
@@ -2191,14 +2226,14 @@ def static_vlm_run(torch, kern, cm, eng, label, run, new, want, n_masked):
         eng.stats = type(eng.stats)()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(kern)
+        zero_counts()
         cm.attention.calls = 0
         with count_plain(kern, flash) as plain:
             t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        n = read_counts(kern)
+        n = read_counts()
         masked = cm.attention.calls
         s = eng.stats
         check(n == want(s), f"{label}: launches {n} != {want(s)}")
@@ -2692,7 +2727,7 @@ def _shard_engine(ServeEngine, RuntimeOptions, cfg, params, run, shards):
                        device="cuda", seed=0, scheduler="continuous",
                        page_size=PS, max_batch=8, prefill_chunk=C,
                        decode_lookahead=8, max_len=MAX_LEN, shards=shards,
-                       **kw)
+                       graphs=False if shards > 1 else None, **kw)
 
 
 def _pool_bytes(tm, eng) -> int:
@@ -2797,13 +2832,13 @@ def shard_rank(rank, shards, reqs, runs):
         check(torch.cuda.current_device() == eng.device.index,
               f"rank {rank}: the engine's device {eng.device} is not the "
               f"current one (cuda:{torch.cuda.current_device()})")
-        zero_counts(kern)
+        zero_counts()
         with count_plain(kern) as plain, kv_heads_seen(kern) as heads:
             t0 = time.perf_counter()
             toks = eng.serve([r[:] for r in reqs], SHARD_NEW)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        n = read_counts(kern)
+        n = read_counts()
         s = eng.stats
         label = f"rank {rank}/{shards} {run}"
         want = dict(paged_decode_attention=L * (s.decode_steps
@@ -2949,7 +2984,7 @@ def train_flops(cfg, n_params: int, B: int, S: int) -> dict:
 
 
 def _kernel_launches(kern) -> int:
-    return sum(read_counts(kern).values())
+    return sum(read_counts().values())
 
 
 def _same_bits(torch, a, b) -> bool:
@@ -2982,7 +3017,7 @@ def _train_run(torch, kern, tm, cm, cfg, tcfg, opts, ckpt_dir=None):
     state = adamw_init(params)
     step_fn = build_train_step(cfg, opts, tcfg)
     ds = for_arch(cfg, S, B, tcfg.seed)
-    zero_counts(kern)
+    zero_counts()
     calls0 = cm.attention.calls
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3024,7 +3059,7 @@ def _train_run(torch, kern, tm, cm, cfg, tcfg, opts, ckpt_dir=None):
     check(all(math.isfinite(x) for x in losses + gn),
           f"non-finite loss or grad_norm: {losses} {gn}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    check(launches == 0, f"training launched kernels: {read_counts(kern)}")
+    check(launches == 0, f"training launched kernels: {read_counts()}")
     # each micro-batch's forward calls the masked attention once a layer,
     # and remat recomputes each block's forward once in the backward pass
     want_calls = cfg.n_layers * 2 * n_micro * steps
@@ -3177,7 +3212,7 @@ def train_card_vs_cpu(torch, kern, tm, get_config):
     from repro_torch.tree import tree_map
     opts = tm.RuntimeOptions(dtype="float32")
     rows = {}
-    zero_counts(kern)
+    zero_counts()
     for arch in TRAIN_FAMILIES:
         cfg = reduced(get_config(arch))
         params = tm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -3222,7 +3257,7 @@ def train_card_vs_cpu(torch, kern, tm, get_config):
         rows[arch] = row
         del params, pc, g_cpu, g_gpu
     check(_kernel_launches(kern) == 0,
-          f"the twins' training launched kernels: {read_counts(kern)}")
+          f"the twins' training launched kernels: {read_counts()}")
     log("train card vs CPU (reduced twins, f32): "
         + ", ".join(f"{a} loss rel {r['loss_rel']:.1e} grad "
                     f"{r['grad_err_of_tol']:.3f} of tol"
@@ -3268,7 +3303,7 @@ def width_refusal(torch, kern, tm, get_config):
         else:
             check(False, "the serve CLI served the reduced twin on cuda")
         check(not drawn, "the CLI drew weights before refusing")
-        zero_counts(kern)
+        zero_counts()
         eng = teng.ServeEngine(reduced(get_config("gemma3-1b")),
                                opts=tm.RuntimeOptions(dtype="float32"),
                                device="cuda", scheduler="static", max_len=48)
@@ -3574,13 +3609,13 @@ def serves_recorded(kern, ServeEngine):
 
     def recorded(eng, reqs, new):
         steps, blocks = eng.stats.decode_steps, eng.stats.spec_blocks
-        zero_counts(kern)
+        zero_counts()
         out = serve(eng, reqs, new)
         paged = eng.scheduler == "continuous"
         model = paged and eng.spec_mode == "model"
         runs.append(dict(
-            scheduler=eng.scheduler, launches=read_counts(kern),
-            by_heads=read_heads(kern),
+            scheduler=eng.scheduler, launches=read_counts(),
+            by_heads=read_heads(),
             draft=dict(eng.drafter.passes) if model else {},
             layers=eng.cfg.n_layers,
             kv_heads=eng.cfg.n_kv_heads // eng.shards,
@@ -3904,20 +3939,20 @@ def seq_rank(rank, n, check_f32):
         opts = tm.RuntimeOptions(dtype="float32")
         params = tm.init_params(cfg, torch.Generator(device="cuda")
                                 .manual_seed(0), "float32", "cuda")
-        zero_counts(kern)
+        zero_counts()
         with count_plain(kern, flash) as plain:
             ref, ref_tok, whole = _static_decode(torch, tm, cfg, params, toks,
                                                  opts, SEQ_NEW)
-        n_ref = read_counts(kern)
+        n_ref = read_counts()
         check(n_ref["decode_attention"] == L * SEQ_NEW
               and n_ref["flash_attention"] == L and not plain,
               f"rank {rank}: the unsharded decode's launches {n_ref} "
               f"(plain {plain})")
-        zero_counts(kern)
+        zero_counts()
         with count_plain(kern, flash) as plain:
             got, got_tok, mine = _static_decode(torch, tm, cfg, params, toks,
                                                 opts, SEQ_NEW, group)
-        n_got = read_counts(kern)
+        n_got = read_counts()
         check(n_got["decode_attention"] == 0 and n_got["flash_attention"] == L
               and not plain,
               f"rank {rank}: the sequence-sharded decode launched "
@@ -4027,7 +4062,7 @@ def ep_rank(rank, n, layers):
     held = torch.cuda.memory_allocated()
     opts = tm.RuntimeOptions(moe_impl="shard_map", moe_shard_map_mesh=group)
     toks, x8, x64 = (t.to("cuda") for t in _ep_inputs(torch, cfg))
-    zero_counts(kern)
+    zero_counts()
     with torch.no_grad():
         logits = tm.forward(cfg, params, toks, opts)
         p0 = _layer(params["stack"], 0)["moe"]
@@ -4041,7 +4076,7 @@ def ep_rank(rank, n, layers):
                 y=y.float().cpu().numpy(),
                 aux=[float(aux["load_balance"]), float(aux["router_z"])],
                 layer_ms=ms, held_bytes=held, experts=E_loc,
-                launches=read_counts(kern))
+                launches=read_counts())
 
 
 def ep_on_card(torch, tm, get_config, smi):
@@ -4555,11 +4590,11 @@ def examples_on_card(torch, kern) -> dict:
     from repro_torch.examples import serve_batched, train_100m
     from repro_torch.kernels import flash_attention as flash
     t0 = time.perf_counter()
-    zero_counts(kern)
+    zero_counts()
     with count_plain(kern, flash) as plain:
         served = serve_batched.main(["--device", "cuda"])
     check(not plain, f"serve_batched called plain versions: {plain}")
-    launched = read_counts(kern)
+    launched = read_counts()
     check(all(v > 0 for k, v in launched.items()
               if k != "spec_verify_attention"),
           f"serve_batched did not launch its paths' kernels: {launched}")
@@ -5361,6 +5396,308 @@ def sweeps_phase(torch, kern, smi, twins, groups) -> dict:
     return out
 
 
+# ------------- phase 28: the serving blocks as CUDA graphs ------------- #
+
+# phase 4's runs that phase 28 serves again (label -> engine options; the
+# sampled run also serialized the streams in phase 4) and the kernels each
+# must launch
+GRAPH_RUNS = {"native": (dict(kv_policy="native"), PAGED[:2]),
+              "int8": (dict(kv_policy="int8"), PAGED[:2]),
+              "ngram": (dict(spec_mode="ngram", spec_k=4), PAGED[1:]),
+              "sampled-0": (dict(spec_mode="ngram", spec_k=4,
+                                 temperature=0.8, top_k=50, top_p=0.9,
+                                 sample_seed=7), PAGED[1:])}
+# what a capture must leave exactly as the eager blocks make it
+GRAPH_COUNTERS = ("host_syncs", "decode_steps", "decode_compiles",
+                  "prefill_compiles", "launches")
+# phase 4's requests that (a) serves: all 16 (8 is the one cut allowed
+# should the script outgrow its time)
+GRAPH_REQS = 16
+
+
+def same_up_to_ties(torch, tm, cfg, params, reqs, got, want, label) -> int:
+    """``got`` equals ``want`` request by request, but for a divergence
+    after a near tie (phase 6's rule: a spec-off top-2 logit gap below
+    1e-4 at the first differing token or before it). Returns the number
+    of requests that differ."""
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    n = 0
+    for prompt, g, w in zip(reqs, got, want):
+        if g != w:
+            k = tie_free_prefix(torch, tm, cfg, params, opts, prompt, w)
+            check(k < len(w) and g[:k] == w[:k],
+                  f"{label}: tokens diverge before any near tie: {g} vs {w}")
+            n += 1
+    return n
+
+
+def graphs_against_eager(torch, kern, tm, ServeEngine, cfg, params,
+                         phase4) -> dict:
+    """(a): each of ``GRAPH_RUNS`` served eagerly (``graphs=False``) and
+    captured, both with the streams serialized (with overlap on, which
+    requests join a decode block follows measured wall times, which the
+    capture changes by design); tokens, ``GRAPH_COUNTERS`` and the launch
+    counts equal, captures = compiles, the captured native engine's second
+    serve captures nothing; every run's tokens also equal those of phase
+    4's captured run (``phase4``) up to a near tie."""
+    reqs = requests(cfg.vocab)[:GRAPH_REQS]
+    out = {}
+    for label, (kw, need) in GRAPH_RUNS.items():
+        sides = {}
+        for side, graphs in (("eager", False), ("captured", None)):
+            eng, outs, row = serve_run(
+                torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
+                reqs, f"{label} {side}", need, graphs=graphs, overlap=False,
+                **kw)
+            check((eng.graphs is None) == (side == "eager"),
+                  f"{label} {side}: the engine's graphs are "
+                  f"{eng.graphs!r}")
+            sides[side] = (eng, outs, row)
+        (_, want, erow), (ceng, got, crow) = sides["eager"], sides["captured"]
+        for row in (crow, phase4[label]):
+            check(row["captures"] == row["decode_compiles"]
+                  + row["prefill_compiles"],
+                  f"{label}: {row['captures']} captures for "
+                  f"{row['decode_compiles']} + {row['prefill_compiles']} "
+                  f"compiles")
+        differ = {c: (crow[c], erow[c]) for c in GRAPH_COUNTERS
+                  if crow[c] != erow[c]}
+        check(not differ, f"{label}: captured != eager in {differ}")
+        ties = same_up_to_ties(torch, tm, cfg, params, reqs, got, want,
+                               f"{label} captured vs eager")
+        ties4 = same_up_to_ties(torch, tm, cfg, params, reqs,
+                                phase4[label]["outputs"][:len(reqs)], want,
+                                f"{label} phase 4 vs eager")
+        again = None
+        if label == "native":
+            n = ceng.graphs.captures
+            again = ceng.serve([r[:] for r in reqs], 64)
+            check(again == got and ceng.graphs.captures == n,
+                  f"native: a second serve on the captured engine captured "
+                  f"{ceng.graphs.captures - n} blocks or changed its tokens")
+        out[label] = dict(
+            eager=erow, captured=crow, ties=ties, ties_phase4=ties4,
+            second_serve_captures=(None if again is None
+                                   else ceng.graphs.captures - n))
+        log(f"graphs {label}: captured == eager in tokens ({ties} requests "
+            f"differ after a near tie; {ties4} against phase 4's captured "
+            f"run) and " + ", ".join(f"{c}={crow[c]}" for c in
+                                     GRAPH_COUNTERS[:-1])
+            + f", launches; captures {crow['captures']} = compiles "
+            f"({crow['capture_s']:.2f}s), graphs' memory "
+            f"{crow['graph_bytes'] / 2**20:.1f} MiB; tokens/s "
+            f"{erow['tokens_per_s']:.1f} -> {crow['tokens_per_s']:.1f}, "
+            f"wall {erow['wall_s']:.2f} -> {crow['wall_s']:.2f}s"
+            + ("" if again is None else "; a second serve captured 0"))
+        del sides, ceng, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _decode_inputs(B, K, n_pp, lens):
+    import numpy as np
+    return dict(tokens=np.arange(1, B + 1, dtype=np.int32),
+                seq_lens=np.full((B,), lens, np.int32),
+                tables=np.arange(1, B * n_pp + 1, dtype=np.int32)
+                .reshape(B, n_pp),
+                done=np.zeros((B,), bool), quota=np.full((B,), K, np.int32))
+
+
+def replays_bitwise(torch, tm, cfg, params) -> dict:
+    """(b): one K=8 decode block over 8 slots of 300 cached tokens (a pool
+    of seeded random pages): its eager run and two replays of its graph,
+    each from the same pool state, give the same tokens and pool bitwise."""
+    from repro_torch.serving.graphs import BlockGraphs
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    B, K = 8, 8
+    n_pp = -(-MAX_LEN // PS)
+    pool = tm.init_paged_cache(cfg, B * n_pp + 1, PS, opts, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    for t in pool["stack"].values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    start = {n: t.clone() for n, t in pool["stack"].items()}
+    inputs = _decode_inputs(B, K, n_pp, 300)
+
+    def block(tokens, seq_lens, tables, done, quota):
+        return tm.decode_steps_paged(cfg, params, tokens, seq_lens, tables,
+                                     pool, K, opts, done=done,
+                                     quota=quota)[0]
+    runner = BlockGraphs("cuda")
+    runs = []
+    for _ in range(3):
+        for n, t in pool["stack"].items():
+            t.copy_(start[n])
+        toks = runner.run("decode", block, **inputs).clone()
+        torch.cuda.synchronize()
+        runs.append((toks, {n: t.clone() for n, t in pool["stack"].items()}))
+        runner.capture_pending()
+    check(runner.captures == 1, f"{runner.captures} captures of one key")
+    for i, (toks, rows) in enumerate(runs[1:], 1):
+        check(torch.equal(toks, runs[0][0]),
+              f"replay {i}'s tokens differ from the eager block's")
+        for n, t in rows.items():
+            check(torch.equal(t, runs[0][1][n]),
+                  f"replay {i}'s pool {n} differs from the eager block's")
+    log(f"graphs: the K={K} decode block (B={B}, 300 cached) replayed twice "
+        f"== its eager run bitwise (tokens and the whole pool)")
+    del runs, start, pool
+    return dict(tokens_equal=True, pool_equal=True, replays=2)
+
+
+def graph_blocks(torch, tm, cfg, params) -> dict:
+    """(c): PERF.md's three llama blocks, the K=8 decode over 8 slots x 300
+    cached tokens, the prefill chunk B=1, C=64 at start 384 and the verify
+    pass B=8, C=5 over 300, each eager (inputs uploaded as the engine
+    does) and captured (copied into the graph's buffers, then replayed):
+    wall ms (median of 5), device busy ms (torch.profiler, which records
+    a replay's kernels), busy share of the wall, seconds of the one
+    capture and the graph's memory. The launches the runner adds for one
+    replay must equal the eager block's, and the attention kernels the
+    profiler sees in one replay must be that count times the kernels a
+    launch makes in the eager block (its pass 1, and its combine where it
+    splits)."""
+    import numpy as np
+    from repro_torch.serving.graphs import BlockGraphs
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    n_pp = -(-MAX_LEN // PS)
+    B, K, Cv = 8, 8, 5
+    pool = tm.init_paged_cache(cfg, B * n_pp + 1, PS, opts, "cuda")
+    one = tm.init_paged_cache(cfg, n_pp + 1, PS, opts, "cuda")
+    dec = _decode_inputs(B, K, n_pp, 300)
+
+    def decode(tokens, seq_lens, tables, done, quota):
+        return tm.decode_steps_paged(cfg, params, tokens, seq_lens, tables,
+                                     pool, K, opts, done=done,
+                                     quota=quota)[0]
+
+    def chunk(tokens, table, start, n_valid):
+        return tm.prefill_paged_chunk(cfg, params, tokens, one, table, start,
+                                      n_valid, opts)[0]
+
+    def verify(tokens, draft_len, seq_lens, tables):
+        out, n_acc, _ = tm.spec_decode_verify(
+            cfg, params, tokens, draft_len, seq_lens, tables, pool,
+            opts=opts)
+        return torch.cat([out, n_acc[:, None]], dim=1)
+    blocks = {
+        f"decode block K={K} B={B} len=300": (decode, dec, False),
+        f"prefill chunk B=1 C={C} start=384": (chunk, dict(
+            tokens=np.arange(1, C + 1, dtype=np.int32)[None],
+            table=np.arange(1, n_pp + 1, dtype=np.int32)[None],
+            start=np.asarray([384], np.int32),
+            n_valid=np.asarray([384 + C], np.int32)), True),
+        f"verify pass B={B} C={Cv} len=300": (verify, dict(
+            tokens=np.arange(1, B * Cv + 1, dtype=np.int32).reshape(B, Cv),
+            draft_len=np.full((B,), Cv - 1, np.int32),
+            seq_lens=dec["seq_lens"], tables=dec["tables"]), True)}
+    out = {}
+    for label, (fn, inputs, pass2) in blocks.items():
+        def eager(fn=fn, inputs=inputs):
+            fn(**{n: torch.as_tensor(v, device="cuda")
+                  for n, v in inputs.items()})
+            torch.cuda.synchronize()
+        zero_counts()
+        eager()
+        launched = {n: k for n, k in read_counts().items() if k}
+        check(len(launched) == 1,
+              f"{label}: launches {launched}, not one kernel entry")
+        (entry, n_eager), = launched.items()
+        e = profile_block(torch, eager, f"{label} eager", chunk_pass2=pass2)
+        seen = sum(k["launches"] for k in e["attention_kernels"].values())
+        check(seen % n_eager == 0,
+              f"{label}: the profiler saw {seen} attention kernels for "
+              f"{n_eager} launches of {entry}")
+        per_launch = seen // n_eager    # pass 1, and a combine if split
+        runner = BlockGraphs("cuda")
+        runner.run(label, fn, **inputs)
+        torch.cuda.synchronize()
+        runner.capture_pending()
+
+        def replay(fn=fn, inputs=inputs, runner=runner, label=label):
+            runner.run(label, fn, **inputs)
+            torch.cuda.synchronize()
+        # the count the runner adds for one replay, held against the
+        # kernels the profiler sees that replay launch
+        zero_counts()
+        replay()
+        added = {n: k for n, k in read_counts().items() if k}
+        check(added == launched, f"{label}: a replay adds {added}, the "
+              f"eager block launched {launched}")
+        c = profile_block(torch, replay, f"{label} captured",
+                          chunk_pass2=pass2)
+        replayed = sum(k["launches"] for k in c["attention_kernels"].values())
+        check(replayed == added[entry] * per_launch,
+              f"{label}: the profiler saw {replayed} attention kernels in "
+              f"one replay, the runner counts {added[entry]} launches of "
+              f"{per_launch} kernels")
+        row = dict(eager_wall_ms=e["wall_ms"],
+                   eager_busy_ms=e["device_busy_ms"],
+                   eager_busy_share=e["busy_share"],
+                   captured_wall_ms=c["wall_ms"],
+                   captured_busy_ms=c["device_busy_ms"],
+                   captured_busy_share=c["busy_share"],
+                   capture_s=runner.capture_s,
+                   graph_bytes=runner.memory_bytes,
+                   entry=entry, launches_per_replay=added[entry],
+                   kernels_per_launch=per_launch,
+                   replay_kernels_seen=replayed)
+        out[label] = row
+        log(f"graphs block {label}: wall {row['eager_wall_ms']:.2f} -> "
+            f"{row['captured_wall_ms']:.2f}ms, busy "
+            f"{row['eager_busy_ms']:.2f} -> {row['captured_busy_ms']:.2f}ms, "
+            f"busy share {100 * row['eager_busy_share']:.1f}% -> "
+            f"{100 * row['captured_busy_share']:.1f}%, one capture "
+            f"{row['capture_s']:.3f}s, graph "
+            f"{row['graph_bytes'] / 2**20:.1f} MiB; a replay counts "
+            f"{added[entry]} {entry} launches, the profiler saw {replayed} "
+            f"kernels ({per_launch} a launch)")
+        del runner
+    del pool, one
+    return out
+
+
+def graphs_phase(torch, kern, tm, ServeEngine, get_config, smi,
+                 phase4=None) -> dict:
+    """Phase 28: the continuous engine's decode block, prefill chunk and
+    verify pass captured as CUDA graphs (the engine's default on the
+    card) against the same blocks run eagerly, on llama3.2-1b at full
+    width and all 16 layers with phase 4's weights (seed 0, bf16): (a)
+    ``graphs_against_eager``, (b) ``replays_bitwise``, (c)
+    ``graph_blocks``, (d) the graphs' memory of each engine (in (a)'s
+    lines). ``phase4``: phase 4's runs by label; without it (as with
+    ``--graphs-only``) they are served here first, captured, as phase 4
+    serves them."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tm.init_params(cfg, gen, "bfloat16", "cuda")
+    if phase4 is None:
+        phase4 = {}
+        for label, (kw, need) in GRAPH_RUNS.items():
+            serial = dict(overlap=False) if "temperature" in kw else {}
+            _, _, phase4[label] = serve_run(
+                torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params,
+                requests(cfg.vocab), f"{label} (phase 4)", need, **kw,
+                **serial)
+    out = dict(smi=smi)
+    out["runs"] = graphs_against_eager(torch, kern, tm, ServeEngine, cfg,
+                                       params, phase4)
+    out["replays"] = replays_bitwise(torch, tm, cfg, params)
+    out["blocks"] = graph_blocks(torch, tm, cfg, params)
+    out["graph_bytes"] = {label: r["captured"]["graph_bytes"]
+                          for label, r in out["runs"].items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 28 (the blocks as CUDA graphs) {out['phase_s']:.1f}s on "
+        f"{smi}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5401,6 +5738,10 @@ def main() -> None:
     ap.add_argument("--sweeps-only", action="store_true",
                     help="only build the kernels and run phase 26 "
                     "(spec_sweep and shard_sweep); prints no result line")
+    ap.add_argument("--graphs-only", action="store_true",
+                    help="only build the kernels and run phase 28 (the "
+                    "serving blocks as CUDA graphs against eager); prints "
+                    "no result line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is run "
                     "(default: this checkout's)")
@@ -5453,7 +5794,8 @@ def main() -> None:
                                 args.train_only, args.shard_paths_only,
                                 args.sync_audit_only, args.head256_only,
                                 args.wide_heads_only,
-                                args.wider_heads_only)) else
+                                args.wider_heads_only,
+                                args.graphs_only)) else
                    (TIER_SWEEPS, SPEC_SHARD_SWEEPS))
     twins = None if twin_groups is None else start_twins(twin_groups)
     built = kbuild.build_kernels()
@@ -5553,6 +5895,14 @@ def main() -> None:
                 smi=smi, build_s=built, wider_ptxas=regs_wider,
                 wider_hmma=wider_hmma, kernel_cases=rows,
                 wider_text=wider_text), indent=1, default=str))
+        return
+    if args.graphs_only:
+        graphs = graphs_phase(torch, kern, tm, ServeEngine, get_config, smi)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(dict(smi=smi, graphs=graphs),
+                                                 indent=1, default=str))
         return
     if args.tiers_only:
         tiers = tiers_phase(torch, kern, smi, twins)
@@ -5741,6 +6091,11 @@ def main() -> None:
         "dh-1024 text", 27)
     mark("27")
 
+    # ---- phase 28: the serving blocks as CUDA graphs against eager ----
+    graphs = graphs_phase(torch, kern, tm, ServeEngine, get_config, smi,
+                          engine)
+    mark("28")
+
     # the main paths' configurations: for the paged entries a bf16 pool,
     # group 1 (llama3.2-1b as the paper sizes it: 32 KV heads), the
     # engine's scalar-start chunk and the full verify window of spec_k 4;
@@ -5910,7 +6265,7 @@ def main() -> None:
             analytic=analytic, shard_paths=shard_paths, sync_audit=audit,
             paligemma_text=pali_text, wide_text=wide_text,
             wider_text=wider_text,
-            examples=examples, tiers=tiers, sweeps=sweeps,
+            examples=examples, tiers=tiers, sweeps=sweeps, graphs=graphs,
             wide_384={name: next(r for r in rows if r["name"] == name
                                  and r["case"] == case)
                       for name, case in WIDE_384.items()},

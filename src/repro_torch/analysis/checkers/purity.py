@@ -1,8 +1,10 @@
 """Checker 3 — capture purity (rule ``traced-purity``).
 
 The reference stages its serving, training and sharded bodies into
-``jax.jit`` / ``shard_map``; the port calls the same bodies eagerly, and
-CUDA-graph capture (ROADMAP P1) is what will stage them. A captured body
+``jax.jit`` / ``shard_map``; the port captures the continuous engine's
+decode block, prefill chunk and verify pass as CUDA graphs
+(``serving.graphs``) and calls the other bodies eagerly, which capture
+would stage next (ROADMAP P1b, P1c). A captured body
 replays its device work without running any Python, so a body may not
 sync the host (capture fails, or a pulled value is frozen in), draw host
 or global randomness, read the clock, print or do I/O, or change host

@@ -373,8 +373,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_attention launch failed (rc={rc})")
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     paged_decode_attention.launches += 1
     paged_decode_attention.launches_by_heads[Hkv] += 1
     return out
@@ -587,8 +588,9 @@ def chunk_prefill_attention(q, k_pages, v_pages, page_table, start, n_valid,
                         page_table, start, n_valid=n_valid, scale=scale,
                         k_scale=k_scale, v_scale=v_scale,
                         split_kv_heads=split_kv_heads)
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     chunk_prefill_attention.launches += 1
     chunk_prefill_attention.launches_by_heads[k_pages.shape[2]] += 1
     return out
@@ -642,8 +644,9 @@ def spec_verify_attention(q, k_pages, v_pages, page_table, seq_lens, n_fed,
                         page_table, seq_lens, n_fed=n_fed, scale=scale,
                         k_scale=k_scale, v_scale=v_scale,
                         split_kv_heads=split_kv_heads)
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     spec_verify_attention.launches += 1
     spec_verify_attention.launches_by_heads[k_pages.shape[2]] += 1
     return out
@@ -786,8 +789,9 @@ def decode_attention(q, k_cache, v_cache, kv_valid, *, scale: float = None,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention launch failed (rc={rc})")
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     decode_attention.launches += 1
     decode_attention.launches_by_heads[Hkv] += 1
     return out

@@ -96,8 +96,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = None):
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention launch failed (rc={rc})")
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     flash_attention.launches += 1
     flash_attention.launches_by_heads[Hkv] += 1
     return out

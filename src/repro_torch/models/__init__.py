@@ -15,8 +15,9 @@ from repro_torch.models.lm import (RuntimeOptions, copy_pages,
                                    decode_step_paged, decode_steps_paged,
                                    decode_verify_paged, init_paged_cache,
                                    layer_dma_slices, page_layer_nbytes,
-                                   prefill_paged_chunk, resolve_device,
-                                   spec_decode_verify, torch_dtype)
+                                   prefill_paged_chunk, reset_paged_cache,
+                                   resolve_device, spec_decode_verify,
+                                   torch_dtype)
 
 __all__ = ["RuntimeOptions", "SHAPES", "ShapeSpec", "cell_runnable",
            "input_specs", "copy_pages", "decode_step", "decode_step_paged",
@@ -24,5 +25,6 @@ __all__ = ["RuntimeOptions", "SHAPES", "ShapeSpec", "cell_runnable",
            "forward", "init_cache", "init_paged_cache", "init_params",
            "kernel_width_reason", "layer_dma_slices", "module_for", "page_layer_nbytes",
            "paged_supported", "params_from_numpy", "prefill",
-           "prefill_paged_chunk", "resolve_device", "spec_decode_verify",
+           "prefill_paged_chunk", "reset_paged_cache", "resolve_device",
+           "spec_decode_verify",
            "static_supported", "torch_dtype", "train_loss"]

@@ -313,8 +313,9 @@ def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
                          prefix_len=prefix_len, q_offset=q_offset,
                          scale=scale, softcap=softcap, block_q=block_q,
                          block_kv=block_kv)
-    # a host counter: CUDA-graph capture runs it once, a replay never
-    # repro: allow(traced-purity): P1 adds graph replays to the count
+    # a host counter, run once by a graph capture and never by a replay:
+    # serving.graphs restores it after the capture and adds each replay's
+    # repro: allow(traced-purity): serving.graphs adds each replay's count
     attention.calls += 1
     B, S, H, dh = q.shape
     L, Hkv = k.shape[1], k.shape[2]

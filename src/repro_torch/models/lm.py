@@ -396,6 +396,15 @@ def init_paged_cache(cfg: ArchConfig, n_pages: int, page_size: int,
     return {"stack": c}
 
 
+def reset_paged_cache(cache) -> None:
+    """Return a pool of ``init_paged_cache`` to its fresh state in place
+    (pages zero, int8 scales one), keeping its storage: what a captured
+    block reads and writes stays where the capture found it."""
+    st = cache["stack"]
+    for name, t in st.items():
+        t.fill_(1 if name.endswith("_scale") else 0)
+
+
 def layer_dma_slices(cfg: ArchConfig) -> int:
     """DMA slice count for layer-overlapped page migration: the pool's
     leading axis is ``n_layers``, so a page's layer-``l`` slice is one
@@ -537,24 +546,29 @@ def _paged_chunk_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions,
 
 
 def prefill_paged_chunk(cfg: ArchConfig, params, tokens, cache, page_table,
-                        start: int, n_valid,
+                        start, n_valid,
                         opts: RuntimeOptions = RuntimeOptions(),
                         *, calibrate: bool = False):
     """One fixed-size prefill chunk against the paged pool.
 
     tokens: (B, C) int32, right-padded; page_table: (B, n_pages_per_seq)
-    int32; start: int absolute position of tokens[:, 0] (earlier positions
-    already hold valid KV); n_valid: (B,) int32 total valid tokens once this
-    chunk lands. ``calibrate=True`` (first chunk only) sets the int8 scales.
-    Writes the chunk's KV into ``cache`` in place. Returns (logits
+    int32; start: absolute position of tokens[:, 0] (earlier positions
+    already hold valid KV), a host int or a 0-d, (1,) or (B,) int32 tensor
+    on the device (as the reference's traced scalar: a captured chunk
+    reads it from its buffer); n_valid: (B,) int32 total valid tokens once
+    this chunk lands. ``calibrate=True`` (first chunk only) sets the int8
+    scales. Writes the chunk's KV into ``cache`` in place. Returns (logits
     (B, C, vocab), cache)."""
     B, C = tokens.shape
     x = _embed_tokens(cfg, params, tokens)
-    start = int(start)
-    positions = (start + torch.arange(C, dtype=torch.int32,
-                                      device=x.device))[None].expand(B, C)
     # (B,) on the device once per chunk, not a host copy per layer
-    start_b = torch.full((B,), start, dtype=torch.int32, device=x.device)
+    if isinstance(start, torch.Tensor):
+        start_b = (start.to(x.device, torch.int32).reshape(-1).expand(B)
+                   .contiguous())
+    else:
+        start_b = torch.full((B,), start, dtype=torch.int32, device=x.device)
+    positions = start_b[:, None] + torch.arange(C, dtype=torch.int32,
+                                                device=x.device)
     rope = cm.rope_cos_sin(positions, cfg.head_dim)
     st = cache["stack"]
     rows = _kv_rows(page_table, positions, st["k"].shape[2])

@@ -11,6 +11,15 @@ rejected suffix). Page residency across a ``MemoryHierarchy`` (HBS
 offload, chiplet promotion) is charged on a virtual clock exactly as in
 the reference. On the card every prefill chunk, decode step and verify
 pass attends through the paged kernels of ``kernels.decode_attention``.
+The engine allocates its pool on its first serve and resets it in place
+on every later one. On the card at one shard, with the capacity MoE
+dispatch and no sharding in ``opts`` (``serving.graphs.capture_refusal``),
+it captures the blocks that the reference compiles with ``jax.jit``, the
+decode block, the prefill chunk and the verify pass, as CUDA graphs once a
+shape key (``serving.graphs``) and replays them (``graphs=None``, the
+default; ``graphs=False`` runs them eagerly, and so does ``None`` where
+they cannot be captured); the COW copies, the first token's sampling and
+the draft stay eager.
 
 ``ServeEngine(scheduler="static")``: waves of equal-length prompts over a
 dense per-wave KV cache (native or int8, int8 scales set afresh by each
@@ -60,11 +69,12 @@ from repro_torch.models import (RuntimeOptions, copy_pages, decode_step,
                                 init_paged_cache, init_params,
                                 kernel_width_reason, layer_dma_slices,
                                 paged_supported, prefill,
-                                prefill_paged_chunk, resolve_device,
-                                spec_decode_verify, static_supported,
-                                torch_dtype)
+                                prefill_paged_chunk, reset_paged_cache,
+                                resolve_device, spec_decode_verify,
+                                static_supported, torch_dtype)
 from repro_torch.models import sampling
 from repro_torch.serving import metrics
+from repro_torch.serving.graphs import BlockGraphs, capture_refusal
 from repro_torch.serving.kv_manager import (PagedKVManager,
                                             SimulatedTierDevice, TierBudget,
                                             page_bytes)
@@ -219,8 +229,19 @@ class ServeEngine:
                  spec_mode: str = "off", spec_k: int = 4, draft_cfg=None,
                  draft_params=None, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, sample_seed: int = 0,
-                 shards: int = 1, overlap: bool = True):
+                 shards: int = 1, overlap: bool = True,
+                 graphs: Optional[bool] = None):
         import dataclasses
+        # CUDA-graph capture of the continuous engine's blocks: by default
+        # wherever the blocks can be captured, eager elsewhere
+        refusal = capture_refusal(opts, device=device, shards=shards,
+                                  scheduler=scheduler)
+        if graphs is None:
+            graphs = not refusal
+        elif graphs and refusal:
+            raise ValueError(f"graphs=True cannot capture the blocks: "
+                             f"{refusal}")
+        on_card = torch.device(device).type == "cuda"
         if kv_policy not in ("native", "int8"):
             raise ValueError(f"kv_policy must be 'native' or 'int8', got "
                              f"{kv_policy!r}")
@@ -229,7 +250,7 @@ class ServeEngine:
         # a head width that a kernel of the path does not take is refused
         # here, before any weights are drawn or ranks spawned, rather than
         # at the first launch (the CPU's plain versions take any width)
-        if torch.device(device).type == "cuda":
+        if on_card:
             paths = [(cfg, "paged" if scheduler == "continuous"
                       else "static")]
             if spec_mode == "model" and draft_cfg is not None:
@@ -317,6 +338,10 @@ class ServeEngine:
             raise ValueError(f"decode_lookahead ({decode_lookahead}) must "
                              f"be >= 1")
         self.decode_lookahead = decode_lookahead
+        # one graph a block shape key, or None: eager blocks
+        self.graphs: Optional[BlockGraphs] = (BlockGraphs(self.device)
+                                              if graphs else None)
+        self._pool = None       # the paged KV pool, from the first serve
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, opts.dtype, self.device)
@@ -379,6 +404,49 @@ class ServeEngine:
         self.trace: Optional[TraceRecorder] = None
         self.trace_report: Optional[dict] = None
         self.stats = ServeStats()
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        # the graphs read the weights they were captured on
+        self._params = params
+        if self.graphs is not None:
+            self.graphs.clear()
+
+    def _block(self, key, fn, **inputs):
+        """Run one serving block ``fn(**inputs)`` (inputs: host arrays or
+        device tensors): through its graph when the engine captures, else
+        eagerly on device copies of the inputs. Its shape ``key`` is
+        counted among the engine's compiles by the caller."""
+        if self.graphs is None:
+            return fn(**{n: self._dev(v) for n, v in inputs.items()})
+        return self.graphs.run(key, fn, **inputs)
+
+    def _capture(self) -> None:
+        """Capture the block whose first call just ran, outside its timed
+        bracket (no-op when nothing is pending or the engine is eager)."""
+        if self.graphs is not None:
+            self.graphs.capture_pending()
+
+    def _paged_pool(self, n_pages: int):
+        """The pool of ``n_pages`` pages (the manager's count, the same
+        every serve): allocated on the first serve, reset in place (the
+        reference's fresh pool) on every later one, so the graphs'
+        pointers stay valid across serves."""
+        if self._pool is None:
+            self._pool = init_paged_cache(self.cfg, n_pages,
+                                          self.page_size, self.opts,
+                                          self.device)
+            return self._pool
+        held = self._pool["stack"]["k"].shape[1]
+        if held != n_pages:
+            raise RuntimeError(f"the pool holds {held} pages, this serve "
+                               f"asks for {n_pages}")
+        reset_paged_cache(self._pool)
+        return self._pool
 
     def _wall(self, w0: float) -> float:
         """Wall seconds since ``w0``; on a head shard the slowest rank's,
@@ -631,8 +699,13 @@ class ServeEngine:
         self.drafter = draft
         if draft is not None:
             draft.tracer, draft.clock = trace, now
-        cache = init_paged_cache(self.cfg, kv.n_pages, ps, self.opts,
-                                 self.device)
+        cache = self._paged_pool(kv.n_pages)
+        # what the blocks below close over (never the engine: a block's
+        # function is kept until its capture)
+        cfg, params, opts, eos_id = (self.cfg, self.params, self.opts,
+                                     self.eos_id)
+        sample_kw = dict(temperature=self.temperature, top_k=self.top_k,
+                         top_p=self.top_p)
         calibrated = self.opts.cache_dtype != "int8"  # only int8 calibrates
 
         def stall_plan(reqs: List[Request], t0: float):
@@ -731,17 +804,25 @@ class ServeEngine:
                     toks = np.zeros((1, C), np.int32)
                     toks[0, :n_real] = pf[start:start + n_real]
                     pt = kv.table_row(req.rid, n_pp)[None]
-                    self._chunk_shapes.add(((1, C), not calibrated))
+                    key = ((1, C), not calibrated)
+                    self._chunk_shapes.add(key)
                     t0 = pstream.start(svc_floor.get(req.rid, 0.0))
                     plan = stall_plan([req], t0)
                     w0 = time.perf_counter()
-                    logits, cache = prefill_paged_chunk(
-                        self.cfg, self.params, self._dev(toks), cache,
-                        self._dev(np.asarray(pt, np.int32)), start,
-                        self._dev(np.asarray([start + n_real], np.int32)),
-                        self.opts, calibrate=not calibrated)
+
+                    def chunk(tokens, table, start, n_valid,
+                              calibrate=not calibrated):
+                        return prefill_paged_chunk(
+                            cfg, params, tokens, cache, table, start,
+                            n_valid, opts, calibrate=calibrate)[0]
+                    logits = self._block(
+                        key, chunk, tokens=toks,
+                        table=np.asarray(pt, np.int32),
+                        start=np.asarray([start], np.int32),
+                        n_valid=np.asarray([start + n_real], np.int32))
                     _sync(self.device)   # the bracket ends with the chunk
                     dw = self._wall(w0)
+                    self._capture()
                     s = stall_charge(plan, [req], t0, dw, "prefill")
                     self.stats.host_syncs += 1
                     calibrated = True
@@ -855,22 +936,26 @@ class ServeEngine:
                     draft_len[slot] = len(pr)
                     seq_lens[slot] = kv.seq_len(req.rid)  # landed extent
                     tables[slot] = kv.table_row(req.rid, n_pp)
-                self._decode_shapes.add(("spec", B, n_tok))
+                key = ("spec", B, n_tok)
+                self._decode_shapes.add(key)
                 tb = dstream.start()
                 plan = stall_plan([r for _, r in parts], tb)
                 w0 = time.perf_counter()
-                keys = (self._slot_keys(parts, B) if self.temperature > 0
-                        else None)
-                out, n_acc, cache = spec_decode_verify(
-                    self.cfg, self.params, self._dev(tokens),
-                    self._dev(draft_len), self._dev(seq_lens),
-                    self._dev(tables), cache, keys, self.opts,
-                    temperature=self.temperature, top_k=self.top_k,
-                    top_p=self.top_p)
+                inputs = dict(tokens=tokens, draft_len=draft_len,
+                              seq_lens=seq_lens, tables=tables)
+                if self.temperature > 0:
+                    inputs["keys"] = self._slot_keys(parts, B)
+
+                def verify(tokens, draft_len, seq_lens, tables, keys=None):
+                    out, n_acc, _ = spec_decode_verify(
+                        cfg, params, tokens, draft_len, seq_lens, tables,
+                        cache, keys, opts, **sample_kw)
+                    return torch.cat([out, n_acc[:, None]], dim=1)
                 # the pass's one host pull: tokens and n_acc together
-                res = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
+                res = self._block(key, verify, **inputs).cpu().numpy()
                 out_np, nacc_np = res[:, :-1], res[:, -1]
                 dw = self._wall(w0)
+                self._capture()
                 s = stall_charge(plan, [r for _, r in parts], tb, dw,
                                  "decode")
                 tv = dstream.commit(tb, s + dw)
@@ -954,23 +1039,28 @@ class ServeEngine:
                 # a power of two: a tail block runs short instead of
                 # decoding wasted pad steps
                 n_steps = min(K, _next_pow2(int(quota.max())))
-                self._decode_shapes.add(("paged", B, n_steps))
+                key = ("paged", B, n_steps)
+                self._decode_shapes.add(key)
                 # fetch-wait barrier: every page this block attends over
                 # must be fast-resident (or its layer slice landed) before
                 # the layer consumes it; the residual is recorded as stall
                 plan = stall_plan([r for _, r in parts], t0)
                 w0 = time.perf_counter()
-                keys = (self._slot_keys(parts, B) if self.temperature > 0
-                        else None)
-                blk, cache = decode_steps_paged(
-                    self.cfg, self.params, self._dev(tokens),
-                    self._dev(seq_lens), self._dev(tables), cache, n_steps,
-                    self.opts, eos_id=self.eos_id,
-                    temperature=self.temperature, top_k=self.top_k,
-                    top_p=self.top_p, keys=keys,
-                    done=self._dev(inactive), quota=self._dev(quota))
+                inputs = dict(tokens=tokens, seq_lens=seq_lens,
+                              tables=tables, done=inactive, quota=quota)
+                if self.temperature > 0:
+                    inputs["keys"] = self._slot_keys(parts, B)
+
+                def block(tokens, seq_lens, tables, done, quota, keys=None,
+                          n_steps=n_steps):
+                    return decode_steps_paged(
+                        cfg, params, tokens, seq_lens, tables, cache,
+                        n_steps, opts, eos_id=eos_id, keys=keys, done=done,
+                        quota=quota, **sample_kw)[0]
+                blk = self._block(key, block, **inputs)
                 blk_np = blk.cpu().numpy()     # the block's one host pull
                 dw = self._wall(w0)
+                self._capture()
                 s = stall_charge(plan, [r for _, r in parts], t0, dw,
                                  "decode")
                 tv = dstream.commit(t0, s + dw)
