@@ -24,12 +24,16 @@ them and runs phase 17 (whose ranks serve phase 26's rank cells) and
 phase 26, nor ``--graphs-only``, which builds them and runs phase 28
 (serving phase 4's captured runs itself first).
 
-The continuous engine captures its decode block, prefill chunk and verify
-pass as CUDA graphs on the card by default (``serving.graphs``), so every
-phase that serves it at one shard (4, 6, 7, 19, 21, 22, 23, 25, 26 and
-27) replays them; the head-sharded engines of phase 17 pass
-``graphs=False``, and phase 28 holds the captured blocks against eager
-ones.
+The engines capture the blocks the reference compiles with ``jax.jit``
+as CUDA graphs on the card by default (``serving.graphs``): the
+continuous engine's decode block, prefill chunk and verify pass, the
+static engine's greedy K-step block and sampled one-token step, and the
+model draft's prefill chunk, catch-up pass and propose block. So every
+phase that serves the continuous engine at one shard (4, 6, 7, 19, 21,
+22, 23, 25, 26 and 27), the static engine (5, 7, 8-16, 19, 21, 22, 23,
+24 and 27) or the model draft (4 and 26) replays them; the head-sharded
+engines of phase 17 cannot capture (``serving.graphs.capture_refusal``),
+and phase 28 holds the captured blocks against eager ones.
 
 Phases (any failure exits non-zero before the result line):
   1. needs CUDA; prints the card's name and power limit (nvidia-smi);
@@ -426,10 +430,21 @@ Phases (any failure exits non-zero before the result line):
      eager and captured: wall (median of 5), device busy (torch.profiler,
      which records a replay's kernels), busy share and the seconds of one
      capture, and the launches one replay adds to the counters equal to
-     the eager block's and to the attention kernels the profiler records
-     in that replay (over the kernels a launch makes); (d) each captured
-     engine's
-     graph memory (the allocator's growth across its captures).
+     the eager block's and to the count the profiler records of each
+     attention kernel in that replay, and beside them
+     the static engine's K=8 qwen2.5-3b block (B=4 at 512, native) eager
+     and captured, checked the same way; (d) each captured engine's
+     graph memory (the allocator's growth across its captures); (e)
+     qwen2.5-3b at full width, bf16, through the static engine
+     (phase 5's waves, native and int8), served eagerly and captured:
+     tokens equal up to a near tie, host syncs, decode steps, decode
+     compiles and every launch count equal, captures equal to the
+     distinct (B, L, k_eff) keys the serve made; (f) phase 4's
+     self-draft run (the model draft: its chunk, catch-up pass and
+     propose block captured beside the engine's blocks) served eagerly
+     and captured with the streams serialized: the same equalities and
+     the draft's passes, one capture a key, and a second serve on the
+     captured engine captures nothing.
 Then prints the per-kernel JSON line (each kernel at its main-path case
 and at arctic-480b's group 7, with that path's launches; the dense
 decode at llava's long context and at paligemma's head width 256,
@@ -2727,7 +2742,7 @@ def _shard_engine(ServeEngine, RuntimeOptions, cfg, params, run, shards):
                        device="cuda", seed=0, scheduler="continuous",
                        page_size=PS, max_batch=8, prefill_chunk=C,
                        decode_lookahead=8, max_len=MAX_LEN, shards=shards,
-                       graphs=False if shards > 1 else None, **kw)
+                       **kw)
 
 
 def _pool_bytes(tm, eng) -> int:
@@ -5553,12 +5568,10 @@ def graph_blocks(torch, tm, cfg, params) -> dict:
     wall ms (median of 5), device busy ms (torch.profiler, which records
     a replay's kernels), busy share of the wall, seconds of the one
     capture and the graph's memory. The launches the runner adds for one
-    replay must equal the eager block's, and the attention kernels the
-    profiler sees in one replay must be that count times the kernels a
-    launch makes in the eager block (its pass 1, and its combine where it
-    splits)."""
+    replay must equal the eager block's, and the profiler must see each
+    attention kernel the eager block ran that count of times in one
+    replay (its pass 1, and its combine where it splits)."""
     import numpy as np
-    from repro_torch.serving.graphs import BlockGraphs
     opts = tm.RuntimeOptions(dtype="bfloat16")
     n_pp = -(-MAX_LEN // PS)
     B, K, Cv = 8, 8, 5
@@ -5591,70 +5604,254 @@ def graph_blocks(torch, tm, cfg, params) -> dict:
             tokens=np.arange(1, B * Cv + 1, dtype=np.int32).reshape(B, Cv),
             draft_len=np.full((B,), Cv - 1, np.int32),
             seq_lens=dec["seq_lens"], tables=dec["tables"]), True)}
-    out = {}
-    for label, (fn, inputs, pass2) in blocks.items():
-        def eager(fn=fn, inputs=inputs):
-            fn(**{n: torch.as_tensor(v, device="cuda")
-                  for n, v in inputs.items()})
-            torch.cuda.synchronize()
-        zero_counts()
-        eager()
-        launched = {n: k for n, k in read_counts().items() if k}
-        check(len(launched) == 1,
-              f"{label}: launches {launched}, not one kernel entry")
-        (entry, n_eager), = launched.items()
-        e = profile_block(torch, eager, f"{label} eager", chunk_pass2=pass2)
-        seen = sum(k["launches"] for k in e["attention_kernels"].values())
-        check(seen % n_eager == 0,
-              f"{label}: the profiler saw {seen} attention kernels for "
-              f"{n_eager} launches of {entry}")
-        per_launch = seen // n_eager    # pass 1, and a combine if split
-        runner = BlockGraphs("cuda")
-        runner.run(label, fn, **inputs)
-        torch.cuda.synchronize()
-        runner.capture_pending()
-
-        def replay(fn=fn, inputs=inputs, runner=runner, label=label):
-            runner.run(label, fn, **inputs)
-            torch.cuda.synchronize()
-        # the count the runner adds for one replay, held against the
-        # kernels the profiler sees that replay launch
-        zero_counts()
-        replay()
-        added = {n: k for n, k in read_counts().items() if k}
-        check(added == launched, f"{label}: a replay adds {added}, the "
-              f"eager block launched {launched}")
-        c = profile_block(torch, replay, f"{label} captured",
-                          chunk_pass2=pass2)
-        replayed = sum(k["launches"] for k in c["attention_kernels"].values())
-        check(replayed == added[entry] * per_launch,
-              f"{label}: the profiler saw {replayed} attention kernels in "
-              f"one replay, the runner counts {added[entry]} launches of "
-              f"{per_launch} kernels")
-        row = dict(eager_wall_ms=e["wall_ms"],
-                   eager_busy_ms=e["device_busy_ms"],
-                   eager_busy_share=e["busy_share"],
-                   captured_wall_ms=c["wall_ms"],
-                   captured_busy_ms=c["device_busy_ms"],
-                   captured_busy_share=c["busy_share"],
-                   capture_s=runner.capture_s,
-                   graph_bytes=runner.memory_bytes,
-                   entry=entry, launches_per_replay=added[entry],
-                   kernels_per_launch=per_launch,
-                   replay_kernels_seen=replayed)
-        out[label] = row
-        log(f"graphs block {label}: wall {row['eager_wall_ms']:.2f} -> "
-            f"{row['captured_wall_ms']:.2f}ms, busy "
-            f"{row['eager_busy_ms']:.2f} -> {row['captured_busy_ms']:.2f}ms, "
-            f"busy share {100 * row['eager_busy_share']:.1f}% -> "
-            f"{100 * row['captured_busy_share']:.1f}%, one capture "
-            f"{row['capture_s']:.3f}s, graph "
-            f"{row['graph_bytes'] / 2**20:.1f} MiB; a replay counts "
-            f"{added[entry]} {entry} launches, the profiler saw {replayed} "
-            f"kernels ({per_launch} a launch)")
-        del runner
+    out = {label: block_row(torch, label, fn, inputs, pass2)
+           for label, (fn, inputs, pass2) in blocks.items()}
     del pool, one
     return out
+
+
+def block_row(torch, label, fn, inputs, pass2=False) -> dict:
+    """One block ``fn(**inputs)`` eager (inputs uploaded as the engine
+    does) and captured (copied into the graph's buffers, then replayed),
+    each under ``profile_block``; the launches one replay adds to the
+    counters must equal the eager block's, the replay must run the
+    attention kernels the eager block ran, and the profiler must see
+    each of them that count of times in the replay (a launch makes one of
+    each: its pass 1, and its combine where it splits). The eager block's
+    own profile is not held to a count: its window holds thousands of
+    host-launched kernels, and torch.profiler has been seen to lose a
+    couple of their records there (574 of 576 kernels in one run of the
+    qwen block, 576 in others on the same tree)."""
+    from repro_torch.serving.graphs import BlockGraphs
+
+    def eager():
+        fn(**{n: torch.as_tensor(v, device="cuda")
+              for n, v in inputs.items()})
+        torch.cuda.synchronize()
+    zero_counts()
+    eager()
+    launched = {n: k for n, k in read_counts().items() if k}
+    check(len(launched) == 1,
+          f"{label}: launches {launched}, not one kernel entry")
+    entry, = launched
+    e = profile_block(torch, eager, f"{label} eager", chunk_pass2=pass2)
+    runner = BlockGraphs("cuda")
+    runner.run(label, fn, **inputs)
+    torch.cuda.synchronize()
+    runner.capture_pending()
+
+    def replay():
+        runner.run(label, fn, **inputs)
+        torch.cuda.synchronize()
+    # the count the runner adds for one replay, held against the kernels
+    # the profiler sees that replay launch
+    zero_counts()
+    replay()
+    added = {n: k for n, k in read_counts().items() if k}
+    check(added == launched, f"{label}: a replay adds {added}, the eager "
+          f"block launched {launched}")
+    c = profile_block(torch, replay, f"{label} captured", chunk_pass2=pass2)
+    per_name = {n: k["launches"] for n, k in c["attention_kernels"].items()}
+    check(set(per_name) == set(e["attention_kernels"]),
+          f"{label}: one replay ran the attention kernels {sorted(per_name)}"
+          f", the eager block {sorted(e['attention_kernels'])}")
+    check(all(k == added[entry] for k in per_name.values()),
+          f"{label}: the profiler saw {per_name} in one replay, the runner "
+          f"counts {added[entry]} launches of {entry}")
+    per_launch = len(per_name)      # pass 1, and a combine if split
+    replayed = sum(per_name.values())
+    row = dict(eager_wall_ms=e["wall_ms"], eager_busy_ms=e["device_busy_ms"],
+               eager_busy_share=e["busy_share"],
+               captured_wall_ms=c["wall_ms"],
+               captured_busy_ms=c["device_busy_ms"],
+               captured_busy_share=c["busy_share"],
+               capture_s=runner.capture_s, graph_bytes=runner.memory_bytes,
+               entry=entry, launches_per_replay=added[entry],
+               kernels_per_launch=per_launch, replay_kernels_seen=replayed)
+    log(f"graphs block {label}: wall {row['eager_wall_ms']:.2f} -> "
+        f"{row['captured_wall_ms']:.2f}ms, busy "
+        f"{row['eager_busy_ms']:.2f} -> {row['captured_busy_ms']:.2f}ms, "
+        f"busy share {100 * row['eager_busy_share']:.1f}% -> "
+        f"{100 * row['captured_busy_share']:.1f}%, one capture "
+        f"{row['capture_s']:.3f}s, graph "
+        f"{row['graph_bytes'] / 2**20:.1f} MiB; a replay counts "
+        f"{added[entry]} {entry} launches, the profiler saw {replayed} "
+        f"kernels ({per_launch} a launch)")
+    return row
+
+
+def static_graph_block(torch, tm, cfg, params) -> dict:
+    """(c), the static engine's block: ``profile_static_block``'s K=8
+    block (B=4, a 512-token prompt cached, native), eager and captured
+    through ``block_row``, its position a device value as the engine
+    passes it."""
+    import numpy as np
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    B, K, S = 4, 8, max(QWEN_PROMPTS)
+    cache = tm.init_cache(cfg, B, S + 1 + QWEN_NEW, opts, "cuda")
+
+    def block(tok, pos):
+        return tm.decode_steps(cfg, params, tok, pos, cache, K, opts)[0]
+    row = block_row(torch, f"{cfg.name} static decode block K={K} B={B} "
+                    f"pos={S} cache=native", block,
+                    dict(tok=np.arange(1, B + 1, dtype=np.int32),
+                         pos=np.asarray(S, np.int32)))
+    del cache
+    return row
+
+
+def _recording(runner) -> list:
+    """The keys ``runner`` is asked to run, in order (its ``run``
+    wrapped)."""
+    keys, run = [], runner.run
+
+    def record(key, fn, **inputs):
+        keys.append(key)
+        return run(key, fn, **inputs)
+    runner.run = record
+    return keys
+
+
+def static_graphs_against_eager(torch, kern, tm, ServeEngine, cfg,
+                                params) -> dict:
+    """(e): qwen2.5-3b at full width, bf16, through the static engine on
+    phase 5's two waves (4 x 256 and 4 x 512 tokens, 32 new), native and
+    int8, served eagerly (``graphs=False``) and captured: tokens equal but
+    for a divergence after a near tie, host syncs, decode steps, decode
+    compiles and every launch count equal, no plain version called, and
+    captures equal to the distinct (B, L, k_eff) keys the serve made."""
+    from repro_torch.kernels import flash_attention as flash
+    reqs = qwen_requests(cfg.vocab)
+    out = {}
+    for policy in ("native", "int8"):
+        sides = {}
+        for side, graphs in (("eager", False), ("captured", None)):
+            eng = ServeEngine(cfg, params, tm.RuntimeOptions(
+                dtype="bfloat16"), device="cuda", scheduler="static",
+                kv_policy=policy, decode_lookahead=8, max_len=QWEN_MAX_LEN,
+                graphs=graphs)
+            g = eng.static_graphs
+            check((g is None) == (side == "eager"),
+                  f"static {policy} {side}: the engine's static graphs are "
+                  f"{g!r}")
+            keys = _recording(g) if g is not None else []
+            before = read_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with count_plain(kern, flash) as plain:
+                t0 = time.perf_counter()
+                outs = eng.serve([r[:] for r in reqs], QWEN_NEW)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            s = eng.stats
+            check(not plain, f"static {policy} {side}: plain versions "
+                  f"called on the card: {plain}")
+            check(all(len(o) == QWEN_NEW and all(0 <= t < cfg.vocab
+                                                 for t in o) for o in outs),
+                  f"static {policy} {side}: malformed outputs")
+            sides[side] = (outs, dict(
+                tokens_per_s=s.tps, prefill_s=s.prefill_s,
+                decode_s=s.decode_s, host_syncs=s.host_syncs,
+                decode_steps=s.decode_steps,
+                decode_compiles=s.decode_compiles, wall_s=wall,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: v - before[k] for k, v in read_counts().items()},
+                captures=g.captures if g else 0,
+                capture_s=g.capture_s if g else 0.0,
+                graph_bytes=g.memory_bytes if g else 0,
+                keys=sorted(set(keys), key=str)))
+            del eng
+        (want, erow), (got, crow) = sides["eager"], sides["captured"]
+        label = f"static {policy}"
+        differ = {c: (crow[c], erow[c]) for c in
+                  ("host_syncs", "decode_steps", "decode_compiles",
+                   "launches") if crow[c] != erow[c]}
+        check(not differ, f"{label}: captured != eager in {differ}")
+        check(crow["captures"] == len(crow["keys"]) > 0,
+              f"{label}: {crow['captures']} captures for the distinct keys "
+              f"{crow['keys']}")
+        ties = same_up_to_ties(torch, tm, cfg, params, reqs, got, want,
+                               f"{label} captured vs eager")
+        out[policy] = dict(eager=erow, captured=crow, ties=ties)
+        log(f"graphs {label}: captured == eager in tokens ({ties} requests "
+            f"differ after a near tie), host_syncs={crow['host_syncs']} "
+            f"decode_steps={crow['decode_steps']} "
+            f"decode_compiles={crow['decode_compiles']}, launches; "
+            f"captures {crow['captures']} = keys {crow['keys']} "
+            f"({crow['capture_s']:.2f}s, graphs' memory "
+            f"{crow['graph_bytes'] / 2**20:.1f} MiB); tokens/s "
+            f"{erow['tokens_per_s']:.1f} -> {crow['tokens_per_s']:.1f}, "
+            f"decode_s {erow['decode_s']:.3f} -> {crow['decode_s']:.3f}, "
+            f"wall {erow['wall_s']:.2f} -> {crow['wall_s']:.2f}s, peak "
+            f"{erow['peak_bytes'] / 1e9:.2f} -> "
+            f"{crow['peak_bytes'] / 1e9:.2f} GB")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def draft_graphs_against_eager(torch, kern, tm, ServeEngine, cfg,
+                               params) -> dict:
+    """(f): phase 4's self-draft run (llama3.2-1b drafting for itself,
+    k=4) served eagerly and captured, the streams serialized as in (a):
+    tokens equal up to a near tie, ``GRAPH_COUNTERS`` and the draft's
+    passes equal, the engine's captures equal to its compiles and the
+    draft's one a key; a second serve on the captured engine captures
+    nothing and repeats its tokens."""
+    reqs = requests(cfg.vocab)[:GRAPH_REQS]
+    kw = dict(spec_mode="model", spec_k=4, draft_cfg=cfg,
+              draft_params=params, overlap=False)
+    sides = {}
+    for side, graphs in (("eager", False), ("captured", None)):
+        eng, outs, row = serve_run(
+            torch, kern, ServeEngine, tm.RuntimeOptions, cfg, params, reqs,
+            f"self-draft {side}", PAGED, graphs=graphs, **kw)
+        dg = eng.drafter.graphs
+        check((dg is None) == (side == "eager"),
+              f"self-draft {side}: the draft's graphs are {dg!r}")
+        row.update(passes=dict(eng.drafter.passes),
+                   draft_captures=dg.captures if dg else 0,
+                   draft_keys=len(dg._blocks) if dg else 0,
+                   draft_capture_s=dg.capture_s if dg else 0.0,
+                   draft_graph_bytes=dg.memory_bytes if dg else 0)
+        sides[side] = (eng, outs, row)
+    (_, want, erow), (ceng, got, crow) = sides["eager"], sides["captured"]
+    differ = {c: (crow[c], erow[c]) for c in GRAPH_COUNTERS + ("passes",)
+              if crow[c] != erow[c]}
+    check(not differ, f"self-draft: captured != eager in {differ}")
+    check(crow["captures"] == crow["decode_compiles"]
+          + crow["prefill_compiles"], f"self-draft: {crow['captures']} "
+          f"engine captures for {crow['decode_compiles']} + "
+          f"{crow['prefill_compiles']} compiles")
+    check(crow["draft_captures"] == crow["draft_keys"] > 0,
+          f"self-draft: {crow['draft_captures']} draft captures for "
+          f"{crow['draft_keys']} keys")
+    ties = same_up_to_ties(torch, tm, cfg, params, reqs, got, want,
+                           "self-draft captured vs eager")
+    dg = ceng.drafter.graphs
+    n = (ceng.graphs.captures, dg.captures)
+    again = ceng.serve([r[:] for r in reqs], 64)
+    check(again == got and (ceng.graphs.captures, dg.captures) == n,
+          f"self-draft: a second serve on the captured engine captured "
+          f"{(ceng.graphs.captures, dg.captures)} after {n} or changed its "
+          f"tokens")
+    mib = (crow["graph_bytes"] + crow["draft_graph_bytes"]) / 2**20
+    log(f"graphs self-draft: captured == eager in tokens ({ties} requests "
+        f"differ after a near tie), " + ", ".join(
+            f"{c}={crow[c]}" for c in GRAPH_COUNTERS[:-1])
+        + f", launches, passes {crow['passes']}; captures engine "
+        f"{crow['captures']} = compiles, draft {crow['draft_captures']} = "
+        f"keys ({crow['capture_s'] + crow['draft_capture_s']:.2f}s, "
+        f"graphs' memory {mib:.1f} MiB); tokens/s "
+        f"{erow['tokens_per_s']:.1f} -> "
+        f"{crow['tokens_per_s']:.1f}, decode_s {erow['decode_s']:.3f} -> "
+        f"{crow['decode_s']:.3f}, wall {erow['wall_s']:.2f} -> "
+        f"{crow['wall_s']:.2f}s; a second serve captured 0")
+    del sides, ceng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(eager=erow, captured=crow, ties=ties,
+                second_serve_captures=0)
 
 
 def graphs_phase(torch, kern, tm, ServeEngine, get_config, smi,
@@ -5687,9 +5884,20 @@ def graphs_phase(torch, kern, tm, ServeEngine, get_config, smi,
                                        params, phase4)
     out["replays"] = replays_bitwise(torch, tm, cfg, params)
     out["blocks"] = graph_blocks(torch, tm, cfg, params)
+    out["draft"] = draft_graphs_against_eager(torch, kern, tm, ServeEngine,
+                                              cfg, params)
     out["graph_bytes"] = {label: r["captured"]["graph_bytes"]
                           for label, r in out["runs"].items()}
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = get_config("qwen2.5-3b")
+    qparams = tm.init_params(qwen, torch.Generator(device="cuda")
+                             .manual_seed(0), "bfloat16", "cuda")
+    out["blocks"]["static"] = static_graph_block(torch, tm, qwen, qparams)
+    out["static"] = static_graphs_against_eager(torch, kern, tm, ServeEngine,
+                                                qwen, qparams)
+    del qparams
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0

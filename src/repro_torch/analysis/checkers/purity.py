@@ -1,10 +1,12 @@
 """Checker 3 — capture purity (rule ``traced-purity``).
 
 The reference stages its serving, training and sharded bodies into
-``jax.jit`` / ``shard_map``; the port captures the continuous engine's
-decode block, prefill chunk and verify pass as CUDA graphs
-(``serving.graphs``) and calls the other bodies eagerly, which capture
-would stage next (ROADMAP P1b, P1c). A captured body
+``jax.jit`` / ``shard_map``; the port captures as CUDA graphs
+(``serving.graphs``) the continuous engine's decode block, prefill chunk
+and verify pass, the static engine's greedy K-step block and sampled
+one-token step, and the model draft's prefill chunk, catch-up pass and
+propose block, and calls the other bodies eagerly, which capture would
+stage next (ROADMAP P1b2, P1c). A captured body
 replays its device work without running any Python, so a body may not
 sync the host (capture fails, or a pulled value is frozen in), draw host
 or global randomness, read the clock, print or do I/O, or change host
@@ -35,8 +37,11 @@ through the family dispatch of ``models.api``), for:
 Device values follow the host-sync rule's taint, seeded at the root's
 non-static parameters and, in a callee, at the parameters that receive a
 device value; torch factories with a ``device=`` are device values too.
-A parameter annotated with a host scalar type (``pos: int``) is a host
-value.
+A parameter annotated with a host scalar type (``n: int``) is a host
+value; the static decode's ``pos`` is not annotated so: a captured step
+takes it as a device tensor, the reference's traced position, and the
+range checks that need it as an int run in its host caller
+(``ServeEngine.generate``).
 
 Host branching: an ``if``/``while`` of the root's own body whose test
 reads a non-static tensor parameter is a finding; ``.shape``,

@@ -15,7 +15,8 @@ from repro_torch.models.lm import (RuntimeOptions, copy_pages,
                                    decode_step_paged, decode_steps_paged,
                                    decode_verify_paged, init_paged_cache,
                                    layer_dma_slices, page_layer_nbytes,
-                                   prefill_paged_chunk, reset_paged_cache,
+                                   prefill_paged_chunk, reset_cache,
+                                   reset_paged_cache,
                                    resolve_device, spec_decode_verify,
                                    torch_dtype)
 
@@ -25,6 +26,6 @@ __all__ = ["RuntimeOptions", "SHAPES", "ShapeSpec", "cell_runnable",
            "forward", "init_cache", "init_paged_cache", "init_params",
            "kernel_width_reason", "layer_dma_slices", "module_for", "page_layer_nbytes",
            "paged_supported", "params_from_numpy", "prefill",
-           "prefill_paged_chunk", "reset_paged_cache", "resolve_device",
+           "prefill_paged_chunk", "reset_cache", "reset_paged_cache", "resolve_device",
            "spec_decode_verify",
            "static_supported", "torch_dtype", "train_loss"]

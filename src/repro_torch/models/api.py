@@ -63,10 +63,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return module_for(cfg).init_cache(cfg, batch, max_len, opts, device)
 
 
-def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_step(cfg: ArchConfig, params, token, pos, cache,
                 opts: RuntimeOptions = RuntimeOptions()):
-    """One token a sequence at the host position ``pos``: (logits, cache
-    updated in place)."""
+    """One token a sequence at ``pos``: a host int, or a 0-d or (1,) int32
+    tensor on the device (the reference's traced position; bitwise the
+    int's result). Returns (logits, cache updated in place)."""
     return module_for(cfg).decode_step(cfg, params, token, pos, cache, opts)
 
 
@@ -107,7 +108,7 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
                                    prefix_emb=prefix_emb)
 
 
-def decode_steps(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_steps(cfg: ArchConfig, params, token, pos, cache,
                  n_steps: int, opts: RuntimeOptions = RuntimeOptions(), *,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  keys: Optional[torch.Tensor] = None):
@@ -116,8 +117,10 @@ def decode_steps(cfg: ArchConfig, params, token, pos: int, cache,
     Runs ``module_for(cfg).decode_step`` ``n_steps`` times with the token
     chosen on the device between steps and no host sync inside, so the
     host pulls one (B, n_steps) token block instead of one token a step.
-    token: (B,) int32 last chosen token; pos: host int, the position its
-    KV lands at (micro-step j writes at pos + j). Greedy at temperature 0;
+    token: (B,) int32 last chosen token; pos: the position its KV lands
+    at, a host int or a 0-d or (1,) int32 tensor on the device (micro-step
+    j writes at pos + j, on the device for a tensor, so a captured block
+    reads its position from its buffer). Greedy at temperature 0;
     otherwise temperature/top-k/top-p sampling with per-slot keys ``keys``
     ((B, 2) int64 from ``sampling.request_keys`` at the block's first
     token index; micro-step j draws the noise of token index + j). Returns

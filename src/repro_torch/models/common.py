@@ -209,17 +209,41 @@ def swiglu(gate, up):
     return F.silu(gate) * up
 
 
-def update_cache(cache_k, cache_v, k_new, v_new, pos: int):
+def decode_positions(pos, batch: int, device) -> torch.Tensor:
+    """(batch, 1) int32 positions of one decode step at ``pos``: a host int
+    filled on ``device``, or a 0-d or (1,) int32 tensor on it broadcast
+    (the reference's traced position: never read to the host, so a
+    captured step reads it from its buffer)."""
+    if torch.is_tensor(pos):
+        return pos.reshape(1, 1).to(torch.int32).expand(batch, 1)
+    return torch.full((batch, 1), pos, dtype=torch.int32, device=device)
+
+
+def write_rows(cache, new, pos) -> None:
+    """Write ``new`` (B, S, ...) at positions [pos, pos + S) of ``cache``
+    (B, Lmax, ...) in place, cast to the cache's dtype. A host int ``pos``
+    is checked against Lmax here (the reference's ``dynamic_update_slice``
+    clamps a start that would run past Lmax; here that raises); a 0-d or
+    (1,) int tensor is written at device indices, unchecked: its caller
+    checks the range on the host, where it knows the position (an index
+    past Lmax is a device-side fault on the card)."""
+    S, L = new.shape[1], cache.shape[1]
+    if not torch.is_tensor(pos):
+        if not 0 <= pos <= L - S:
+            raise ValueError(f"cache write of {S} positions at {pos} runs "
+                             f"past the cache length {L}")
+        cache[:, pos:pos + S] = new.to(cache.dtype)
+        return
+    idx = pos.reshape(1).long() + torch.arange(S, device=cache.device)
+    cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos):
     """Write k/v (B, S, Hkv, dh) at positions [pos, pos + S) of the dense
-    (B, Lmax, Hkv, dh) caches, in place (cast to the caches' dtype). The
-    reference's ``dynamic_update_slice`` clamps a start that would run
-    past Lmax; here that raises instead."""
-    S, L = k_new.shape[1], cache_k.shape[1]
-    if not 0 <= pos <= L - S:
-        raise ValueError(f"cache write of {S} positions at {pos} runs past "
-                         f"the cache length {L}")
-    cache_k[:, pos:pos + S] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + S] = v_new.to(cache_v.dtype)
+    (B, Lmax, Hkv, dh) caches, in place (cast to the caches' dtype); pos
+    as ``write_rows`` takes it."""
+    write_rows(cache_k, k_new, pos)
+    write_rows(cache_v, v_new, pos)
     return cache_k, cache_v
 
 
@@ -290,14 +314,15 @@ def _values(p, v):
 
 
 def attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
-              prefix_len: int = 0, q_offset: int = 0, kv_valid=None,
+              prefix_len: int = 0, q_offset=0, kv_valid=None,
               scale: Optional[float] = None, softcap: float = 0.0,
               block_q: int = 512, block_kv: int = 1024):
     """GQA attention with lazy masks: the reference's XLA path
     (``repro.models.common.attention``), in plain PyTorch on any device.
 
-    q: (B, S, H, dh) at positions ``q_offset + [0, S)``; k, v: (B, L, Hkv,
-    dh) at positions [0, L); kv_valid: optional (B,) valid key length;
+    q: (B, S, H, dh) at positions ``q_offset + [0, S)`` (a host int, or a
+    0-d or (1,) int tensor on q's device, never read to the host); k, v:
+    (B, L, Hkv, dh) at positions [0, L); kv_valid: optional (B,) valid key length;
     mask_kind: causal | sliding (``window``) | prefix (``prefix_len``
     bidirectional positions) | full. Scores are f32, scaled, then
     soft-capped when ``softcap``. Counts its calls in ``attention.calls``.

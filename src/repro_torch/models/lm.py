@@ -38,6 +38,7 @@ Public surface:
     forward(cfg, params, tokens, opts, collect_kv=)     -> logits[, kvs]
     train_loss(cfg, params, batch, opts)                -> (loss, metrics)
     init_cache(cfg, batch, max_len, opts, device)       -> cache
+    reset_cache(cache)             (any family's static cache, in place)
     prefill(cfg, params, tokens, cache, opts)           -> (logits, cache)
     decode_step(cfg, params, token, pos, cache, opts)   -> (logits, cache)
     init_paged_cache(cfg, n_pages, page_size, opts, device) -> cache
@@ -403,6 +404,24 @@ def reset_paged_cache(cache) -> None:
     st = cache["stack"]
     for name, t in st.items():
         t.fill_(1 if name.endswith("_scale") else 0)
+
+
+def reset_cache(cache) -> None:
+    """Return a static cache of any family's ``init_cache`` to its fresh
+    state in place, keeping its storage (what a captured step reads and
+    writes stays where its capture found it): the KV (its int8 scales
+    one), MLA's latent and rope key, Mamba's conv and SSM states, Zamba's
+    site KV and Whisper's self and cross KV all zero. Whisper's cross KV
+    keeps the frame count its last prefill gave it."""
+    if isinstance(cache, dict):
+        for name, leaf in cache.items():
+            if torch.is_tensor(leaf):
+                leaf.fill_(1 if name.endswith("_scale") else 0)
+            else:
+                reset_cache(leaf)
+    else:
+        for leaf in cache:
+            reset_cache(leaf)
 
 
 def layer_dma_slices(cfg: ArchConfig) -> int:
@@ -1068,9 +1087,9 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
 
 
 def _decode_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions, cache_layer,
-                 pos: int, rope, kv_valid, kind: int):
+                 pos, rope, kv_valid, kind: int):
     """Single-token attention against the dense cache. x: (B, 1, d). The
-    new KV lands at ``pos`` first (int8: quantized with the prefill's
+    new KV lands at ``pos`` (a host int or a device int tensor) first (int8: quantized with the prefill's
     scales). A layer with neither a window nor a soft-cap takes the dense
     decode kernel, which reads positions < kv_valid (= pos + 1) and
     dequantizes int8 itself; a sliding or soft-capped layer takes the
@@ -1113,7 +1132,7 @@ def _decode_attn(p, x, cfg: ArchConfig, opts: RuntimeOptions, cache_layer,
     return cm.dense(p["wo"], out.reshape(B, 1, H * hd))
 
 
-def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
+def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos, rope,
                   kv_valid, opts: RuntimeOptions, kind: int):
     x = cm.constrain(x, opts.residual_sharding)
     xn = cm.rms_norm(x, lp["ln1"])
@@ -1126,20 +1145,20 @@ def _decode_block(lp, x, cfg: ArchConfig, cache_layer, pos: int, rope,
     return x + _ffn_apply(lp, cm.rms_norm(x, lp["ln2"]), cfg, opts)
 
 
-def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_step(cfg: ArchConfig, params, token, pos, cache,
                 opts: RuntimeOptions = RuntimeOptions()):
     """One new token for every sequence of a static wave. token: (B,)
-    int32 (its KV lands at ``pos``, a host int shared by the wave). Returns
+    int32 (its KV lands at ``pos``, shared by the wave: a host int, or a
+    0-d or (1,) int32 tensor on the device, the reference's traced
+    position, which a captured step reads from its buffer). Returns
     (logits (B, vocab), cache) with the cache updated in place."""
     B = token.shape[0]
     x = _embed_tokens(cfg, params, token[:, None])
     rope = kv_valid = None
     if cfg.mla is None:
-        positions = torch.full((B, 1), pos, dtype=torch.int32,
-                               device=x.device)
+        positions = cm.decode_positions(pos, B, x.device)
         rope = cm.rope_cos_sin(positions, cfg.head_dim)
-        kv_valid = torch.full((B,), pos + 1, dtype=torch.int32,
-                              device=x.device)
+        kv_valid = positions[:, 0] + 1
     for lp, cl, kind in _layers(cfg, params, cache):
         x = _decode_block(lp, x, cfg, cl, pos, rope, kv_valid, opts, kind)
     return _logits(cfg, params, x)[:, 0], cache

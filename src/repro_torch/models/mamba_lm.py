@@ -89,10 +89,10 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     return _logits(params, x[:, -1]), cache
 
 
-def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_step(cfg: ArchConfig, params, token, pos, cache,
                 opts: RuntimeOptions = RuntimeOptions()):
-    """One token a sequence; ``pos`` is unused (the state carries the
-    position). Returns (logits (B, vocab), cache advanced in place)."""
+    """One token a sequence; ``pos`` (a host int or a device int tensor) is
+    unused (the state carries the position). Returns (logits (B, vocab), cache advanced in place)."""
     x = params["embed"]["emb"][token.long()]
     for i in range(cfg.n_layers):
         x = cm.constrain(x, opts.residual_sharding)

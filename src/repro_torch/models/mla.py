@@ -89,8 +89,9 @@ def mla_prefill_attn(p, x, cfg: ArchConfig, positions):
     return cm.dense(p["o_proj"], out), (c, k_rope)
 
 
-def mla_decode_attn(p, x, cfg: ArchConfig, cache, pos: int):
-    """Absorbed decode of x (B, 1, d) at the host position ``pos``: the new
+def mla_decode_attn(p, x, cfg: ArchConfig, cache, pos):
+    """Absorbed decode of x (B, 1, d) at ``pos`` (a host int or a 0-d or
+    (1,) int32 device tensor, as ``common.write_rows`` takes it): the new
     latent and rope key land in ``cache`` ({"c": (B, Lmax, r), "k_rope":
     (B, Lmax, dr)}) in place, then f32 scores over the latent and the rope
     cache, masked past ``pos``, and the context mapped out through
@@ -99,16 +100,13 @@ def mla_decode_attn(p, x, cfg: ArchConfig, cache, pos: int):
     m = cfg.mla
     B, S, _ = x.shape                                      # S == 1
     H = cfg.n_heads
-    positions = torch.full((B, S), pos, dtype=torch.int32, device=x.device)
+    positions = cm.decode_positions(pos, B, x.device)
     q_nope, q_rope = _q_proj(p, x, cfg, positions)
     c_new, k_rope_new = _kv_latent(p, x, cfg, positions)
     cache_c, cache_kr = cache["c"], cache["k_rope"]
     L = cache_c.shape[1]
-    if not 0 <= pos <= L - S:
-        raise ValueError(f"cache write at {pos} runs past the cache length "
-                         f"{L}")
-    cache_c[:, pos:pos + S] = c_new.to(cache_c.dtype)
-    cache_kr[:, pos:pos + S] = k_rope_new.to(cache_kr.dtype)
+    cm.write_rows(cache_c, c_new, pos)
+    cm.write_rows(cache_kr, k_rope_new, pos)
     # absorb q through W_uk: (B,1,H,dn) x (H,r,dn) -> (B,1,H,r)
     q_lat = torch.einsum("bshd,hrd->bshr", q_nope, p["k_up"].to(q_nope.dtype))
     c32 = cache_c.float()

@@ -89,7 +89,7 @@ def _kv(p, xkv, cfg: ArchConfig):
             cm.dense(p["wv"], xkv).reshape(B, -1, H, hd))
 
 
-def _mha(p, xq, cfg: ArchConfig, k, v, *, mask_kind: str, q_offset: int = 0):
+def _mha(p, xq, cfg: ArchConfig, k, v, *, mask_kind: str, q_offset=0):
     """Attention of xq's queries over k, v (B, L, H, hd) -> (B, S, d)."""
     B, S, _ = xq.shape
     H, hd = cfg.n_heads, cfg.head_dim
@@ -214,21 +214,32 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
         cross.append(cross_kv)
     x = _dec_forward(cfg, params, tokens, enc_out, write,
                      opts.residual_sharding)
-    dt = cache["cross"]["k"].dtype
-    cache["cross"] = {name: torch.stack([kv[j] for kv in cross]).to(dt)
-                      for j, name in enumerate(("k", "v"))}
+    # in place when the cache already holds this many frames, so a
+    # captured decode step reads the new cross KV where it was captured
+    for j, name in enumerate(("k", "v")):
+        new = torch.stack([kv[j] for kv in cross])
+        old = cache["cross"][name]
+        if old.shape == new.shape:
+            old.copy_(new)
+        else:
+            cache["cross"][name] = new.to(old.dtype)
     return _logits(params, x[:, -1]), cache
 
 
-def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_step(cfg: ArchConfig, params, token, pos, cache,
                 opts: RuntimeOptions = RuntimeOptions()):
-    """One token a sequence: its self KV lands at the host position
-    ``pos``, where it reads its learned position too (clamped to the
-    table, as the reference's ``dynamic_slice`` clamps). Returns (logits
+    """One token a sequence: its self KV lands at ``pos`` (a host int or a
+    0-d or (1,) int32 tensor on the device), where it reads its learned
+    position too (clamped to the table, as the reference's
+    ``dynamic_slice`` clamps: on the device for a tensor). Returns (logits
     (B, vocab), cache updated in place)."""
     pos_dec = params["pos_dec"]
-    x = (params["embed"]["emb"][token.long()][:, None, :]
-         + pos_dec[min(max(pos, 0), pos_dec.shape[0] - 1)][None, None])
+    last = pos_dec.shape[0] - 1
+    if torch.is_tensor(pos):
+        row = pos_dec.index_select(0, pos.reshape(1).long().clamp(0, last))
+    else:
+        row = pos_dec[min(max(pos, 0), last)][None]
+    x = params["embed"]["emb"][token.long()][:, None, :] + row[None]
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_stack"], i)
         x = cm.constrain(x, opts.residual_sharding)

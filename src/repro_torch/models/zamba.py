@@ -68,10 +68,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, dtype="bfloat16",
 
 
 def _shared_block(sp, x, emb0, cfg: ArchConfig, positions, cache=None,
-                  pos: int = 0):
+                  pos=0):
     """x, emb0: (B, S, d) -> (delta (B, S, H*hd), (k, v)). With ``cache``
     (one site's {"k", "v"} (B, Lmax, H, hd)) the new KV lands at ``pos``
-    in place and the query attends the cache at q_offset ``pos``."""
+    (a host int or a 0-d or (1,) int32 device tensor) in place and the
+    query attends the cache at q_offset ``pos``."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     u = cm.rms_norm(torch.cat([x, emb0], dim=-1), sp["ln1"])
@@ -179,14 +180,15 @@ def prefill(cfg: ArchConfig, params, tokens, cache,
     return _logits(params, x[:, -1]), cache
 
 
-def decode_step(cfg: ArchConfig, params, token, pos: int, cache,
+def decode_step(cfg: ArchConfig, params, token, pos, cache,
                 opts: RuntimeOptions = RuntimeOptions()):
-    """One token a sequence at the host position ``pos``. Returns (logits
-    (B, vocab), cache advanced in place)."""
+    """One token a sequence at ``pos``, a host int or a 0-d or (1,) int32
+    tensor on the device. Returns (logits (B, vocab), cache advanced in
+    place)."""
     B = token.shape[0]
     x = _embed_tokens(cfg, params, token[:, None])
     emb0 = x
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = cm.decode_positions(pos, B, x.device)
     n_sites, per = _layout(cfg)
     for s in range(n_sites):
         x = cm.constrain(x, opts.residual_sharding)

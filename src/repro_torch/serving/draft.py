@@ -11,7 +11,11 @@ reference is ``repro/serving/draft.py``).
   ``spec_verify_attention`` kernel on the card) to absorb tokens the
   target committed since the last block, and the fused decode loop to
   propose. Proposed-token KV is written under an all-or-nothing
-  reservation and rolled back after every propose.
+  reservation and rolled back after every propose. With a runner
+  (``serving.graphs.BlockGraphs``) its three blocks, the reference's three
+  ``jax.jit`` sites, are captured as CUDA graphs once a shape key and
+  replayed; ``reset()`` returns it to a fresh draft's state in place, so
+  an engine keeps one draft, and its graphs, across serves.
 
 Both expose ``propose_all(items) -> {rid: [tokens]}`` (items: ``(Request,
 k)`` pairs, k >= 0 the per-request max draft length) and ``drop(rid)``
@@ -28,7 +32,9 @@ import torch
 from repro_torch.models import (RuntimeOptions, decode_steps_paged,
                                 decode_verify_paged, init_paged_cache,
                                 init_params, paged_supported,
-                                prefill_paged_chunk, resolve_device)
+                                prefill_paged_chunk, reset_paged_cache,
+                                resolve_device)
+from repro_torch.serving.graphs import capture_pending, run_block
 from repro_torch.serving.kv_manager import (PageAllocationError,
                                             PagedKVManager)
 from repro_torch.serving.scheduler import Request
@@ -64,6 +70,7 @@ class NGramDraft:
     arrived since the last call — O(tokens * n_orders) total, never an
     O(L^2) rescan. Only starts with at least one continuation token are
     indexed, so a hit always yields a non-empty proposal."""
+    capture_s = 0.0                           # prompt lookup captures none
 
     def __init__(self, *, max_ngram: int = 3, min_ngram: int = 1):
         if not 1 <= min_ngram <= max_ngram:
@@ -147,12 +154,17 @@ class ModelDraft:
     pool exhaustion the draft drops sequences not in the current batch and
     re-syncs them when they next run. ``device`` is where its weights and
     pool live (the card unless the caller asks for the CPU); ``params``
-    default to the port's seeded init of ``cfg``."""
+    default to the port's seeded init of ``cfg``. ``graphs``: the runner
+    its prefill chunk (key ``("chunk", C)``), catch-up pass (``("catchup",
+    B, Cc)``) and propose block (``("propose", B, n_steps)``) go through,
+    or None: eager. A key's capture follows its first call's block (after
+    the propose block's host pull); ``capture_s`` is the seconds the
+    captures took, which the engine leaves out of its timed bracket."""
 
     def __init__(self, cfg, params=None,
                  opts: Optional[RuntimeOptions] = None, *, page_size: int,
                  max_batch: int, max_len: int, seed: int = 1,
-                 device="cuda"):
+                 device="cuda", graphs=None):
         reason = paged_supported(cfg)
         if reason:
             raise ValueError(f"draft config lacks the paged KV path: {reason}")
@@ -169,12 +181,20 @@ class ModelDraft:
         self.max_len = max_len
         self.n_pp = -(-max_len // page_size)
         self.chunk = -(-32 // page_size) * page_size
-        n_pages = 1 + max_batch * self.n_pp
-        self.kv = PagedKVManager(n_pages, page_size)
-        self.cache = init_paged_cache(cfg, n_pages, page_size, self.opts,
-                                      self.device)
+        self.n_pages = 1 + max_batch * self.n_pp
+        self.cache = init_paged_cache(cfg, self.n_pages, page_size,
+                                      self.opts, self.device)
+        self.graphs = graphs
         self.tracer = None                    # set by the engine
         self.clock = None
+        self.reset()
+
+    def reset(self) -> None:
+        """A fresh draft's state, keeping its weights, its pool's storage
+        (reset in place) and its graphs: an empty page manager, no synced
+        request, no pass or sync counted."""
+        reset_paged_cache(self.cache)
+        self.kv = PagedKVManager(self.n_pages, self.page_size)
         self._synced: Dict[int, bool] = {}    # rid -> has draft KV
         self.host_syncs = 0                   # drained by the engine
         # the passes this draft has run: prefill chunks, catch-up passes
@@ -182,8 +202,9 @@ class ModelDraft:
         # layer on the card
         self.passes = dict(chunks=0, catchups=0, steps=0)
 
-    def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    @property
+    def capture_s(self) -> float:
+        return self.graphs.capture_s if self.graphs is not None else 0.0
 
     # ------------------------------------------------------------------ #
     def _admit(self, req: Request) -> None:
@@ -202,15 +223,22 @@ class ModelDraft:
                 self.drop(rid)
             self.kv.allocate(req.rid, landed, reserve_tokens=padded)
         C = self.chunk
-        pt = self._dev(self.kv.table_row(req.rid, self.n_pp)[None])
+        pt = np.asarray(self.kv.table_row(req.rid, self.n_pp)[None],
+                        np.int32)
+        cfg, params, cache, opts = self.cfg, self.params, self.cache, self.opts
+
+        def chunk(tokens, table, start, n_valid):
+            prefill_paged_chunk(cfg, params, tokens, cache, table, start,
+                                n_valid, opts)
         for start in range(0, landed, C):
             n_real = min(C, landed - start)
             toks = np.zeros((1, C), np.int32)
             toks[0, :n_real] = pf[start:start + n_real]
-            _, self.cache = prefill_paged_chunk(
-                self.cfg, self.params, self._dev(toks), self.cache, pt,
-                start, self._dev(np.asarray([start + n_real], np.int32)),
-                self.opts)
+            run_block(self.graphs, ("chunk", C), chunk, self.device,
+                      tokens=toks, table=pt,
+                      start=np.asarray([start], np.int32),
+                      n_valid=np.asarray([start + n_real], np.int32))
+            capture_pending(self.graphs)
             self.passes["chunks"] += 1
         self._synced[req.rid] = True
 
@@ -220,6 +248,7 @@ class ModelDraft:
             return {}
         B = self.max_batch
         assert len(items) <= B, "more drafted requests than draft slots"
+        cfg, params, cache, opts = self.cfg, self.params, self.cache, self.opts
 
         # ---- sync + catch-up bookkeeping (host) ---- #
         catchup: List[Tuple[int, Request, int, int]] = []  # slot, req, have, m
@@ -246,9 +275,14 @@ class ModelDraft:
                 fed[i] = m
                 self.kv.reserve_ahead(req.rid, m)
                 tables[i] = self.kv.table_row(req.rid, self.n_pp)
-            _, self.cache = decode_verify_paged(
-                self.cfg, self.params, self._dev(toks), self._dev(lens),
-                self._dev(fed), self._dev(tables), self.cache, self.opts)
+
+            def catchup_pass(tokens, seq_lens, n_fed, tables):
+                decode_verify_paged(cfg, params, tokens, seq_lens, n_fed,
+                                    tables, cache, opts)
+            run_block(self.graphs, ("catchup", B, Cc), catchup_pass,
+                      self.device, tokens=toks, seq_lens=lens, n_fed=fed,
+                      tables=tables)
+            capture_pending(self.graphs)
             self.passes["catchups"] += 1
             for i, req, have, m in catchup:
                 self.kv.commit_tokens(req.rid, m)
@@ -274,13 +308,18 @@ class ModelDraft:
             quota[i] = k
             inactive[i] = False
         n_steps = _next_pow2(k_top)
-        blk, self.cache = decode_steps_paged(
-            self.cfg, self.params, self._dev(tokens), self._dev(lens),
-            self._dev(tables), self.cache, n_steps, self.opts, eos_id=None,
-            done=self._dev(inactive), quota=self._dev(quota))
+
+        def propose(tokens, seq_lens, tables, done, quota, n_steps=n_steps):
+            return decode_steps_paged(cfg, params, tokens, seq_lens, tables,
+                                      cache, n_steps, opts, eos_id=None,
+                                      done=done, quota=quota)[0]
+        blk = run_block(self.graphs, ("propose", B, n_steps), propose,
+                        self.device, tokens=tokens, seq_lens=lens,
+                        tables=tables, done=inactive, quota=quota)
         self.passes["steps"] += n_steps
         blk_np = blk.cpu().numpy()
         self.host_syncs += 1       # the propose block's device->host pull
+        capture_pending(self.graphs)
         out: Dict[int, List[int]] = {}
         for i, (req, k) in enumerate(items):
             out[req.rid] = [int(t) for t in blk_np[i, :k]] if k > 0 else []

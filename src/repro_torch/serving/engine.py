@@ -12,21 +12,28 @@ offload, chiplet promotion) is charged on a virtual clock exactly as in
 the reference. On the card every prefill chunk, decode step and verify
 pass attends through the paged kernels of ``kernels.decode_attention``.
 The engine allocates its pool on its first serve and resets it in place
-on every later one. On the card at one shard, with the capacity MoE
-dispatch and no sharding in ``opts`` (``serving.graphs.capture_refusal``),
-it captures the blocks that the reference compiles with ``jax.jit``, the
-decode block, the prefill chunk and the verify pass, as CUDA graphs once a
-shape key (``serving.graphs``) and replays them (``graphs=None``, the
-default; ``graphs=False`` runs them eagerly, and so does ``None`` where
-they cannot be captured); the COW copies, the first token's sampling and
-the draft stay eager.
+on every later one, and keeps one model draft (``spec_mode="model"``),
+built on its first serve and reset in place after.
 
 ``ServeEngine(scheduler="static")``: waves of equal-length prompts over a
-dense per-wave KV cache (native or int8, int8 scales set afresh by each
-wave's prefill); ``generate`` prefills the wave (flash attention) and
+dense KV cache (native or int8, int8 scales set afresh by each wave's
+prefill), one per engine: a wave of the last wave's shape resets it in
+place, a wave of another drops it (and the graphs captured on it) before
+allocating its own; ``generate`` prefills the wave (flash attention) and
 decodes it in fused K-step greedy blocks (dense decode attention), or
 token by token when sampling; ``serve_bucketed`` groups ragged requests
 by length into waves.
+
+On the card at one shard, with the capacity MoE dispatch and no sharding
+in ``opts`` (``serving.graphs.capture_refusal``), the engine captures the
+blocks that the reference compiles with ``jax.jit`` as CUDA graphs once a
+shape key (``serving.graphs``) and replays them: the continuous engine's
+decode block, prefill chunk and verify pass, the static engine's greedy
+K-step block and sampled one-token step, and the model draft's prefill
+chunk, catch-up pass and propose block, each path with a runner of its
+own (``graphs=None``, the default; ``graphs=False`` runs them eagerly, and
+so does ``None`` where they cannot be captured). The static prefill, the
+COW copies and the first token's sampling after a chunk stay eager.
 
 Sampling draws come from ``models.sampling``'s counter-based generator
 keyed by ``(sample_seed, rid, token index)``, not JAX's threefry keys: at
@@ -69,12 +76,14 @@ from repro_torch.models import (RuntimeOptions, copy_pages, decode_step,
                                 init_paged_cache, init_params,
                                 kernel_width_reason, layer_dma_slices,
                                 paged_supported, prefill,
-                                prefill_paged_chunk, reset_paged_cache,
+                                prefill_paged_chunk, reset_cache,
+                                reset_paged_cache,
                                 resolve_device, spec_decode_verify,
                                 static_supported, torch_dtype)
 from repro_torch.models import sampling
 from repro_torch.serving import metrics
-from repro_torch.serving.graphs import BlockGraphs, capture_refusal
+from repro_torch.serving.graphs import (BlockGraphs, capture_pending,
+                                       capture_refusal, run_block)
 from repro_torch.serving.kv_manager import (PagedKVManager,
                                             SimulatedTierDevice, TierBudget,
                                             page_bytes)
@@ -232,10 +241,12 @@ class ServeEngine:
                  shards: int = 1, overlap: bool = True,
                  graphs: Optional[bool] = None):
         import dataclasses
-        # CUDA-graph capture of the continuous engine's blocks: by default
-        # wherever the blocks can be captured, eager elsewhere
-        refusal = capture_refusal(opts, device=device, shards=shards,
-                                  scheduler=scheduler)
+        if scheduler not in ("static", "continuous"):
+            raise ValueError(f"unknown scheduler {scheduler!r}")
+        # CUDA-graph capture of the engine's blocks (and of its model
+        # draft's): by default wherever they can be captured, eager
+        # elsewhere
+        refusal = capture_refusal(opts, device=device, shards=shards)
         if graphs is None:
             graphs = not refusal
         elif graphs and refusal:
@@ -280,8 +291,6 @@ class ServeEngine:
             device = self.shard.device
             opts = dataclasses.replace(opts, kv_shard=self.shard)
         self.device = resolve_device(device)
-        if scheduler not in ("static", "continuous"):
-            raise ValueError(f"unknown scheduler {scheduler!r}")
         # ---- speculative decoding / sampling configuration ---- #
         if spec_mode not in ("off", "ngram", "model"):
             raise ValueError(f"spec_mode must be one of off|ngram|model, "
@@ -338,10 +347,18 @@ class ServeEngine:
             raise ValueError(f"decode_lookahead ({decode_lookahead}) must "
                              f"be >= 1")
         self.decode_lookahead = decode_lookahead
-        # one graph a block shape key, or None: eager blocks
+        # one graph a block shape key, or None: eager blocks. The
+        # continuous engine's graphs, the static engine's (dropped with
+        # their wave's cache) and the model draft's (``graphs.sibling()``,
+        # built with the draft) are kept apart
         self.graphs: Optional[BlockGraphs] = (BlockGraphs(self.device)
                                               if graphs else None)
+        self.static_graphs: Optional[BlockGraphs] = (
+            self.graphs.sibling() if graphs else None)
         self._pool = None       # the paged KV pool, from the first serve
+        # the static cache of the last wave's shape, (shape, cache)
+        self._static = None
+        self._draft = None      # the model draft, from the first serve
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, opts.dtype, self.device)
@@ -413,23 +430,54 @@ class ServeEngine:
     def params(self, params) -> None:
         # the graphs read the weights they were captured on
         self._params = params
-        if self.graphs is not None:
-            self.graphs.clear()
+        for g in (self.graphs, self.static_graphs):
+            if g is not None:
+                g.clear()
 
-    def _block(self, key, fn, **inputs):
+    def _block(self, runner, key, fn, **inputs):
         """Run one serving block ``fn(**inputs)`` (inputs: host arrays or
-        device tensors): through its graph when the engine captures, else
-        eagerly on device copies of the inputs. Its shape ``key`` is
+        device tensors) through ``runner``, the continuous or the static
+        engine's graphs, or eagerly with None. Its shape ``key`` is
         counted among the engine's compiles by the caller."""
-        if self.graphs is None:
-            return fn(**{n: self._dev(v) for n, v in inputs.items()})
-        return self.graphs.run(key, fn, **inputs)
+        return run_block(runner, key, fn, self.device, **inputs)
 
-    def _capture(self) -> None:
-        """Capture the block whose first call just ran, outside its timed
-        bracket (no-op when nothing is pending or the engine is eager)."""
-        if self.graphs is not None:
-            self.graphs.capture_pending()
+    def _static_cache(self, B: int, L: int, pfx: int):
+        """The wave's dense cache of B sequences of L positions: the last
+        wave's, reset in place, when its shape was the same; else the old
+        one and the graphs captured on it are dropped before a new one is
+        allocated, so an engine holds one static cache. ``pfx`` (the
+        prefix rows) takes part in the shape: it sizes Whisper's cross
+        cache."""
+        shape = (B, L, pfx)
+        if self._static is not None and self._static[0] == shape:
+            reset_cache(self._static[1])
+            return self._static[1]
+        self._static = None
+        if self.static_graphs is not None:
+            self.static_graphs.clear()
+        cache = init_cache(self.cfg, B, L, self.opts, self.device)
+        self._static = (shape, cache)
+        return cache
+
+    def _model_draft(self):
+        """The engine's model draft: built on the first serve (its runner
+        a sibling of the engine's when the engine captures), reset in
+        place to a fresh draft's state on every later one, so its pool
+        and graphs live as long as the engine."""
+        if self._draft is not None:
+            self._draft.reset()
+            return self._draft
+        from repro_torch.serving.draft import ModelDraft
+        # the draft runs in the target's working dtype with a native cache
+        # (the reference's draft always runs in f32)
+        self._draft = ModelDraft(
+            self.draft_cfg, self.draft_params,
+            RuntimeOptions(dtype=self.opts.dtype),
+            page_size=self.page_size, max_batch=self.max_batch,
+            max_len=self.max_len, device=self.device,
+            graphs=None if self.graphs is None else self.graphs.sibling())
+        self.draft_params = self._draft.params  # reuse across serve() calls
+        return self._draft
 
     def _paged_pool(self, n_pages: int):
         """The pool of ``n_pages`` pages (the manager's count, the same
@@ -513,8 +561,8 @@ class ServeEngine:
         n_blocks = -(-max(max_new_tokens - 1, 0) // K)
         # the last fused block may overrun the token budget: headroom keeps
         # its (discarded) writes inside the cache
-        cache = init_cache(cfg, B, S + pfx + 1 + n_blocks * K, opts,
-                           self.device)
+        L = S + pfx + 1 + n_blocks * K
+        cache = self._static_cache(B, L, pfx)
 
         t0 = time.perf_counter()
         logits, cache = prefill(cfg, params, prompts, cache, opts,
@@ -523,9 +571,19 @@ class ServeEngine:
         self.stats.host_syncs += 1
         self.stats.prefill_s += time.perf_counter() - t0
 
+        def at(pos: int, n: int) -> torch.Tensor:
+            """The device position of a block writing n positions from
+            pos (a fill on the device, no upload); the range is checked
+            here, where pos is a host int."""
+            if not 0 <= pos <= L - n:
+                raise ValueError(f"decode of {n} positions at {pos} runs "
+                                 f"past the cache length {L}")
+            return torch.full((), pos, dtype=torch.int32, device=self.device)
+
         out: List[np.ndarray] = []
         done = np.zeros((B,), bool)
         t0 = time.perf_counter()
+        captured_s = 0.0                    # captures inside the bracket
         launched = 0                        # device decode micro-steps
         if greedy:
             tok = sampling.sample_greedy(logits)
@@ -535,6 +593,7 @@ class ServeEngine:
             while True:
                 cols = pending.cpu().numpy()
                 self.stats.host_syncs += 1
+                captured_s += capture_pending(self.static_graphs)
                 for j in range(cols.shape[1]):
                     if len(out) >= max_new_tokens:
                         break
@@ -548,14 +607,21 @@ class ServeEngine:
                     break
                 k_eff = min(K, _next_pow2(max_new_tokens - len(out)))
                 self._decode_shapes.add(("dense", B, k_eff))
-                pending, cache = decode_steps(cfg, params, tok,
-                                              S + pfx + n_sent - 1, cache,
-                                              k_eff, opts)
+
+                def block(tok, pos, k_eff=k_eff):
+                    return decode_steps(cfg, params, tok, pos, cache, k_eff,
+                                        opts)[0]
+                pending = self._block(self.static_graphs,
+                                      ("dense", B, L, k_eff), block, tok=tok,
+                                      pos=at(S + pfx + n_sent - 1, k_eff))
                 tok = pending[:, -1]
                 n_sent += k_eff
                 launched += k_eff
         else:
             rows = torch.arange(B, device=self.device)
+
+            def step(tok, pos):
+                return decode_step(cfg, params, tok, pos, cache, opts)[0]
             for i in range(max_new_tokens):
                 if noise is not None:
                     g = torch.as_tensor(np.array(noise[i], np.float32),
@@ -567,15 +633,17 @@ class ServeEngine:
                 tok = sampling.sample(logits, g, temperature=1.0)
                 out.append(tok.cpu().numpy())
                 self.stats.host_syncs += 1
+                captured_s += capture_pending(self.static_graphs)
                 if self.eos_id is not None:
                     done |= out[-1] == self.eos_id
                     if done.all():
                         break
                 if i + 1 < max_new_tokens:
-                    logits, cache = decode_step(cfg, params, tok,
-                                                S + pfx + i, cache, opts)
+                    logits = self._block(self.static_graphs, ("step", B, L),
+                                         step, tok=tok,
+                                         pos=at(S + pfx + i, 1))
                     launched += 1
-        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.decode_s += time.perf_counter() - t0 - captured_s
         self.stats.new_tokens += len(out) * B
         self.stats.requests += B
         # launched device micro-steps (may exceed emitted - 1: blocks can
@@ -680,21 +748,15 @@ class ServeEngine:
                                     prefill_budget=self.prefill_budget,
                                     tracer=trace, clock=now)
         # draft proposer + acceptance-adaptive window sizing; fresh per
-        # serve() so lookup indices / draft KV never leak across runs
+        # serve() (the model draft reset to a fresh one's state) so lookup
+        # indices / draft KV never leak across runs
         draft = adaptive = None
         if self.spec_mode == "ngram":
             from repro_torch.serving.draft import NGramDraft
             draft = NGramDraft()
             adaptive = AdaptiveSpecK(self.spec_k)
         elif self.spec_mode == "model":
-            from repro_torch.serving.draft import ModelDraft
-            # the draft runs in the target's working dtype with a native
-            # cache (the reference's draft always runs in f32)
-            draft = ModelDraft(self.draft_cfg, self.draft_params,
-                               RuntimeOptions(dtype=self.opts.dtype),
-                               page_size=ps, max_batch=B,
-                               max_len=self.max_len, device=self.device)
-            self.draft_params = draft.params    # reuse across serve() calls
+            draft = self._model_draft()
             adaptive = AdaptiveSpecK(self.spec_k)
         self.drafter = draft
         if draft is not None:
@@ -816,13 +878,13 @@ class ServeEngine:
                             cfg, params, tokens, cache, table, start,
                             n_valid, opts, calibrate=calibrate)[0]
                     logits = self._block(
-                        key, chunk, tokens=toks,
+                        self.graphs, key, chunk, tokens=toks,
                         table=np.asarray(pt, np.int32),
                         start=np.asarray([start], np.int32),
                         n_valid=np.asarray([start + n_real], np.int32))
                     _sync(self.device)   # the bracket ends with the chunk
                     dw = self._wall(w0)
-                    self._capture()
+                    capture_pending(self.graphs)
                     s = stall_charge(plan, [req], t0, dw, "prefill")
                     self.stats.host_syncs += 1
                     calibrated = True
@@ -890,11 +952,14 @@ class ServeEngine:
                 items = [(req, min(adaptive.k_for(req), req.remaining - 1))
                          for _, req in parts]
                 w0 = time.perf_counter()
+                cap = draft.capture_s
                 # a model draft ends with its proposed block's host pull;
                 # the n-gram draft is host-only and reports zero syncs
                 props = draft.propose_all(items)
                 self.stats.host_syncs += draft.take_host_syncs()
-                td = dstream.commit(t0, self._wall(w0))
+                # the draft's captures are left out of its bracket
+                td = dstream.commit(t0, self._wall(w0)
+                                    - (draft.capture_s - cap))
                 trace.engine_span("spec_propose", t0, td,
                                   {"n_seqs": len(items)}, track="decode")
                 for _, r in parts:
@@ -952,10 +1017,11 @@ class ServeEngine:
                         cache, keys, opts, **sample_kw)
                     return torch.cat([out, n_acc[:, None]], dim=1)
                 # the pass's one host pull: tokens and n_acc together
-                res = self._block(key, verify, **inputs).cpu().numpy()
+                res = self._block(self.graphs, key, verify,
+                                  **inputs).cpu().numpy()
                 out_np, nacc_np = res[:, :-1], res[:, -1]
                 dw = self._wall(w0)
-                self._capture()
+                capture_pending(self.graphs)
                 s = stall_charge(plan, [r for _, r in parts], tb, dw,
                                  "decode")
                 tv = dstream.commit(tb, s + dw)
@@ -1057,10 +1123,10 @@ class ServeEngine:
                         cfg, params, tokens, seq_lens, tables, cache,
                         n_steps, opts, eos_id=eos_id, keys=keys, done=done,
                         quota=quota, **sample_kw)[0]
-                blk = self._block(key, block, **inputs)
+                blk = self._block(self.graphs, key, block, **inputs)
                 blk_np = blk.cpu().numpy()     # the block's one host pull
                 dw = self._wall(w0)
-                self._capture()
+                capture_pending(self.graphs)
                 s = stall_charge(plan, [r for _, r in parts], t0, dw,
                                  "decode")
                 tv = dstream.commit(t0, s + dw)

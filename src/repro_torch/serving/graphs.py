@@ -1,11 +1,19 @@
-"""CUDA-graph capture of the continuous engine's serving blocks.
+"""CUDA-graph capture of the serving blocks.
 
 The reference compiles each serving block into one program with
-``jax.jit`` (``repro/serving/engine.py``), once per shape key. The port
-records each block once per key as a CUDA graph and replays it: the fused
-decode block (key ``("paged", B, n_steps)``), the prefill chunk
-(``((1, C), calibrate)``) and the verify pass (``("spec", B, n_tok)``),
-the keys the engine counts as compiles.
+``jax.jit`` (``repro/serving/engine.py``, ``repro/serving/draft.py``),
+once per shape key. The port records each block once per key as a CUDA
+graph and replays it, on three paths, each with a runner of its own:
+
+* the continuous engine: the fused decode block (key ``("paged", B,
+  n_steps)``), the prefill chunk (``((1, C), calibrate)``) and the verify
+  pass (``("spec", B, n_tok)``), the keys the engine counts as compiles;
+* the static engine: the fused greedy K-step block (``("dense", B, L,
+  k_eff)``, L the wave's cache length) and the sampled path's one-token
+  step (``("step", B, L)``); its prefill runs eagerly, once a wave;
+* the model draft: its prefill chunk (``("chunk", C)``), catch-up pass
+  (``("catchup", B, Cc)``) and propose block (``("propose", B,
+  n_steps)``).
 
 ``BlockGraphs.run(key, fn, **inputs)``, on a key's first call, copies the
 inputs into device buffers of the key's own and runs ``fn`` on them
@@ -13,10 +21,10 @@ eagerly: that is the block's result, and the warm-up of cuBLAS and of the
 kernels' one-time attributes. ``capture_pending()``, called after the
 block's host pull and outside its timed bracket, then records ``fn`` on
 the same buffers into a graph with a private memory pool (a capture
-records and does not execute, so the KV pool is written once). Every later
-call of the key copies its inputs into the buffers and replays the graph;
-its outputs are the graph's, overwritten by the key's next replay. There
-is no fallback: a capture or a replay that fails raises.
+records and does not execute, so the KV cache is written once). Every
+later call of the key copies its inputs into the buffers and replays the
+graph; its outputs are the graph's, overwritten by the key's next replay.
+There is no fallback: a capture or a replay that fails raises.
 
 The kernel entries' launch counters (``.launches`` and
 ``.launches_by_heads`` of ``kernels.entries()``) and the masked
@@ -78,19 +86,18 @@ _SHARDING_FIELDS = ("kv_shard", "residual_sharding", "moe_expert_sharding",
                     "seq_shard_mesh", "moe_shard_map_mesh")
 
 
-def capture_refusal(opts, *, device, shards: int, scheduler: str) -> str:
-    """Why an engine of these settings cannot capture its blocks, or ""
-    when it can: capture needs a CUDA device, one shard (gloo's
-    ``all_gather`` in ``kernels.sharded`` goes through the host), the
-    continuous scheduler, the capacity MoE dispatch (the ragged one reads
-    its group offsets to the host, the shard-local one exchanges over the
-    ranks) and no sharding or mesh in ``opts``."""
+def capture_refusal(opts, *, device, shards: int) -> str:
+    """Why an engine of these settings cannot capture its blocks (the
+    continuous or the static engine's, and its model draft's: every path
+    captures on the same conditions), or "" when it can: capture needs a
+    CUDA device, one shard (gloo's ``all_gather`` in ``kernels.sharded``
+    goes through the host), the capacity MoE dispatch (the ragged one
+    reads its group offsets to the host, the shard-local one exchanges
+    over the ranks) and no sharding or mesh in ``opts``."""
     if torch.device(device).type != "cuda":
         return f"device={device!r} is not a CUDA device"
     if shards != 1:
         return f"shards={shards} all-gathers through the host"
-    if scheduler != "continuous":
-        return f"scheduler={scheduler!r} has no captured blocks"
     if opts.moe_impl != "capacity":
         return (f"moe_impl={opts.moe_impl!r} syncs or communicates inside "
                 f"a block")
@@ -98,6 +105,26 @@ def capture_refusal(opts, *, device, shards: int, scheduler: str) -> str:
         if getattr(opts, name):
             return f"RuntimeOptions.{name} is set"
     return ""
+
+
+def run_block(runner, key, fn, device, **inputs):
+    """The block ``fn(**inputs)`` (inputs: host arrays or tensors) of shape
+    ``key``: through ``runner`` (a ``BlockGraphs``), or with None eagerly
+    on copies of the inputs on ``device``."""
+    if runner is None:
+        return fn(**{n: torch.as_tensor(v, device=device)
+                     for n, v in inputs.items()})
+    return runner.run(key, fn, **inputs)
+
+
+def capture_pending(runner) -> float:
+    """``runner.capture_pending()`` (None: eager, nothing to capture);
+    returns the capture's seconds, for a timed bracket that spans it."""
+    if runner is None:
+        return 0.0
+    t = runner.capture_s
+    runner.capture_pending()
+    return runner.capture_s - t
 
 
 def _counts() -> dict:
@@ -155,8 +182,13 @@ class BlockGraphs:
     def __len__(self) -> int:
         return sum(b.graph is not None for b in self._blocks.values())
 
+    def sibling(self) -> "BlockGraphs":
+        """An empty runner on the same device and graph maker, for blocks
+        whose graphs are kept and dropped apart from this one's."""
+        return BlockGraphs(self.device, self._new_graph)
+
     def clear(self) -> None:
-        """Drop every graph: the weights or the pool they were captured
+        """Drop every graph: the weights or the cache they were captured
         on have been replaced."""
         self._blocks.clear()
         self._pending = None

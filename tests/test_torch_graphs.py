@@ -8,8 +8,10 @@ the reference's engine; the runner's bookkeeping through stand-ins for the
 CUDA graph (one capture a key, an eager first call, exact launch counters,
 inputs through the static buffers), and the whole engine served through
 the runner with a stand-in that re-runs the block on replay; and
-``graphs=True`` refused on the CPU and at two shards before any weights
-are drawn. The card's own cases (captured against eager at llama3.2-1b's
+``graphs=True`` refused on the CPU, at two shards and with a MoE dispatch
+other than capacity (on either engine) before any weights are drawn. The
+static engine's and the model draft's blocks through the runner are in
+``tests/test_torch_static_graphs.py``. The card's own cases (captured against eager at llama3.2-1b's
 width, two replays bitwise) are in ``tests/test_torch_graphs_cuda.py``,
 which imports no JAX."""
 import collections
@@ -379,12 +381,13 @@ UNCAPTURABLE = {"ragged": dict(moe_impl="ragged"),
 @pytest.mark.parametrize("kw", [dict(device="cpu"),
                                 dict(device="cpu", shards=2),
                                 dict(device="cuda", shards=2),
-                                dict(device="cuda", scheduler="static")]
+                                dict(device="cuda", scheduler="static",
+                                     opts=dict(moe_impl="ragged"))]
                          + [dict(device="cuda", opts=o)
                             for o in UNCAPTURABLE.values()])
 def test_graphs_true_refused_before_weights(models, monkeypatch, kw):
-    """``graphs=True`` needs the card, one shard, the continuous engine,
-    the capacity MoE dispatch and no sharding in the options; it is
+    """``graphs=True`` needs the card, one shard, the capacity MoE
+    dispatch and no sharding in the options, on either engine; it is
     refused before weights are drawn or ranks spawned."""
     def never(*a, **k):
         raise AssertionError("reached past the graphs check")
@@ -399,18 +402,23 @@ def test_graphs_true_refused_before_weights(models, monkeypatch, kw):
         ServeEngine(tcfg, None, **args)
 
 
-@pytest.mark.parametrize("opts", ["capacity"] + list(UNCAPTURABLE))
+@pytest.mark.parametrize("opts", ["capacity", "static"]
+                         + list(UNCAPTURABLE))
 def test_graphs_default_on_the_card(models, monkeypatch, opts):
-    """``graphs=None`` on a CUDA device captures with the default options
-    and serves eagerly with options whose blocks cannot be captured (the
-    device is resolved to the CPU here, so the engine can be built)."""
+    """``graphs=None`` on a CUDA device captures with the default options,
+    on the continuous and on the static engine ("static"), and serves
+    eagerly with options whose blocks cannot be captured (the device is
+    resolved to the CPU here, so the engine can be built)."""
     monkeypatch.setattr(tengine, "resolve_device",
                         lambda device: torch.device("cpu"))
     monkeypatch.setattr(tengine, "kernel_width_reason", lambda *a: "")
     _, tcfg, _, tp = models
     o = tm.RuntimeOptions(dtype="float32", **UNCAPTURABLE.get(opts, {}))
-    eng = ServeEngine(tcfg, tp, o, device="cuda", **KW)
-    assert (eng.graphs is None) == (opts != "capacity")
+    kw = dict(KW, scheduler="static") if opts == "static" else KW
+    eng = ServeEngine(tcfg, tp, o, device="cuda", **kw)
+    captured = opts in ("capacity", "static")
+    assert (eng.graphs is None) == (eng.static_graphs is None) == (
+        not captured)
 
 
 def test_graphs_default(models):

@@ -1,10 +1,13 @@
-"""CUDA-graph capture of the continuous engine's blocks on the card:
-llama3.2-1b at full width cut to 2 layers, bf16, served captured (the
-default on the card) and eager (``graphs=False``) with equal tokens,
-counters and launches (native, int8, n-gram k=4, sampled), and one
-decode block replayed twice from one pool state bitwise equal to its
-eager run. Every test is marked ``cuda`` and skips without a card; the
-file imports no JAX, so it runs on a machine that has none:
+"""CUDA-graph capture of the engines' blocks on the card: llama3.2-1b at
+full width cut to 2 layers, bf16, served captured (the default on the
+card) and eager (``graphs=False``) with equal tokens, counters and
+launches: the continuous engine (native, int8, n-gram k=4, sampled), the
+static engine (greedy native and int8 waves of two shapes, a sampled
+wave) and the model draft (self-draft, k=4, with ``draft.passes``); one
+paged decode block and one static K=8 block each replayed twice from one
+cache state bitwise equal to its eager run. Every test is marked ``cuda``
+and skips without a card; the file imports no JAX, so it runs on a
+machine that has none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs_cuda.py
 """
@@ -128,6 +131,88 @@ def test_two_replays_bitwise(llama):
         torch.cuda.synchronize()
         results.append((toks, {n: t.clone() for n, t in
                                pool["stack"].items()}))
+        runner.capture_pending()
+    assert runner.captures == 1
+    for toks, rows in results[1:]:
+        assert torch.equal(toks, results[0][0])
+        for n, t in rows.items():
+            assert torch.equal(t, results[0][1][n]), n
+
+
+def _static(cfg, params, graphs, policy):
+    eng = ServeEngine(cfg, params, tm.RuntimeOptions(dtype="bfloat16"),
+                      device="cuda", scheduler="static", kv_policy=policy,
+                      decode_lookahead=8, max_len=160, graphs=graphs)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(1, cfg.vocab, size=n).tolist()
+            for n in (40, 40, 40, 96, 96)]
+    before = _launches()
+    outs = [eng.serve([r[:] for r in reqs], 20),
+            eng.generate(np.asarray(reqs[:3]), 12, greedy=False, seed=2)]
+    after = _launches()
+    return eng, outs, {n: after[n][0] - before[n][0] for n in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["native", "int8"])
+def test_captured_static_serve_equals_eager(llama, policy):
+    cfg, params = llama
+    eager, want, want_l = _static(cfg, params, False, policy)
+    eng, got, got_l = _static(cfg, params, None, policy)
+    assert eager.static_graphs is None and eng.static_graphs is not None
+    assert got == want and got_l == want_l
+    assert ({c: getattr(eng.stats, c) for c in COUNTERS}
+            == {c: getattr(eager.stats, c) for c in COUNTERS})
+    # two greedy wave shapes, each with blocks of 8 and a tail of 4 (20
+    # new tokens), and the sampled wave's one-token step
+    assert eng.static_graphs.captures == 5
+
+
+@pytest.mark.cuda
+def test_captured_draft_serve_equals_eager(llama):
+    cfg, params = llama
+    kw = dict(spec_mode="model", spec_k=4, draft_cfg=cfg,
+              draft_params=params, overlap=False)
+    eager, want, want_l = _serve(cfg, params, False, kw)
+    eng, got, got_l = _serve(cfg, params, None, kw)
+    assert eager.drafter.graphs is None and eng.drafter.graphs is not None
+    assert got == want and got_l == want_l
+    assert ({c: getattr(eng.stats, c) for c in COUNTERS}
+            == {c: getattr(eager.stats, c) for c in COUNTERS})
+    assert eng.drafter.passes == eager.drafter.passes
+    g = eng.drafter.graphs
+    assert g.captures == len(g._blocks) > 0
+    n = (eng.graphs.captures, g.captures)
+    assert eng.serve(_requests(cfg.vocab), 24) == got
+    assert (eng.graphs.captures, g.captures) == n
+
+
+@pytest.mark.cuda
+def test_two_static_replays_bitwise(llama):
+    """One K=8 static block (B=4, 100 cached positions of a seeded random
+    cache) at a device position: its eager run and two replays from the
+    same cache state give the same tokens and cache bitwise."""
+    cfg, params = llama
+    opts = tm.RuntimeOptions(dtype="bfloat16")
+    cache = tm.init_cache(cfg, 4, 120, opts, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for t in cache["stack"].values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    start = {n: t.clone() for n, t in cache["stack"].items()}
+
+    def block(tok, pos):
+        return tm.decode_steps(cfg, params, tok, pos, cache, 8, opts)[0]
+    runner = BlockGraphs("cuda")
+    results = []
+    for _ in range(3):
+        for n, t in cache["stack"].items():
+            t.copy_(start[n])
+        toks = runner.run("block", block,
+                          tok=np.arange(1, 5, dtype=np.int32),
+                          pos=np.asarray(100, np.int32)).clone()
+        torch.cuda.synchronize()
+        results.append((toks, {n: t.clone() for n, t in
+                               cache["stack"].items()}))
         runner.capture_pending()
     assert runner.captures == 1
     for toks, rows in results[1:]:
